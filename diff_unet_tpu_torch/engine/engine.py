@@ -1,10 +1,13 @@
 """Inference engine (counterpart of the inference part of ``Engine`` and of
 ``Predictor`` in ``diff_unet_tpu/engine/engine.py``).
 
-``Predictor`` is built from the keys of a test config (``cfg/btcv/test.yaml``
-or keyword arguments), holds a ``DiffSwinUNETR`` with seeded random weights
-(or weights loaded with ``utils.weights.load_jax_params``), and serves whole
-volumes: ``infer(volume) -> (logits, binary)`` and ``serve(volumes)``.
+``Predictor`` is built from the keys of a test config (``cfg/amos/test.yaml``
+for ``diff_unet``, ``cfg/btcv/test.yaml`` for ``diff_swin_unetr``, or
+keyword arguments), holds the model with seeded random weights (or weights
+loaded with ``utils.weights.load_jax_params``), and serves whole volumes:
+``infer(volume) -> (logits, binary)`` and ``serve(volumes)``. It runs on
+``device`` (default ``cuda``) and raises where there is no card unless the
+caller asks for ``device="cpu"``.
 
 Precision follows ``use_amp``: true computes in bf16 with float32
 parameters, float32 norm/softmax statistics and a float32 DDIM state. The
@@ -15,7 +18,7 @@ engine turns TF32 off for both cuBLAS matmuls and cuDNN convolutions
 from __future__ import annotations
 
 import warnings
-from typing import Iterable, List, Optional, Tuple, Union
+from typing import Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -34,7 +37,7 @@ from diff_unet_tpu_torch.utils.weights import init_random
 _IGNORED_KEYS = frozenset((
     "data_name", "data_path", "batch_size", "num_workers", "losses",
     "loss_combine", "project_name", "wandb_name", "log_dir", "use_wandb",
-    "use_cache", "label_smoothing", "features", "smoothing_alpha",
+    "use_cache", "label_smoothing", "smoothing_alpha",
     "smoothing_order", "lambda_decay", "mode", "epoch", "use_ema",
     "save_volumes", "continuous", "compile_cache", "num_devices",
     "spatial_shards", "quant_calibrate", "noise_ratio",
@@ -48,6 +51,7 @@ class Engine:
                  timesteps: int = 1000,
                  sample_steps: int = 10, classes: Optional[str] = None,
                  include_background: bool = False, feature_size: int = 48,
+                 features: Optional[Sequence[int]] = None,
                  use_amp: bool = True, seed: int = 123,
                  sw_mode: str = "constant", pack: Optional[int] = None,
                  quantize: bool = False, model_path: Optional[str] = None,
@@ -68,9 +72,11 @@ class Engine:
                 "checkpoint loading is not ported yet (ROADMAP.md); pass "
                 "model_path=None for seeded random weights, or load a JAX "
                 "parameter tree with utils.weights.load_jax_params")
-        self.device = torch.device(
-            device if device is not None
-            else ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {self.device} requested but torch.cuda.is_available()"
+                " is false; pass device='cpu' to run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
@@ -87,7 +93,7 @@ class Engine:
         self.module = create_model(
             model_name, out_channels=self.num_classes, image_size=image_size,
             spatial_size=spatial_size, feature_size=feature_size,
-            dtype=self.dtype)
+            features=features, dtype=self.dtype)
         init_random(self.module, seed)
         self.module.to(self.device).eval().requires_grad_(False)
         self.seg = DiffusionSegmenter(

@@ -1,9 +1,9 @@
 """Model factory (counterpart of ``create_model`` in
-``diff_unet_tpu/models/model_hub.py``). Only ``diff_swin_unetr`` is ported
-so far."""
+``diff_unet_tpu/models/model_hub.py``). ``diff_unet`` and
+``diff_swin_unetr`` are ported so far."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -25,8 +25,15 @@ def parse_image_size(image_size: int, spatial_size: int
 def create_model(model_name: str, *, in_channels: int = 1,
                  out_channels: int, image_size: int = 96,
                  spatial_size: int = 96, feature_size: int = 48,
+                 features: Optional[Sequence[int]] = None,
                  dtype: Optional[torch.dtype] = None):
-    """Build a model module by name."""
+    """Build a model module by name. ``features`` sets DiffUNet's six
+    level widths (default (64, 64, 128, 256, 512, 64))."""
+    if model_name == "diff_unet":
+        from diff_unet_tpu_torch.models.diff_unet import DiffUNet
+        kw = {"features": tuple(features)} if features else {}
+        return DiffUNet(out_channels=out_channels, in_channels=in_channels,
+                        dtype=dtype, **kw)
     if model_name == "diff_swin_unetr":
         from diff_unet_tpu_torch.models.swin_unetr import DiffSwinUNETR
         return DiffSwinUNETR(

@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "diff_unet_tpu_torch"
-SOURCES = ("window_attention.cu", "window_shift.cu")
+SOURCES = ("window_attention.cu", "window_shift.cu", "conv3d.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -78,6 +78,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.window_attention_forward.restype = i
     lib.shift_windows_forward.argtypes = [p, p, p, ll, ll, i, p]
     lib.shift_windows_forward.restype = i
+    lib.conv3x3_forward.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, p,
+                                    p, f, f, p, p, i, i, i, i, i, i, i, i,
+                                    p]
+    lib.conv3x3_forward.restype = i
     lib.kernels_error_string.argtypes = [i]
     lib.kernels_error_string.restype = ctypes.c_char_p
     return lib

@@ -2,7 +2,9 @@
 
 Counterparts of ``flax.linen`` ``Dense``/``Conv``/``ConvTranspose``/
 ``LayerNorm`` and of ``diff_unet_tpu/ops/blocks.py`` (``swish``,
-``timestep_embedding``, ``TimestepEmbedder``, ``InstanceNorm``). Parameters
+``timestep_embedding``, ``TimestepEmbedder``, ``InstanceNorm``, and the
+DiffUNet blocks ``ConvNormAct``, ``TwoConv``, ``Down``, ``UpCat`` with
+instance norm and LeakyReLU). Parameters
 are float32; ``dtype`` is the compute dtype (bf16 under ``use_amp``), to
 which inputs and weights are cast at each call, as flax does. ``None``
 computes in the promoted dtype of input and weights.
@@ -10,11 +12,13 @@ computes in the promoted dtype of input and weights.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from diff_unet_tpu_torch.ops.conv3d import conv3x3, norm_affine_from_stats
 
 TEMB_DIM = 128
 TEMB_FEATURES = 512
@@ -183,3 +187,109 @@ class InstanceNorm(nn.Module):
         a = scale.to(x.dtype)
         b = (self.bias.float() - mean * scale).to(x.dtype)
         return (x * a + b).to(self.dtype or x.dtype)
+
+
+class ConvNormAct(nn.Module):
+    """Conv3D(k3, same, bias) -> InstanceNorm -> LeakyReLU, unfused (MONAI
+    'NDA' order). ``TwoConv`` runs these parameters through the fused conv
+    kernel; this composition is the reference it is held against."""
+
+    def __init__(self, in_features: int, features: int,
+                 negative_slope: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.negative_slope = negative_slope
+        self.conv = Conv(in_features, features, 3, dtype=dtype)
+        self.norm = InstanceNorm(features, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(self.norm(self.conv(x)), self.negative_slope)
+
+
+class TwoConv(nn.Module):
+    """conv_0 -> IN -> LeakyReLU [-> + temb_proj(swish(temb))] -> conv_1 ->
+    IN -> LeakyReLU, executed as the fused chain of the JAX package's
+    ``PallasFusedTwoConv``: each conv returns its f32 (sum, sum of squares)
+    per (sample, channel); the first norm, activation and FiLM add run as
+    the second conv's input prologue; the second norm and activation are one
+    multiply-add and a LeakyReLU. ``parts`` is the input as a list of
+    tensors whose channel concat is the conv input (the UpCat skip and
+    upsampled maps; the denoiser's image and x_t)."""
+
+    def __init__(self, in_features: int, features: int, use_temb: bool = True,
+                 negative_slope: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.negative_slope = negative_slope
+        self.conv_0 = ConvNormAct(in_features, features, negative_slope,
+                                  dtype=dtype)
+        self.temb_proj = (Dense(TEMB_FEATURES, features, dtype=dtype)
+                          if use_temb else None)
+        self.conv_1 = ConvNormAct(features, features, negative_slope,
+                                  dtype=dtype)
+
+    def forward(self, parts: Union[torch.Tensor, List[torch.Tensor]],
+                temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if isinstance(parts, torch.Tensor):
+            parts = [parts]
+        c0, c1 = self.conv_0, self.conv_1
+        slope = self.negative_slope
+        dt = _compute_dtype(self.dtype, parts[0], c0.conv.weight)
+        parts = [p.to(dt).contiguous() for p in parts]
+        count = math.prod(parts[0].shape[1:4])
+        y0, st0 = conv3x3(parts, c0.conv.weight, c0.conv.bias,
+                          with_stats=True)
+        a0, b0 = norm_affine_from_stats(st0, c0.norm.weight, c0.norm.bias,
+                                        count)
+        film = None
+        if self.temb_proj is not None and temb is not None:
+            film = self.temb_proj(swish(temb)).float()
+        y1, st1 = conv3x3([y0], c1.conv.weight, c1.conv.bias,
+                          prologue=(a0, b0, film, slope), with_stats=True)
+        a1, b1 = norm_affine_from_stats(st1, c1.norm.weight, c1.norm.bias,
+                                        count)
+        y = (y1 * a1.to(dt)[:, None, None, None]
+             + b1.to(dt)[:, None, None, None])
+        return F.leaky_relu(y, slope)
+
+
+class Down(nn.Module):
+    """2x max-pool, then TwoConv (scope ``convs``)."""
+
+    def __init__(self, in_features: int, features: int, use_temb: bool = True,
+                 negative_slope: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.convs = TwoConv(in_features, features, use_temb, negative_slope,
+                             dtype=dtype)
+
+    def forward(self, x: torch.Tensor,
+                temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = F.max_pool3d(x.permute(0, 4, 1, 2, 3), 2).permute(0, 2, 3, 4, 1)
+        return self.convs([x], temb)
+
+
+class UpCat(nn.Module):
+    """2x transposed conv (scope ``upsample``), replicate-pad to the skip's
+    shape where it has odd edges, then TwoConv over [skip, upsampled]
+    (scope ``convs``)."""
+
+    def __init__(self, in_features: int, skip_features: int,
+                 up_features: int, features: int, use_temb: bool = True,
+                 negative_slope: float = 0.1,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.upsample = ConvTranspose(in_features, up_features, dtype=dtype)
+        self.convs = TwoConv(skip_features + up_features, features, use_temb,
+                             negative_slope, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, x_skip: torch.Tensor,
+                temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x0 = self.upsample(x)
+        pads = [s - u for s, u in zip(x_skip.shape[1:4], x0.shape[1:4])]
+        if any(pads):
+            x0 = F.pad(x0.permute(0, 4, 1, 2, 3),
+                       (0, pads[2], 0, pads[1], 0, pads[0]),
+                       mode="replicate").permute(0, 2, 3, 4, 1)
+        return self.convs([x_skip, x0], temb)

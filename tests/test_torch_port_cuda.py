@@ -1,5 +1,6 @@
 """PyTorch port on a CUDA card: each kernel against its plain version, the
-wrappers' input checks, and a tiny Predictor run through both kernels.
+wrappers' input checks, and tiny Predictors (DiffSwinUNETR, DiffUNet) run
+through their kernels.
 
 Marked ``cuda`` and skipped where there is no card. This file imports no
 jax (the card's machine has none); run it there without the repository's
@@ -11,6 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from diff_unet_tpu_torch.ops.conv3d import (
+    KERNEL_TOL,
+    STATS_TOL,
+    conv3x3,
+    conv3x3_plain,
+)
 from diff_unet_tpu_torch.ops.swin import window_region_ids
 from diff_unet_tpu_torch.ops.window_attention import (
     window_attention,
@@ -103,6 +110,93 @@ def test_predictor_serves_through_both_kernels(dev):
     assert got.shape == binary.shape == (40, 36, 20, 13)
     one, _ = Predictor(device=dev, sw_batch_size=1, **kw).infer(vol)
     assert (one - got).abs().max().item() <= 1e-4
+
+    win = torch.rand((1, 32, 32, 32, 1), generator=g)
+    noise = torch.randn((1, 32, 32, 32, 13), generator=g)
+    with torch.inference_mode():
+        want = Predictor(device="cpu", **kw).seg.ddim_sample(win, noise=noise)
+        on_card = card.seg.ddim_sample(win.to(dev), noise=noise.to(dev))
+    assert (on_card.cpu() - want).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chans,prologue,stats", [
+    ([1], False, True), ([1, 15], False, True), ([64], True, True),
+    ([64, 64], False, True), ([64], False, False), ([3, 5], True, False),
+])
+@pytest.mark.parametrize("shape", [(2, 6, 7, 9), (1, 8, 8, 8)])
+def test_conv3x3_kernel_matches_plain(dev, dtype, chans, prologue, stats,
+                                      shape):
+    """Odd W, parts that split the channels, the prologue and statistics
+    on and off; bias and LeakyReLU epilogue on the one-part cases."""
+    g = torch.Generator(device=dev).manual_seed(sum(chans) + shape[1])
+    n, cin, cout = shape[0], sum(chans), 24
+    parts = [torch.randn((*shape, c), generator=g, device=dev).to(dtype)
+             for c in chans]
+    w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) \
+        / (27 * cin) ** 0.5
+    b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+    pro = None
+    if prologue:
+        pro = (1 + 0.3 * torch.randn((n, cin), generator=g, device=dev),
+               0.3 * torch.randn((n, cin), generator=g, device=dev),
+               0.2 * torch.randn((n, cin), generator=g, device=dev), 0.1)
+    slope = 0.1 if len(chans) == 1 else None
+    before = conv3x3.launches
+    got = conv3x3(parts, w, b, prologue=pro, negative_slope=slope,
+                  with_stats=stats)
+    want = conv3x3_plain(parts, w, b, prologue=pro, negative_slope=slope,
+                         with_stats=stats)
+    torch.cuda.synchronize()
+    assert conv3x3.launches == before + 1
+    if stats:
+        (got, gst), (want, wst) = got, want
+        scale = wst.abs().max().item()
+        assert (gst - wst).abs().max().item() <= STATS_TOL * scale
+    assert got.dtype == dtype and got.shape == (*shape, cout)
+    scale = max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= KERNEL_TOL[dtype] * scale
+
+
+def test_conv3x3_checks_inputs(dev):
+    x = torch.zeros((1, 4, 4, 4, 8), device=dev)
+    w = torch.zeros((8, 8, 3, 3, 3), device=dev)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        conv3x3([x], w.requires_grad_())
+    with torch.no_grad():
+        w = w.detach()
+        with pytest.raises(TypeError, match="dtype"):
+            conv3x3([x.half()], w)
+        with pytest.raises(ValueError, match="contiguous"):
+            conv3x3([x.transpose(1, 2)], w)
+        with pytest.raises(ValueError, match="weight"):
+            conv3x3([x, x], w)
+        with pytest.raises(ValueError, match="does not match"):
+            conv3x3([x, x.bfloat16()], torch.zeros((8, 16, 3, 3, 3),
+                                                    device=dev))
+        with pytest.raises(ValueError, match="prologue"):
+            conv3x3([x], w, prologue=(torch.ones(2, 8), torch.ones(2, 8),
+                                      None, 0.1))
+
+
+def test_diff_unet_predictor_serves_through_the_conv_kernel(dev):
+    """Every 3x3x3 conv of a tiny DiffUNet goes through the kernel: 10 in
+    the encoder and 18 per denoiser step, per window batch. The card is
+    held against the CPU on one window with the same injected noise."""
+    from diff_unet_tpu_torch.engine.engine import Predictor
+
+    kw = dict(model_name="diff_unet", features=(8, 8, 16, 32, 64, 8),
+              image_size=32, spatial_size=32, sample_steps=2, use_amp=False,
+              seed=1)
+    g = torch.Generator().manual_seed(0)
+    vol = torch.rand((32, 36, 32, 1), generator=g)
+    card = Predictor(device=dev, sw_batch_size=2, **kw)
+    conv3x3.launches = 0
+    got, binary = card.infer(vol)        # 2 windows: one batch of 2
+    assert conv3x3.launches == 10 + 18 * 2
+    assert got.shape == binary.shape == (32, 36, 32, 13)
+    assert torch.isfinite(got).all()
 
     win = torch.rand((1, 32, 32, 32, 1), generator=g)
     noise = torch.randn((1, 32, 32, 32, 13), generator=g)

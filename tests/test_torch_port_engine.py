@@ -121,6 +121,27 @@ def test_predictor_config_handling():
         Predictor(pack=2, device="cpu")
 
 
+def test_predictor_without_a_card_raises_unless_asked_for_cpu():
+    """The default device is the card; there is no silent CPU fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    kw = dict(model_name="diff_unet", features=(8, 8, 16, 32, 64, 8),
+              image_size=32, spatial_size=32, use_amp=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(**kw)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Predictor(device="cuda:0", **kw)
+    assert Predictor(device="cpu", **kw).device.type == "cpu"
+
+
+def test_predictor_passes_features_through():
+    p = Predictor(model_name="diff_unet", features=[8, 8, 16, 32, 64, 8],
+                  image_size=32, spatial_size=32, use_amp=False,
+                  device="cpu")
+    assert p.module.model.down_4.convs.conv_1.conv.weight.shape[0] == 64
+    assert p.module.model.final_conv.weight.shape[:2] == (13, 8)
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "cfg").glob("*/*.yaml")))
 def test_flat_yaml_reader_matches_jax_config(path):

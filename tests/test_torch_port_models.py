@@ -135,7 +135,7 @@ def test_create_model_and_seeded_init():
         assert torch.equal(a, b), k
     assert isinstance(m1, TModel)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("diff_unet", out_channels=2)
+        create_model("smooth_diff_unet", out_channels=2)
     with pytest.raises(ValueError):
         create_model("nope", out_channels=2)
     with pytest.raises(ValueError, match="2\\^5"):
