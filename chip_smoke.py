@@ -6,7 +6,8 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
 PyTorch built for CUDA. Phases, each of which must pass:
 
 1. the card: name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``diff_unet_tpu_torch/csrc`` with ``nvcc``;
+2. build the CUDA kernels from ``diff_unet_tpu_torch/csrc`` with ``nvcc``
+   (one process per source, in parallel);
 3. every kernel against its plain PyTorch version on the card at the
    shapes its slice gives it, with CUDA-event times of the kernel, the
    plain version and one PyTorch library call computing the same function
@@ -23,23 +24,44 @@ PyTorch built for CUDA. Phases, each of which must pass:
       the other TPU conv kernels (bias and LeakyReLU; no bias), bf16 and
       fp32 (library: ``F.conv3d`` on the channels_last_3d view in the same
       dtype, with ``var_mean`` of the output where statistics are on);
+   c. the window partition (zero padding fused) and its reverse (crop
+      fused) at the four Swin stage geometries, B = 1 and 2, bf16 and fp32,
+      bit-exact (library: ``index_select`` of the pre-padded token rows by
+      the partition table);
+   d. the backwards: the shift's backward kernel and the partition's
+      adjoint pair against autograd through the plain versions, bit-exact;
+      the attention's gradients (qkv and bias; the backward recomputes the
+      plain version) at the four stage geometries of a training batch,
+      within 1e-4 (fp32) and 3e-2 (bf16) of each gradient's max |g|;
 4. small models on the card against the same weights on the CPU's plain
    path, fp32 with TF32 off: a DiffSwinUNETR denoiser step (feature 12,
-   32^3) and a DiffUNet denoiser step (features (8, 8, 16, 32, 64, 8),
-   32^3);
-5. each slice at full width, a ``Predictor`` from the repository's config
-   with seeded random weights serving synthetic CT volumes; outputs are
-   checked for shape, finiteness and a binary mask:
+   32^3), a DiffUNet denoiser step (features (8, 8, 16, 32, 64, 8), 32^3),
+   and two DiffSwinUNETR train steps (feature 12, 32^3, the same t and
+   noise): loss, grad norm, every gradient, and the parameters after them
+   within 2 lr per step;
+5. each slice at full width from the repository's config with seeded
+   random weights:
    a. ``cfg/btcv/test.yaml`` (diff_swin_unetr, feature 48, 13 classes,
-      96^3 ROI, sw_batch_size 2, overlap 0.25, DDIM-10, bf16); both Swin
-      kernels' launch counters must have grown;
+      96^3 ROI, sw_batch_size 2, overlap 0.25, DDIM-10, bf16): a
+      ``Predictor`` serves synthetic CT volumes; each Swin kernel must have
+      run its exact count per window batch;
    b. ``cfg/amos/test.yaml`` (diff_unet, features (64, 64, 128, 256, 512,
       64), 15 classes, 96^3 ROI, sw_batch_size 4, overlap 0.25, DDIM-10,
-      bf16); the conv kernel must have run exactly 10 + 18 * 10 times per
-      window batch.
+      bf16): the conv kernel must have run exactly 10 + 18 * 10 times per
+      window batch;
+   c. ``cfg/btcv/train.yaml`` (diff_swin_unetr, feature 48, 13 classes +
+      background, 96^3 patches, batch 1, bf16 over fp32 parameters,
+      mse+bce+dice, label smoothing, AdamW with warmup-cosine): a
+      ``Trainer`` takes ``TRAIN_STEPS`` steps on synthetic batches
+      (``max_epochs`` 1: the warmup does not depend on it); losses and
+      grad norms finite, parameters moved, and each Swin kernel's exact
+      count per step, forward and backward; then the median s/step of
+      the trainer's step over the same batches with the card synchronised
+      around each step, and the peak device memory of ``train()``.
 
-Each path is driven with its kernels' launch counters set to 0 just before
-it and read just after. It prints one JSON line with the kernels (times,
+Serving outputs are checked for shape, finiteness and a binary mask. Each
+path is driven with its kernels' launch counters set to 0 just before it
+and read just after. It prints one JSON line with the kernels (times,
 error, launches, and the least time the card could take, from this run's
 shapes and the H100 SXM peaks), then, last, one JSON line with
 ``"ok": true`` and the device. Any failed phase exits non-zero before that.
@@ -63,6 +85,7 @@ MODEL_TOL = 1e-3
 # rate of each type on the unit that the kernels use
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HOLD_CYCLES = 100_000_000     # about 50 ms of the SM clock
 # (tag, part channels, Cout, side, prologue, stats, bias, LeakyReLU) for
 # every distinct 3x3x3 conv of DiffUNet at a 96^3 ROI with sw_batch_size 4
 # (N = 4); then the switches of the other TPU conv kernels at the L0 shape
@@ -97,6 +120,21 @@ ATTN_CASES = [
     ("stage4", 2, 24, 216, None),
 ]
 SHIFT_CASES = [((7, 7, 7), 48), ((4, 4, 4), 96), ((2, 2, 2), 192)]
+# (stage, side of the stage's input, C, window) for a 96^3 ROI: 48^3 pads
+# to 49^3, 24^3 to 28^3, 12^3 to 14^3; at 6^3 the window clamps to 6
+PARTITION_CASES = [("stage1", 48, 48, 7), ("stage2", 24, 96, 7),
+                   ("stage3", 12, 192, 7), ("stage4", 6, 384, 6)]
+# (stage, BW, heads, N, shifted) of a training batch of one 96^3 patch
+ATTN_GRAD_CASES = [("stage1", 343, 3, 343, True), ("stage2", 64, 6, 343, True),
+                   ("stage3", 8, 12, 343, True), ("stage4", 1, 24, 216, False)]
+TRAIN_STEPS = 8
+# per window batch of BTCV serving (1 embed + 10 denoiser Swin passes of 4
+# stages) and per BTCV train step (the encoder's and the denoiser's Swin
+# pass): forward launches, and launches inside the backward
+SERVE_PER_BATCH = {"window_attention": 88, "shift_windows": 66,
+                   "window_partition": 44, "window_reverse": 44}
+TRAIN_PER_STEP = {"window_attention": (16, 0), "shift_windows": (12, 12),
+                  "window_partition": (8, 8), "window_reverse": (8, 8)}
 
 
 def fail(msg: str) -> None:
@@ -123,11 +161,16 @@ def nbytes(*tensors) -> int:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device ms per call: the stream is held by a spinning kernel while the
+    host queues every call, so the events time the device and not the
+    host's issue rate (a small kernel's wrapper takes longer on the host
+    than the kernel on the card)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -334,6 +377,189 @@ def phase_conv(dev: torch.device) -> dict:
     return report
 
 
+def reset(counters: dict) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+        if hasattr(fn, "backward_launches"):
+            fn.backward_launches = 0
+
+
+def partition_tables(padded, ws, valid):
+    """int64 (nW*N,) padded-voxel index of every window row, and (valid
+    voxels,) window row of every voxel of the cropped volume."""
+    from diff_unet_tpu_torch.ops.window_shift import partition_np
+
+    size = int(np.prod(padded))
+    table = partition_np(np.arange(size).reshape(padded), ws).reshape(-1)
+    row = np.empty(size, np.int64)
+    row[table] = np.arange(size)
+    inv = row.reshape(padded)[:valid[0], :valid[1], :valid[2]].reshape(-1)
+    return table.astype(np.int64), inv
+
+
+def phase_partition(dev: torch.device) -> dict:
+    """Kernel 7 (partition with the pad fused, reverse with the crop fused)
+    against the plain versions at the four Swin stage geometries."""
+    from diff_unet_tpu_torch.ops.window_partition import (
+        partition_windows, partition_windows_plain, reverse_windows,
+        reverse_windows_plain)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    report = {}
+    for name, side, c, w in PARTITION_CASES:
+        ws, dims = (w,) * 3, (side,) * 3
+        pad = tuple((w - side % w) % w for _ in range(3))
+        padded = tuple(side + p for p in pad)
+        table, inv = (torch.from_numpy(a).to(dev)
+                      for a in partition_tables(padded, ws, dims))
+        for b in (1, 2):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((b, *dims, c), generator=g, device=dev
+                                ).to(dtype)
+                with torch.no_grad():
+                    wt = partition_windows(x, ws, pad)
+                    back = reverse_windows(wt, ws, padded, dims)
+                exact = (torch.equal(wt, partition_windows_plain(x, ws, pad))
+                         and torch.equal(back, reverse_windows_plain(
+                             wt, ws, padded, dims))
+                         and torch.equal(back, x))
+                rows = torch.nn.functional.pad(
+                    x, (0, 0, 0, pad[2], 0, pad[1], 0, pad[0])).view(b, -1, c)
+                wrows = wt.view(b, -1, c)
+                with torch.no_grad():
+                    times = {
+                        "window_partition": (
+                            cuda_ms(lambda: partition_windows(x, ws, pad)),
+                            cuda_ms(lambda: partition_windows_plain(x, ws,
+                                                                    pad)),
+                            cuda_ms(lambda: rows.index_select(1, table)),
+                            bound(nbytes(x, wt), 0.0, dtype)),
+                        "window_reverse": (
+                            cuda_ms(lambda: reverse_windows(wt, ws, padded,
+                                                            dims)),
+                            cuda_ms(lambda: reverse_windows_plain(
+                                wt, ws, padded, dims)),
+                            cuda_ms(lambda: wrows.index_select(1, inv)),
+                            # the valid rows read, the volume written
+                            bound(2 * nbytes(x), 0.0, dtype)),
+                    }
+                for kernel, (ms, plain_ms, library_ms, bnd) in times.items():
+                    tag = (f"{kernel} {name} {dims}->{padded} C={c} B={b} "
+                           f"{str(dtype)[6:]}")
+                    log(f"{tag}: bit-exact {exact} kernel {ms:.4f} ms plain "
+                        f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound "
+                        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+                    # the training batch's largest call is the one reported
+                    if (name, b, dtype) == ("stage1", 1, torch.bfloat16):
+                        report[kernel] = dict(
+                            max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                            library_ms=library_ms, **bnd)
+                if not exact:
+                    fail(f"window partition {name} B={b} {dtype} is not "
+                         "bit-exact")
+                del x, wt, back, rows, wrows
+    return report
+
+
+def phase_backward(dev: torch.device) -> dict:
+    """The shift's backward kernel and the partition pair's adjoints
+    against autograd through the plain versions (bit-exact), and the
+    attention's gradients at the training batch's stage geometries."""
+    from diff_unet_tpu_torch.ops.swin import window_region_ids
+    from diff_unet_tpu_torch.ops.window_attention import (
+        window_attention, window_attention_plain)
+    from diff_unet_tpu_torch.ops.window_partition import (
+        partition_windows, partition_windows_plain)
+    from diff_unet_tpu_torch.ops.window_shift import (
+        shift_table, shift_windows, shift_windows_plain)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    report = {}
+    for grid, c in SHIFT_CASES:
+        ws, ss = (7, 7, 7), (3, 3, 3)
+        inv = tuple(-s for s in ss)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((int(np.prod(grid)), 343, c), generator=g,
+                            device=dev).to(dtype)
+            cot = torch.randn(x.shape, generator=g, device=dev).to(dtype)
+            grads = []
+            for fn in (shift_windows, shift_windows_plain):
+                xg = x.clone().requires_grad_()
+                fn(xg, ws, ss, grid).backward(cot)
+                grads.append(xg.grad)
+            exact = torch.equal(*grads)
+            with torch.no_grad():
+                ms = cuda_ms(lambda: shift_windows(cot, ws, inv, grid))
+                plain_ms = cuda_ms(
+                    lambda: shift_windows_plain(cot, ws, inv, grid))
+                table = torch.from_numpy(shift_table(ws, inv, grid)).to(
+                    dev).long()
+                library_ms = cuda_ms(
+                    lambda: cot.view(1, -1, c).index_select(1, table))
+            # the cotangent read, the gradient written, the int32 table
+            bnd = bound(2 * nbytes(cot) + 4 * table.numel(), 0.0, dtype)
+            tag = f"shift_windows backward grid={grid} C={c} {str(dtype)[6:]}"
+            log(f"{tag}: bit-exact {exact} kernel {ms:.4f} ms plain "
+                f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+            if not exact:
+                fail(f"{tag} is not bit-exact")
+            if grid == (7, 7, 7) and dtype == torch.bfloat16:
+                report["shift_windows_backward"] = dict(
+                    max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                    library_ms=library_ms, **bnd)
+    for name, side, c, w in PARTITION_CASES:
+        ws, dims = (w,) * 3, (side,) * 3
+        pad = tuple((w - side % w) % w for _ in range(3))
+        x = torch.randn((1, *dims, c), generator=g, device=dev
+                        ).to(torch.bfloat16)
+        xg, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+        wt = partition_windows(xg, ws, pad)
+        cot = torch.randn(wt.shape, generator=g, device=dev).to(x.dtype)
+        wt.backward(cot)
+        partition_windows_plain(xp, ws, pad).backward(cot)
+        log(f"window_partition backward (window_reverse) {name}: bit-exact "
+            f"{torch.equal(xg.grad, xp.grad)}")
+        if not torch.equal(xg.grad, xp.grad):
+            fail(f"window partition backward {name} is not bit-exact")
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, bw, h, n, shifted in ATTN_GRAD_CASES:
+            qkv = torch.randn((bw, n, 3, h, 16), generator=g, device=dev
+                              ).to(dtype)
+            bias = 0.5 * torch.randn((h, n, n), generator=g, device=dev)
+            ids = None
+            if shifted:
+                grid = round(bw ** (1 / 3)) * 7
+                ids = torch.from_numpy(window_region_ids(
+                    (grid,) * 3, (7, 7, 7), (3, 3, 3))).to(dev)
+            cot = torch.randn((bw, n, h, 16), generator=g, device=dev
+                              ).to(dtype)
+            grads, times = [], []
+            for fn in (window_attention, window_attention_plain):
+                q = qkv.clone().requires_grad_()
+                b = bias.clone().requires_grad_()
+                out = fn(q, b, ids)
+                grads.append(torch.autograd.grad(out, (q, b), cot,
+                                                 retain_graph=True))
+                times.append(cuda_ms(lambda: torch.autograd.grad(
+                    out, (q, b), cot, retain_graph=True), reps=5, warmup=1))
+                del out
+            errs = [((a.float() - w.float()).abs().max()
+                     / w.float().abs().max()).item()
+                    for a, w in zip(*grads)]
+            tag = (f"window_attention backward {name} BW={bw} H={h} N={n} "
+                   f"{str(dtype)[6:]}")
+            log(f"{tag}: qkv / bias grad err {errs[0]:.3e} / {errs[1]:.3e} "
+                f"of max|g| (tol {ATTN_TOL[dtype]:.0e}); backward "
+                f"(recompute) {times[0]:.4f} ms, plain backward "
+                f"{times[1]:.4f} ms")
+            if not max(errs) <= ATTN_TOL[dtype]:
+                fail(f"{tag} disagrees with autograd through the plain "
+                     "version")
+            del qkv, bias, cot, grads
+    return report
+
+
 def phase_small_model(dev: torch.device) -> None:
     from diff_unet_tpu_torch.models.swin_unetr import DiffSwinUNETR
     from diff_unet_tpu_torch.utils.weights import init_random
@@ -389,25 +615,83 @@ def phase_small_diff_unet(dev: torch.device) -> None:
         fail("small DiffUNet on the card disagrees with the CPU")
 
 
-def synthetic_ct(shape, seed: int, dev: torch.device) -> torch.Tensor:
-    """A (D, H, W, 1) volume in [0, 1]: smooth random blobs plus noise."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    coarse = torch.randn((1, 1, *[max(2, s // 16) for s in shape]),
-                         generator=g, device=dev)
-    smooth = torch.nn.functional.interpolate(coarse, size=shape,
-                                             mode="trilinear")
-    vol = torch.sigmoid(2.0 * smooth) + 0.05 * torch.randn(
-        (1, 1, *shape), generator=g, device=dev)
-    return vol.clamp(0.0, 1.0)[0].permute(1, 2, 3, 0).contiguous()
+def phase_small_train(dev: torch.device) -> None:
+    """Two train steps of a small DiffSwinUNETR on the card and on the CPU
+    from the same weights, t and noise (fp32, TF32 off)."""
+    from diff_unet_tpu_torch.api import DiffusionSegmenter
+    from diff_unet_tpu_torch.engine.train import TrainStep, make_optimizer
+    from diff_unet_tpu_torch.losses.losses import CompositeLoss
+    from diff_unet_tpu_torch.models.swin_unetr import DiffSwinUNETR
+    from diff_unet_tpu_torch.utils.weights import init_random
+
+    s, classes, lr = 32, 3, 2e-4
+    rng = np.random.default_rng(SEED)
+    steps = [(rng.random((1, s, s, s, 1), np.float32),
+              np.eye(classes, dtype=np.float32)[
+                  rng.integers(0, classes, (1, s, s, s))],
+              np.array([int(rng.integers(0, 1000))]),
+              rng.standard_normal((1, s, s, s, classes), np.float32))
+             for _ in range(2)]
+    runs = []
+    for where in (torch.device("cpu"), dev):
+        model = init_random(DiffSwinUNETR(classes, image_size=(s,) * 3,
+                                          feature_size=12), SEED).to(where)
+        opt, schedule = make_optimizer(model.parameters(), lr=lr,
+                                       weight_decay=1e-4)
+        step = TrainStep(DiffusionSegmenter(model, classes),
+                         CompositeLoss("mse,bce,dice", classes), opt,
+                         schedule)
+        record = []
+        for image, labels, t, noise in steps:
+            m = step(torch.from_numpy(image).to(where),
+                     torch.from_numpy(labels).to(where),
+                     t=torch.from_numpy(t).to(where),
+                     noise=torch.from_numpy(noise).to(where))
+            record.append((m["loss"].item(), m["grad_norm"].item(),
+                           [p.grad.detach().cpu().clone()
+                            for p in model.parameters()]))
+        runs.append((record, [p.detach().cpu() for p in model.parameters()]))
+    (cpu, cpu_params), (card, card_params) = runs
+    worst = [0.0, 0.0, 0.0]            # loss / grad norm rel, grad vs tol
+    for (lc, nc, gc), (lg, ng, gg) in zip(cpu, card):
+        worst[0] = max(worst[0], abs(lg - lc) / abs(lc))
+        worst[1] = max(worst[1], abs(ng - nc) / abs(nc))
+        gmax = max(a.abs().max().item() for a in gc)
+        for a, b in zip(gc, gg):
+            # a tensor whose exact gradient is ~0 (a conv bias before an
+            # instance norm) is judged on the model's gradient scale
+            scale = max(a.abs().max().item(), 0.1 * gmax)
+            worst[2] = max(worst[2], (b - a).abs().max().item() / scale)
+    # Adam moves a weight by about lr wherever |g| >> eps, whatever |g|, so
+    # a gradient at rounding noise (a conv bias before an instance norm)
+    # may take the other sign on the card: 2 lr per step apart at most
+    ptol = 2 * lr * len(steps)
+    names = [n for n, _ in model.named_parameters()]
+    perrs = [(a - b).abs().max().item()
+             for a, b in zip(cpu_params, card_params)]
+    i = int(np.argmax(perrs))
+    gmax = max(a.abs().max().item() for a in cpu[-1][2])
+    log(f"small model train steps (feature 12, {s}^3, fp32, TF32 off) cuda "
+        f"vs cpu: loss rel {worst[0]:.3e}, grad norm rel {worst[1]:.3e} (tol "
+        f"{MODEL_TOL:.0e}); worst gradient error {worst[2]:.3e} of max(|g| "
+        f"max, 0.1 model max) (tol {MODEL_TOL:.0e}); parameters after "
+        f"{len(steps)} steps {perrs[i]:.3e} (tol {ptol:.0e}), worst "
+        f"{names[i]} whose last |g| max is "
+        f"{cpu[-1][2][i].abs().max().item() / gmax:.1e} of the model's; "
+        f"losses {[round(r[0], 6) for r in cpu]}")
+    if not (max(worst) <= MODEL_TOL and perrs[i] <= ptol
+            and all(np.isfinite(r[0]) for r in card)):
+        fail("small DiffSwinUNETR train steps on the card disagree with the "
+             "CPU")
 
 
 def phase_serve(dev: torch.device, data: str, counters: dict,
-                per_batch: int = 0) -> dict:
+                per_batch: dict) -> dict:
     """Serve the three synthetic volumes with a Predictor built from
     ``cfg/<data>/test.yaml``; ``counters`` maps kernel names to their
-    wrappers, whose counts are set to 0 just before and read just after.
-    ``per_batch`` > 0: each counter must equal it times the window
-    batches."""
+    wrappers, whose counts are set to 0 just before and read just after;
+    each must equal ``per_batch[name]`` times the window batches."""
+    from diff_unet_tpu_torch.data.synthetic import synthetic_ct
     from diff_unet_tpu_torch.engine.engine import Predictor
 
     pred = Predictor.from_config(
@@ -424,8 +708,7 @@ def phase_serve(dev: torch.device, data: str, counters: dict,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
 
-    for fn in counters.values():
-        fn.launches = 0
+    reset(counters)
     results, seconds = [], []
     for v in volumes:
         t0 = time.perf_counter()
@@ -433,6 +716,8 @@ def phase_serve(dev: torch.device, data: str, counters: dict,
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
     counts = {k: fn.launches for k, fn in counters.items()}
+    backward = {k: getattr(fn, "backward_launches", 0)
+                for k, fn in counters.items()}
 
     steps = pred.seg.sample_steps
     batches = 0
@@ -456,11 +741,74 @@ def phase_serve(dev: torch.device, data: str, counters: dict,
     log(f"launches during {data} serving ({batches} window batches): "
         f"{counts}")
     for k, c in counts.items():
-        if c <= 0:
-            fail(f"kernel {k} was not launched on the main path")
-        if per_batch and c != per_batch * batches:
-            fail(f"kernel {k}: {c} launches, predicted {per_batch} x "
-                 f"{batches} = {per_batch * batches}")
+        if c != per_batch[k] * batches or backward[k]:
+            fail(f"kernel {k}: {c} launches ({backward[k]} in a backward), "
+                 f"predicted {per_batch[k]} x {batches} = "
+                 f"{per_batch[k] * batches}")
+    return {k: {f"{data}_serve": c} for k, c in counts.items()}
+
+
+def phase_train(dev: torch.device, counters: dict) -> dict:
+    """``Trainer.from_config("cfg/btcv/train.yaml")`` at full width on
+    synthetic batches for ``TRAIN_STEPS`` steps; returns each counter's
+    (forward, backward) launches."""
+    from diff_unet_tpu_torch.data.synthetic import SyntheticSegmentation
+    from diff_unet_tpu_torch.engine.engine import Trainer
+
+    t0 = time.perf_counter()
+    data = SyntheticSegmentation((96, 96, 96), num_labels=14, batch_size=1,
+                                 batches=TRAIN_STEPS, seed=SEED)
+    trainer = Trainer.from_config(
+        ROOT / "cfg/btcv/train.yaml", train_data=data, device=dev,
+        classes=str(ROOT / "cfg/btcv/classes.yaml"), seed=SEED,
+        max_epochs=1)
+    torch.cuda.synchronize()
+    log(f"trainer: {trainer.model_name}, {trainer.num_classes} classes, "
+        f"patch {trainer._inferer.roi}, batch {trainer.batch_size}, dtype "
+        f"{trainer.dtype}, label smoothing {trainer.label_smoothing}, "
+        f"{sum(p.numel() for p in trainer.module.parameters())} parameters; "
+        f"set-up (data, smoothing, model) {time.perf_counter() - t0:.1f} s")
+    before = [p.detach().clone() for p in trainer.module.parameters()]
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset(counters)
+    trainer.train()
+    torch.cuda.synchronize()
+    counts = {k: (fn.launches, getattr(fn, "backward_launches", 0))
+              for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    hist = trainer.history
+    moved = sum(int(not torch.equal(a, p))
+                for a, p in zip(before, trainer.module.parameters()))
+    log("train steps: " + "; ".join(
+        f"loss {h['loss']:.5f} grad_norm {h['grad_norm']:.5f} lr "
+        f"{h['lr']:.3e}" for h in hist))
+    log(f"launches during BTCV training ({len(hist)} steps), (forward, "
+        f"backward): {counts}")
+    # s/step: the trainer's step over its batches once more, the card
+    # synchronised before and after each step (after the counts are read)
+    step_s = []
+    for image, labels in trainer.batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(image, labels, generator=trainer.generator)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    log(f"train: median {np.median(step_s[1:]):.4f} s/step over steps "
+        f"2..{len(step_s)} of a synchronised pass, {step_s}; peak device "
+        f"memory {peak:.2f} GiB over the {len(hist)} steps of train(); "
+        f"{moved} of {len(before)} parameter tensors moved")
+    if len(hist) != TRAIN_STEPS:
+        fail(f"the trainer took {len(hist)} steps, not {TRAIN_STEPS}")
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               and h["grad_norm"] > 0 for h in hist):
+        fail("a train step has a non-finite loss or a zero grad norm")
+    if hist[0]["lr"] != 0.0 or not moved:
+        fail("the parameters did not move once the lr was above 0")
+    for k, (fwd, bwd) in counts.items():
+        want = tuple(n * len(hist) for n in TRAIN_PER_STEP[k])
+        if (fwd, bwd) != want:
+            fail(f"kernel {k}: {(fwd, bwd)} launches (forward, backward) in "
+                 f"{len(hist)} steps, predicted {want}")
     return counts
 
 
@@ -470,30 +818,61 @@ def main() -> None:
     phase_build()
     from diff_unet_tpu_torch.ops.conv3d import conv3x3
     from diff_unet_tpu_torch.ops.window_attention import window_attention
+    from diff_unet_tpu_torch.ops.window_partition import (
+        partition_windows, reverse_windows)
     from diff_unet_tpu_torch.ops.window_shift import shift_windows
 
     report = phase_kernels(dev)
     report.update(phase_conv(dev))
+    report.update(phase_partition(dev))
+    report.update(phase_backward(dev))
     phase_small_model(dev)
     phase_small_diff_unet(dev)
-    counts = phase_serve(dev, "btcv", {"window_attention": window_attention,
-                                       "shift_windows": shift_windows})
+    phase_small_train(dev)
+    swin = {"window_attention": window_attention,
+            "shift_windows": shift_windows,
+            "window_partition": partition_windows,
+            "window_reverse": reverse_windows}
+    paths = {k: {} for k in (*swin, "shift_windows_backward", "conv3x3")}
+    for k, v in phase_serve(dev, "btcv", swin, SERVE_PER_BATCH).items():
+        paths[k].update(v)
     # 10 TwoConv convs in the encoder, 18 in each of the 10 denoiser steps
-    counts.update(phase_serve(dev, "amos", {"conv3x3": conv3x3},
-                              per_batch=10 + 18 * 10))
+    paths["conv3x3"].update(phase_serve(dev, "amos", {"conv3x3": conv3x3},
+                                        {"conv3x3": 10 + 18 * 10})["conv3x3"])
+    paths["shift_windows_backward"]["btcv_serve"] = 0
+    counts = phase_train(dev, swin)
+    # the partition kernel runs forward and in the reverse's backward, and
+    # the other way round; the shift's backward launch is reported apart
+    for k in ("window_partition", "window_reverse"):
+        paths[k]["btcv_train"] = sum(counts[k])
+    paths["window_attention"]["btcv_train"] = counts["window_attention"][0]
+    (paths["shift_windows"]["btcv_train"],
+     paths["shift_windows_backward"]["btcv_train"]) = counts["shift_windows"]
     replaces = {
         "window_attention": ("diff_unet_tpu_torch/csrc/window_attention.cu",
                              "diff_unet_tpu/ops/pallas_attention.py:115"),
         "shift_windows": ("diff_unet_tpu_torch/csrc/window_shift.cu",
                           "diff_unet_tpu/ops/pallas_shift.py:71"),
+        "shift_windows_backward": (
+            "diff_unet_tpu_torch/csrc/window_shift.cu",
+            "diff_unet_tpu/ops/pallas_shift.py:71 (its custom_vjp, :141-152)"),
+        "window_partition": ("diff_unet_tpu_torch/csrc/window_partition.cu",
+                             "benchmarks/pallas_partition_probe.py:54"),
+        "window_reverse": ("diff_unet_tpu_torch/csrc/window_partition.cu",
+                           "benchmarks/pallas_partition_probe.py:54 (its "
+                           "inverse, diff_unet_tpu/ops/swin.py:95)"),
         "conv3x3": ("diff_unet_tpu_torch/csrc/conv3d.cu",
                     "diff_unet_tpu/ops/pallas_packed_conv.py:132; "
                     "diff_unet_tpu/ops/pallas_packed_conv.py:241; "
                     "diff_unet_tpu/ops/pallas_aug_conv.py:65; "
                     "diff_unet_tpu/ops/pallas_conv.py:29"),
     }
+    # launches: this slice's main path (BTCV training) where the kernel
+    # runs there, else its own slice's serving path
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
-                    launches=counts[k], **report[k])
+                    launches=paths[k].get("btcv_train",
+                                          paths[k].get("amos_serve")),
+                    launches_by_path=paths[k], **report[k])
                for k, (src, rep) in replaces.items()]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,12 +1,12 @@
-"""Gaussian diffusion math needed by DDIM sampling (counterpart of part of
-``diff_unet_tpu/diffusion/gaussian.py``).
+"""Gaussian diffusion math needed by training and DDIM sampling
+(counterpart of part of ``diff_unet_tpu/diffusion/gaussian.py``).
 
 ``denoise_fn(x, t)`` always receives raw (unrespaced) timesteps; the
 respace map is applied here via ``Schedule.map_timesteps``.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -25,6 +25,14 @@ def q_sample(schedule: Schedule, x_start: torch.Tensor, t: torch.Tensor,
     return (extract(schedule, "sqrt_alphas_cumprod", t, nd) * x_start
             + extract(schedule, "sqrt_one_minus_alphas_cumprod", t, nd)
             * noise)
+
+
+def uniform_timesteps(generator: Optional[torch.Generator], batch: int,
+                      num_timesteps: int, device: torch.device
+                      ) -> torch.Tensor:
+    """Uniform schedule sampler: t ~ U[0, T) (its weights are all 1)."""
+    return torch.randint(0, num_timesteps, (batch,), generator=generator,
+                         device=device)
 
 
 def predict_xstart_from_eps(schedule: Schedule, x_t, t, eps):

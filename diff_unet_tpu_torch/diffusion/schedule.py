@@ -131,6 +131,7 @@ class Schedule:
 
 
 @functools.lru_cache(maxsize=256)
+@torch.inference_mode(False)        # shared by serving and training
 def _uploaded(schedule: Schedule, name: str, device: torch.device,
               dtype: torch.dtype) -> torch.Tensor:
     return torch.as_tensor(getattr(schedule, name), dtype=dtype,

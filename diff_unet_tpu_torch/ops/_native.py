@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``diff_unet_tpu_torch/csrc``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The build runs at
+The sources are compiled with ``nvcc`` for ``sm_90a``, one process per
+source in parallel, and linked into one shared library with a plain C
+interface, loaded with ``ctypes``. The build runs at
 the first CUDA call, never at import, and is keyed on a hash of the sources
 and flags: the library lands in ``build/diff_unet_tpu_torch/`` beside the
 package (listed in ``.gitignore``) and is reused while the sources are
@@ -22,9 +23,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "diff_unet_tpu_torch"
-SOURCES = ("window_attention.cu", "window_shift.cu", "conv3d.cu")
+SOURCES = ("window_attention.cu", "window_shift.cu", "window_partition.cu",
+           "conv3d.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 build_info: dict = {}   # {"path", "seconds", "log"} of the loaded library
@@ -49,24 +51,40 @@ def _digest() -> str:
 
 
 def _build() -> Path:
+    """One nvcc per source, all started together, then one link."""
     out = BUILD_DIR / f"libdut_kernels_{_digest()}.so"
     if out.exists():
         build_info.update(path=str(out), seconds=0.0, log="(cached)")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[str(CSRC / s) for s in SOURCES]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)     # atomic: a concurrent process sees a whole file
-    build_info.update(path=str(out), seconds=seconds,
-                      log=proc.stdout + proc.stderr)
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, s + ".o") for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+                for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        results = [(c, p.communicate()[0], p.returncode)
+                   for c, p in zip(cmds, procs)]
+        tmp = os.path.join(tmpdir, "lib.so")
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", tmp, *objs]
+        for cmd, text, rc in results:
+            log.append(text)
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}"
+                                   f"\n{text}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)   # atomic: a concurrent process sees a whole file
+    build_info.update(path=str(out), seconds=time.perf_counter() - t0,
+                      log="".join(log))
     return out
 
 
@@ -78,6 +96,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.window_attention_forward.restype = i
     lib.shift_windows_forward.argtypes = [p, p, p, ll, ll, i, p]
     lib.shift_windows_forward.restype = i
+    for fn in (lib.window_partition_forward, lib.window_reverse_forward):
+        fn.argtypes = [p, p] + [i] * 11 + [p]
+        fn.restype = i
     lib.conv3x3_forward.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, p,
                                     p, f, f, p, p, i, i, i, i, i, i, i, i,
                                     p]
@@ -112,8 +133,10 @@ def require_cuda(t: torch.Tensor, name: str) -> None:
 
 
 def forbid_grad(*tensors: torch.Tensor) -> None:
-    """The kernels are forward-only: refuse a call autograd would need."""
+    """For a kernel with no backward yet: refuse a call autograd would
+    need."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            "diff_unet_tpu_torch CUDA kernels are forward-only (serving); "
-            "run under torch.inference_mode() or torch.no_grad()")
+            "this diff_unet_tpu_torch CUDA kernel is forward-only (it has "
+            "no backward yet); run under torch.inference_mode() or "
+            "torch.no_grad()")

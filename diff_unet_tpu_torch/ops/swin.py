@@ -1,15 +1,17 @@
 """3D shifted-window Swin transformer, channel-last, window-resident.
 
 Counterpart of ``diff_unet_tpu/ops/swin.py``. Every stage runs in the
-``(BW, N, C)`` window layout: the volume is partitioned once per stage, the
-blocks hop between the unshifted and shifted layouts with the window-shift
-kernel (``ops/window_shift.py``), attention runs in the fused kernel
-(``ops/window_attention.py``), and the windows are reversed once at the
-end (``BasicLayer._forward_window_resident`` in the JAX package, without its
-128-lane token padding: N is the real token count).
+``(BW, N, C)`` window layout: the volume is padded and partitioned once
+per stage by the partition kernel (``ops/window_partition.py``), the blocks
+hop between the unshifted and shifted layouts with the window-shift kernel
+(``ops/window_shift.py``), attention runs in the fused kernel
+(``ops/window_attention.py``), and the windows are reversed and cropped
+once at the end (``BasicLayer._forward_window_resident`` in the JAX
+package, without its 128-lane token padding: N is the real token count).
 
 Static geometry (region ids, valid masks, relative-position indices) is
-numpy, cached per geometry, and uploaded once per device.
+numpy, cached per geometry, and uploaded once per device as normal (not
+inference-mode) tensors, so serving and training share the cache.
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ from torch import nn
 from diff_unet_tpu_torch.ops.blocks import EPS, TEMB_FEATURES, Conv, \
     Dense, LayerNorm, swish
 from diff_unet_tpu_torch.ops.window_attention import window_attention
+from diff_unet_tpu_torch.ops.window_partition import partition_windows, \
+    reverse_windows
 from diff_unet_tpu_torch.ops.window_shift import partition_np, \
     shift_windows
 
@@ -41,25 +45,6 @@ def get_window_size(dims: Sequence[int], window_size: Sequence[int],
             if ss is not None:
                 ss[i] = 0
     return (tuple(ws), tuple(ss)) if ss is not None else tuple(ws)
-
-
-def window_partition(x: torch.Tensor, ws: Sequence[int]) -> torch.Tensor:
-    """(B, D, H, W, C) -> (B*nW, wd*wh*ww, C)."""
-    b, d, h, w, c = x.shape
-    x = x.reshape(b, d // ws[0], ws[0], h // ws[1], ws[1], w // ws[2],
-                  ws[2], c)
-    x = x.permute(0, 1, 3, 5, 2, 4, 6, 7)
-    return x.reshape(-1, ws[0] * ws[1] * ws[2], c)
-
-
-def window_reverse(windows: torch.Tensor, ws: Sequence[int],
-                   dims: Sequence[int]) -> torch.Tensor:
-    """Inverse of window_partition; ``dims`` = (B, D, H, W)."""
-    b, d, h, w = dims
-    x = windows.reshape(b, d // ws[0], h // ws[1], w // ws[2],
-                        ws[0], ws[1], ws[2], -1)
-    x = x.permute(0, 1, 4, 2, 5, 3, 6, 7)
-    return x.reshape(b, d, h, w, -1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,11 +95,13 @@ def relative_position_index(ws: Tuple[int, ...]) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
 def _region_ids_on(dims, ws, ss, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(window_region_ids(dims, ws, ss)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
 def _valid_mask_on(dims_padded, dims_valid, ws, ss, device: torch.device
                    ) -> Optional[torch.Tensor]:
     m = window_valid_mask(dims_padded, dims_valid, ws, ss)
@@ -122,6 +109,7 @@ def _valid_mask_on(dims_padded, dims_valid, ws, ss, device: torch.device
 
 
 @functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
 def _rpi_on(ws: Tuple[int, ...], n: int, device: torch.device
             ) -> torch.Tensor:
     # [:n, :n] of the UNCLAMPED window's index: at a clamped stage (6^3 of a
@@ -218,16 +206,14 @@ def window_resident(x: torch.Tensor, blocks: Sequence[SwinTransformerBlock],
                     shifts: Sequence[Sequence[int]]) -> torch.Tensor:
     """Run ``blocks`` (block i with shift ``shifts[i]``, clamped) over the
     (B, D, H, W, C) volume in window layout: pad and partition once, hop
-    between shift layouts with the shift kernel, reverse once."""
-    b, d, h, w, _ = x.shape
+    between shift layouts with the shift kernel, reverse and crop once."""
+    _, d, h, w, _ = x.shape
     ws = get_window_size((d, h, w), window_size)
-    pad = [(ws[i] - (d, h, w)[i] % ws[i]) % ws[i] for i in range(3)]
-    if any(pad):
-        x = F.pad(x, (0, 0, 0, pad[2], 0, pad[1], 0, pad[0]))
+    pad = tuple((ws[i] - (d, h, w)[i] % ws[i]) % ws[i] for i in range(3))
     padded = (d + pad[0], h + pad[1], w + pad[2])
     grid = tuple(p // s for p, s in zip(padded, ws))
 
-    wt = window_partition(x, ws).contiguous()
+    wt = partition_windows(x.contiguous(), ws, pad)
     cur = (0, 0, 0)
     for blk, shift in zip(blocks, shifts):
         _, ss = get_window_size((d, h, w), window_size, shift)
@@ -241,8 +227,7 @@ def window_resident(x: torch.Tensor, blocks: Sequence[SwinTransformerBlock],
         wt = blk(wt, ids, valid)
     if any(cur):
         wt = shift_windows(wt, ws, tuple(-c for c in cur), grid)
-    x = window_reverse(wt, ws, (b, *padded))
-    return x[:, :d, :h, :w, :]
+    return reverse_windows(wt, ws, padded, (d, h, w))
 
 
 class PatchMerging(nn.Module):

@@ -7,7 +7,8 @@ head): ``softmax(q * Dh^-0.5 . k^T + bias[h] + region_mask) . v``, where
 
 Layouts: ``qkv`` is the qkv projection's output viewed ``(BW, N, 3, H, Dh)``;
 the result is ``(BW, N, H, Dh)``, which views as ``(BW, N, C)``. The kernel
-source is ``csrc/window_attention.cu``.
+source is ``csrc/window_attention.cu``. The gradient recomputes the plain
+version (the kernel has no backward yet, nor has the TPU kernel).
 """
 from __future__ import annotations
 
@@ -41,15 +42,12 @@ def window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor,
     return out.transpose(1, 2)
 
 
-def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
-                     region_ids: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
-    """Fused window attention. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (forward only) or raise."""
+def _forward(qkv: torch.Tensor, bias: torch.Tensor,
+             region_ids: Optional[torch.Tensor]) -> torch.Tensor:
+    """The plain version for a CPU tensor, else the kernel."""
     if qkv.device.type == "cpu":
         return window_attention_plain(qkv, bias, region_ids)
     _native.require_cuda(qkv, "qkv")
-    _native.forbid_grad(qkv, bias)
     if qkv.dim() != 5 or qkv.shape[2] != 3:
         raise ValueError(f"qkv must be (BW, N, 3, H, Dh), got {tuple(qkv.shape)}")
     bw, n, _, h, dh = qkv.shape
@@ -84,6 +82,39 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
     _native.check(err, "window_attention_forward")
     window_attention.launches += 1
     return out
+
+
+class _WindowAttention(torch.autograd.Function):
+    """Forward: the kernel (the plain version on the CPU). Backward:
+    recompute the plain version and return its vector-Jacobian product
+    for ``qkv`` and ``bias``, as the JAX package's ``custom_vjp``
+    recomputes ``reference_window_attention``; ``region_ids`` gets none."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, region_ids):
+        ctx.save_for_backward(qkv, bias, region_ids)
+        return _forward(qkv, bias, region_ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, bias, region_ids = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = qkv.detach().requires_grad_()
+            bias = bias.detach().requires_grad_()
+            out = window_attention_plain(qkv, bias, region_ids)
+            dqkv, dbias = torch.autograd.grad(out, (qkv, bias), g)
+        return dqkv, dbias, None
+
+
+def window_attention(qkv: torch.Tensor, bias: torch.Tensor,
+                     region_ids: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Fused window attention; differentiable in ``qkv`` and ``bias``. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
+        return _WindowAttention.apply(qkv, bias, region_ids)
+    return _forward(qkv, bias, region_ids)
 
 
 window_attention.launches = 0

@@ -5,8 +5,9 @@ Counterpart of ``diff_unet_tpu/ops/pallas_shift.py``. Given the window
 tensor ``(B*nW, N, C)`` of a volume partitioned into ``grid`` windows of
 ``ws`` tokens, return the window tensor of the same volume rolled by ``-ss``
 (``window_partition(roll(window_reverse(wt), -ss))``). The inverse shift is
-``ss`` negated. The kernel (``csrc/window_shift.cu``) gathers token rows by
-an int32 source table, so it is bit-exact.
+``ss`` negated, and it is also the backward (a permutation's adjoint is its
+inverse). The kernel (``csrc/window_shift.cu``) gathers token rows by an
+int32 source table, so it is bit-exact in both directions.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import numpy as np
 import torch
 
 from diff_unet_tpu_torch.ops import _native
+from diff_unet_tpu_torch.ops.window_partition import window_partition, \
+    window_reverse
 
 
 def partition_np(vol: np.ndarray, ws: Tuple[int, ...]) -> np.ndarray:
@@ -40,6 +43,7 @@ def shift_table(ws: Tuple[int, ...], ss: Tuple[int, ...],
 
 
 @functools.lru_cache(maxsize=None)
+@torch.inference_mode(False)
 def _table_on(ws, ss, grid, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(shift_table(ws, ss, grid)).to(device)
 
@@ -48,8 +52,6 @@ def shift_windows_plain(wt: torch.Tensor, ws: Tuple[int, ...],
                         ss: Tuple[int, ...], grid: Tuple[int, ...]
                         ) -> torch.Tensor:
     """reverse -> roll by -ss -> partition (``shift_windows_t_reference``)."""
-    from diff_unet_tpu_torch.ops.swin import window_partition, window_reverse
-
     nw = grid[0] * grid[1] * grid[2]
     b = wt.shape[0] // nw
     dims = (b, grid[0] * ws[0], grid[1] * ws[1], grid[2] * ws[2])
@@ -58,16 +60,13 @@ def shift_windows_plain(wt: torch.Tensor, ws: Tuple[int, ...],
     return window_partition(x, ws)
 
 
-def shift_windows(wt: torch.Tensor, ws: Tuple[int, ...], ss: Tuple[int, ...],
-                  grid: Tuple[int, ...]) -> torch.Tensor:
-    """Window-space shift of ``wt`` (B*nW, N, C). CPU tensors take the plain
-    version; CUDA tensors launch the gather kernel (forward only) or
-    raise."""
-    ws, ss, grid = tuple(ws), tuple(ss), tuple(grid)
+def _shift(wt: torch.Tensor, ws: Tuple[int, ...], ss: Tuple[int, ...],
+           grid: Tuple[int, ...], backward: bool) -> torch.Tensor:
+    """The plain version for a CPU tensor, else the gather kernel (counted
+    on ``shift_windows``)."""
     if wt.device.type == "cpu":
         return shift_windows_plain(wt, ws, ss, grid)
     _native.require_cuda(wt, "wt")
-    _native.forbid_grad(wt)
     n = ws[0] * ws[1] * ws[2]
     nw = grid[0] * grid[1] * grid[2]
     if wt.dim() != 3 or wt.shape[1] != n or wt.shape[0] % nw:
@@ -81,8 +80,39 @@ def shift_windows(wt: torch.Tensor, ws: Tuple[int, ...], ss: Tuple[int, ...],
         wt.shape[0] * n, wt.shape[2] * wt.element_size(),
         _native.stream_ptr(wt.device))
     _native.check(err, "shift_windows_forward")
-    shift_windows.launches += 1
+    if backward:
+        shift_windows.backward_launches += 1
+    else:
+        shift_windows.launches += 1
     return out
 
 
-shift_windows.launches = 0
+class _ShiftWindows(torch.autograd.Function):
+    """Backward: the same gather with the inverse table (``ss`` negated),
+    as the JAX package's ``custom_vjp`` runs its kernel with ``-ss``."""
+
+    @staticmethod
+    def forward(ctx, wt, ws, ss, grid):
+        ctx.geometry = (ws, ss, grid)
+        return _shift(wt, ws, ss, grid, backward=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        ws, ss, grid = ctx.geometry
+        return _shift(g.contiguous(), ws, tuple(-s for s in ss), grid,
+                      backward=True), None, None, None
+
+
+def shift_windows(wt: torch.Tensor, ws: Tuple[int, ...], ss: Tuple[int, ...],
+                  grid: Tuple[int, ...]) -> torch.Tensor:
+    """Window-space shift of ``wt`` (B*nW, N, C); differentiable. CPU
+    tensors take the plain version; CUDA tensors launch the gather kernel
+    (forward and backward) or raise."""
+    ws, ss, grid = tuple(ws), tuple(ss), tuple(grid)
+    if torch.is_grad_enabled() and wt.requires_grad:
+        return _ShiftWindows.apply(wt, ws, ss, grid)
+    return _shift(wt, ws, ss, grid, backward=False)
+
+
+# kernel launches on the forward path, and in the backward
+shift_windows.launches = shift_windows.backward_launches = 0

@@ -1,7 +1,13 @@
-"""Profile one sliding-window batch of the port's serving path on the card.
+"""Profile one sliding-window batch of the port's serving path, or one
+train step of its training path, on the card.
 
     python -m diff_unet_tpu_torch.profile_batch amos [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch btcv [--out FILE]
+    python -m diff_unet_tpu_torch.profile_batch btcv_train [--out FILE]
+
+``btcv_train`` builds the ``Trainer`` of ``cfg/btcv/train.yaml`` on
+synthetic batches (``data/synthetic.py``) and profiles its train step
+(q_sample, denoise, loss, backward, AdamW) the same way.
 
 Builds the ``Predictor`` of ``cfg/<data>/test.yaml`` with seeded random
 weights and runs what it runs for each window batch: the image embedding
@@ -41,29 +47,14 @@ def _device_us(evt, self_only: bool) -> float:
     raise AttributeError("profiler event has no device time")
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("data", choices=("amos", "btcv"))
-    ap.add_argument("--out", type=Path, default=None)
-    ap.add_argument("--top", type=int, default=25)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_batch needs a CUDA card")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def _window_batch(dev: torch.device, data: str):
+    """The Predictor of ``cfg/<data>/test.yaml`` and one window batch of
+    its serving path."""
     from diff_unet_tpu_torch.engine.engine import Predictor
-    from diff_unet_tpu_torch.ops.blocks import TwoConv
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
-    dev = torch.device("cuda", 0)
     pred = Predictor.from_config(
-        ROOT / f"cfg/{args.data}/test.yaml", model_path=None,
-        classes=str(ROOT / f"cfg/{args.data}/classes.yaml"), device=dev,
-        seed=0)
+        ROOT / f"cfg/{data}/test.yaml", model_path=None,
+        classes=str(ROOT / f"cfg/{data}/classes.yaml"), device=dev, seed=0)
     sw, roi = pred.sw_batch_size, pred._inferer.roi
     g = torch.Generator(device=dev).manual_seed(0)
     windows = torch.rand((sw, *roi, 1), generator=g, device=dev)
@@ -73,6 +64,54 @@ def main() -> None:
     def batch():
         with torch.inference_mode():
             return pred.seg.ddim_sample(windows, noise=noise)
+
+    return pred, batch, (f"one window batch of {sw} x {roi} (embed + "
+                         f"DDIM-{pred.seg.sample_steps})")
+
+
+def _train_step(dev: torch.device):
+    """The Trainer of ``cfg/btcv/train.yaml`` and one of its train steps
+    on a synthetic batch."""
+    from diff_unet_tpu_torch.data.synthetic import SyntheticSegmentation
+    from diff_unet_tpu_torch.engine.engine import Trainer
+
+    trainer = Trainer.from_config(
+        ROOT / "cfg/btcv/train.yaml", device=dev, seed=0, max_epochs=1,
+        classes=str(ROOT / "cfg/btcv/classes.yaml"),
+        train_data=SyntheticSegmentation((96, 96, 96), batches=1))
+    image, labels = trainer.batches[0]
+
+    def step():
+        return trainer.train_step(image, labels,
+                                  generator=trainer.generator)
+
+    return trainer, step, (f"one train step of batch {trainer.batch_size} "
+                           f"x {trainer._inferer.roi} (label smoothing "
+                           f"{trainer.label_smoothing})")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("data", choices=("amos", "btcv", "btcv_train"))
+    ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_batch needs a CUDA card")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from diff_unet_tpu_torch.ops.blocks import TwoConv
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    dev = torch.device("cuda", 0)
+    if args.data == "btcv_train":
+        pred, batch, what = _train_step(dev)
+    else:
+        pred, batch, what = _window_batch(dev, args.data)
 
     conv_flops = [0.0]
 
@@ -99,18 +138,23 @@ def main() -> None:
         batch()
         torch.cuda.synchronize()
     avgs = prof.key_averages()
-    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    # a user annotation's device row (``Optimizer.step#AdamW.step``) spans
+    # kernels that have rows of their own: count the kernels only (an
+    # annotation is flagged, or shares its name with its host-side range)
+    host = {e.key for e in avgs if e.device_type == DeviceType.CPU}
+    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.key not in host]
     device_ms = sum(_device_us(e, True) for e in kernels) / 1e3
     wall_ms = min(walls) * 1e3
     print(card)
-    print(f"{pred.model_name} ({args.data}): one window batch of {sw} x "
-          f"{roi} (embed + DDIM-{pred.seg.sample_steps}), dtype "
-          f"{pred.dtype}")
-    print(f"un-profiled wall per batch: "
+    print(f"{pred.model_name} ({args.data}): {what}, dtype {pred.dtype}")
+    print(f"un-profiled wall per {args.data} unit: "
           f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms")
     print(f"traced device time: {device_ms:.1f} ms; busy share "
-          f"{device_ms / wall_ms:.3f} of the fastest un-profiled batch")
+          f"{device_ms / wall_ms:.3f} of the fastest un-profiled one")
     if conv_flops[0]:
+        sw = pred.sw_batch_size
         conv_ms = sum(_device_us(e, True) for e in kernels
                       if "conv3d_" in e.key) / 1e3
         print(f"3x3x3 conv work per batch: {conv_flops[0] / 1e12:.3f} TFLOP "

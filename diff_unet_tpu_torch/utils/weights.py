@@ -1,6 +1,6 @@
-"""Parameters of the port: seeded random init and import of a JAX (flax)
-parameter tree (counterpart of ``diff_unet_tpu/utils/torch_import.py``,
-in the other direction).
+"""Parameters of the port: seeded random init, and import and export of a
+JAX (flax) parameter tree (counterpart of
+``diff_unet_tpu/utils/torch_import.py``, in the other direction).
 
 Port submodules carry the flax scope names, so a flax path
 ``swinViT/layers1/blocks_0/attn/qkv/kernel`` is the port's
@@ -17,7 +17,7 @@ Port submodules carry the flax scope names, so a flax path
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Any, Iterator, Tuple
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -103,3 +103,41 @@ def load_jax_params(module: nn.Module, params: Mapping) -> nn.Module:
         raise KeyError(f"module parameters missing from the flax tree: "
                        f"{missing[:8]}{' ...' if len(missing) > 8 else ''}")
     return module
+
+
+def _export(mod: nn.Module, leaf: str, a: np.ndarray
+            ) -> Tuple[str, np.ndarray]:
+    """Inverse of ``_convert``."""
+    if leaf == "weight":
+        if isinstance(mod, Dense):
+            return "kernel", a.T
+        if isinstance(mod, Conv):
+            return "kernel", a.transpose(2, 3, 4, 1, 0)
+        if isinstance(mod, ConvTranspose):
+            return "kernel", a.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1]
+        if isinstance(mod, (LayerNorm, InstanceNorm)):
+            return "scale", a
+    if leaf in ("bias", "relative_position_bias_table"):
+        return leaf, a
+    raise KeyError(f"no conversion for {type(mod).__name__}.{leaf}")
+
+
+def export_jax_params(module: nn.Module, grads: bool = False
+                      ) -> Dict[str, Any]:
+    """The inverse of ``load_jax_params``: ``{"params": tree}`` of float32
+    numpy arrays in flax's names and layouts; ``grads=True`` exports each
+    parameter's ``.grad`` instead (the conversions are linear), and raises
+    on a parameter without one."""
+    tree: Dict[str, Any] = {}
+    for name, p in module.named_parameters():
+        scope, _, leaf = name.rpartition(".")
+        t = p.grad if grads else p
+        if t is None:
+            raise ValueError(f"{name} has no gradient")
+        key, arr = _export(module.get_submodule(scope), leaf,
+                           t.detach().float().cpu().numpy())
+        node = tree
+        for k in scope.split(".") if scope else ():
+            node = node.setdefault(k, {})
+        node[key] = np.ascontiguousarray(arr)
+    return {"params": tree}

@@ -1,6 +1,6 @@
-"""PyTorch port on a CUDA card: each kernel against its plain version, the
-wrappers' input checks, and tiny Predictors (DiffSwinUNETR, DiffUNet) run
-through their kernels.
+"""PyTorch port on a CUDA card: each kernel against its plain version,
+forward and (for the Swin kernels) backward, the wrappers' input checks,
+and tiny Predictors (DiffSwinUNETR, DiffUNet) run through their kernels.
 
 Marked ``cuda`` and skipped where there is no card. This file imports no
 jax (the card's machine has none); run it there without the repository's
@@ -19,6 +19,12 @@ from diff_unet_tpu_torch.ops.conv3d import (
     conv3x3_plain,
 )
 from diff_unet_tpu_torch.ops.swin import window_region_ids
+from diff_unet_tpu_torch.ops.window_partition import (
+    partition_windows,
+    partition_windows_plain,
+    reverse_windows,
+    reverse_windows_plain,
+)
 from diff_unet_tpu_torch.ops.window_attention import (
     window_attention,
     window_attention_plain,
@@ -76,12 +82,97 @@ def test_shift_kernel_bit_exact(dev, dtype, grid, c):
                                           grid), x)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,dims,c,ws", [
+    (2, (12, 12, 12), 48, (7, 7, 7)), (1, (6, 6, 6), 384, (6, 6, 6)),
+    (2, (10, 9, 13), 3, (4, 4, 4)), (1, (5, 7, 6), 5, (3, 3, 3)),
+])
+def test_partition_kernels_bit_exact_both_directions(dev, dtype, b, dims, c,
+                                                     ws):
+    """Pad + partition and reverse + crop against their plain versions, and
+    each one's gradient (the other kernel) against autograd through the
+    plain versions; 6- and 10-byte rows take the narrow-vector paths."""
+    pad = tuple((s - d % s) % s for d, s in zip(dims, ws))
+    padded = tuple(d + p for d, p in zip(dims, pad))
+    g = torch.Generator(device=dev).manual_seed(c)
+    x = torch.randn((b, *dims, c), generator=g, device=dev).to(dtype)
+    before = (partition_windows.launches, reverse_windows.backward_launches)
+    xg = x.clone().requires_grad_()
+    wt = partition_windows(xg, ws, pad)
+    assert torch.equal(wt, partition_windows_plain(x, ws, pad))
+    cot = torch.randn(wt.shape, generator=g, device=dev).to(dtype)
+    wt.backward(cot)
+    xp = x.clone().requires_grad_()
+    partition_windows_plain(xp, ws, pad).backward(cot)
+    assert torch.equal(xg.grad, xp.grad)
+    assert (partition_windows.launches,
+            reverse_windows.backward_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+
+    wg = wt.detach().clone().requires_grad_()
+    back = reverse_windows(wg, ws, padded, dims)
+    assert torch.equal(back, x)
+    assert torch.equal(back, reverse_windows_plain(wt.detach(), ws, padded,
+                                                   dims))
+    cot = torch.randn(back.shape, generator=g, device=dev).to(dtype)
+    back.backward(cot)
+    wp = wt.detach().clone().requires_grad_()
+    reverse_windows_plain(wp, ws, padded, dims).backward(cot)
+    assert torch.equal(wg.grad, wp.grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shift_backward_bit_exact(dev, dtype):
+    ws, grid, c = (7, 7, 7), (2, 2, 2), 96
+    x = torch.randn((2 * 8, 343, c), device=dev).to(dtype)
+    cot = torch.randn(x.shape, device=dev).to(dtype)
+    for ss in ((3, 3, 3), (-3, -3, -3)):
+        before = shift_windows.backward_launches
+        xg = x.clone().requires_grad_()
+        shift_windows(xg, ws, ss, grid).backward(cot)
+        xp = x.clone().requires_grad_()
+        shift_windows_plain(xp, ws, ss, grid).backward(cot)
+        assert torch.equal(xg.grad, xp.grad)
+        assert shift_windows.backward_launches == before + 1
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("n,shifted", [(343, True), (216, False)])
+def test_window_attention_gradients_match_plain(dev, dtype, tol, n,
+                                                shifted):
+    """Gradients for qkv and the bias, kernel path against autograd through
+    the plain version, within tol of each gradient's max |g|."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    bw, h = 16, 3
+    qkv = torch.randn((bw, n, 3, h, 16), generator=g, device=dev).to(dtype)
+    bias = 0.5 * torch.randn((h, n, n), generator=g, device=dev)
+    ids = (torch.from_numpy(window_region_ids((14, 14, 14), (7, 7, 7),
+                                              (3, 3, 3))).to(dev)
+           if shifted else None)
+    cot = torch.randn((bw, n, h, 16), generator=g, device=dev).to(dtype)
+    grads = []
+    for fn in (window_attention, window_attention_plain):
+        q = qkv.clone().requires_grad_()
+        b = bias.clone().requires_grad_()
+        fn(q, b, ids).backward(cot)
+        grads.append((q.grad.float(), b.grad))
+    for got, want in zip(*grads):
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= tol * scale
+
+
 def test_wrappers_check_inputs(dev):
     qkv = torch.randn((2, 8, 3, 2, 4), device=dev, requires_grad=True)
     bias = torch.zeros((2, 8, 8), device=dev)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        window_attention(qkv, bias)
+    assert window_attention(qkv, bias).grad_fn is not None
     with torch.no_grad():
+        with pytest.raises(ValueError, match="geometry"):
+            partition_windows(torch.zeros((1, 5, 5, 5, 4), device=dev),
+                              (3, 3, 3), (2, 1, 1))
+        with pytest.raises(ValueError, match="wt must be"):
+            reverse_windows(torch.zeros((2, 27, 4), device=dev), (3, 3, 3),
+                            (6, 6, 6), (5, 5, 5))
         with pytest.raises(ValueError, match="bias"):
             window_attention(qkv, bias.double())
         with pytest.raises(ValueError, match="head_dim"):

@@ -15,6 +15,7 @@ from diff_unet_tpu.ops import pallas_shift as jps
 from diff_unet_tpu.ops import swin as jsw
 from diff_unet_tpu_torch.ops import swin as tsw
 from diff_unet_tpu_torch.ops import window_attention as twa
+from diff_unet_tpu_torch.ops import window_partition as twp
 from diff_unet_tpu_torch.ops import window_shift as tws
 
 
@@ -41,11 +42,11 @@ def test_geometry_helpers_exact(dims, ws, ss):
             jsw.get_window_size(d, (7, 7, 7))
     x = np.random.default_rng(0).standard_normal((2, *dims, 3)).astype(
         np.float32)
-    wt = tsw.window_partition(torch.from_numpy(x), ws)
+    wt = twp.window_partition(torch.from_numpy(x), ws)
     np.testing.assert_array_equal(wt.numpy(),
                                   np.asarray(jsw.window_partition(x, ws)))
     np.testing.assert_array_equal(
-        tsw.window_reverse(wt, ws, (2, *dims)).numpy(), x)
+        twp.window_reverse(wt, ws, (2, *dims)).numpy(), x)
 
 
 @pytest.mark.parametrize("ws,ss,grid", [
