@@ -7,7 +7,8 @@ PyTorch built for CUDA. Phases, each of which must pass:
 
 1. the card: name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``diff_unet_tpu_torch/csrc`` with ``nvcc``
-   (one process per source, in parallel);
+   (one process per source, in parallel), print each kernel's ptxas
+   registers and spills, and fail if the bf16 conv kernel spills;
 3. every kernel against its plain PyTorch version on the card at the
    shapes its slice gives it, with CUDA-event times of the kernel, the
    plain version and one PyTorch library call computing the same function
@@ -32,7 +33,10 @@ PyTorch built for CUDA. Phases, each of which must pass:
       adjoint pair against autograd through the plain versions, bit-exact;
       the attention's gradients (qkv and bias; the backward recomputes the
       plain version) at the four stage geometries of a training batch,
-      within 1e-4 (fp32) and 3e-2 (bf16) of each gradient's max |g|;
+      within 1e-4 (fp32) and 3e-2 (bf16) of each gradient's max |g|; at
+      stage 1 in bf16 also the library's backward (``torch.autograd.grad``
+      through ``scaled_dot_product_attention`` with the f32 bias as a float
+      ``attn_mask``) and the bytes bound of a backward;
 4. small models on the card against the same weights on the CPU's plain
    path, fp32 with TF32 off: a DiffSwinUNETR denoiser step (feature 12,
    32^3), a DiffUNet denoiser step (features (8, 8, 16, 32, 64, 8), 32^3),
@@ -202,9 +206,18 @@ def phase_build() -> None:
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_native.build_info['seconds']:.2f} s) "
         f"-> {_native.build_info['path']}")
+    # ptxas -v: each entry function's properties (stack and spills), then
+    # its registers; the bf16 conv kernels must not spill
+    name = ""
     for line in _native.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[-1].strip()
+        elif "spill" in line or "registers" in line:
+            log(f"  ptxas: {name[:60]}: {line.strip()}")
+            if ("conv3d_wgmma" in name and "spill" in line
+                    and " 0 bytes spill stores, 0 bytes spill loads"
+                    not in line):
+                fail(f"the bf16 conv kernel spills: {name}: {line.strip()}")
 
 
 def attention_library_ms(qkv: torch.Tensor, bias: torch.Tensor,
@@ -220,6 +233,26 @@ def attention_library_ms(qkv: torch.Tensor, bias: torch.Tensor,
     mask = mask.to(qkv.dtype)
     return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=mask))
+
+
+def attention_backward_library_ms(qkv: torch.Tensor, bias: torch.Tensor,
+                                  ids, cot: torch.Tensor) -> float:
+    """``torch.autograd.grad`` of qkv and the f32 bias through
+    ``scaled_dot_product_attention``, the bias (plus the region mask) as a
+    float ``attn_mask`` in the compute dtype: the backward alone, on a
+    graph built once."""
+    bw, n, _, h, _ = qkv.shape
+    q_in = qkv.detach().clone().requires_grad_()
+    b_in = bias.detach().clone().requires_grad_()
+    q, k, v = (q_in[:, :, i].transpose(1, 2) for i in range(3))
+    mask = b_in[None]
+    if ids is not None:
+        region = torch.where(ids[:, None, :] != ids[:, :, None], -100.0, 0.0)
+        mask = (mask + region[:, None]).repeat(bw // ids.shape[0], 1, 1, 1)
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask.to(qkv.dtype)).transpose(1, 2)
+    return cuda_ms(lambda: torch.autograd.grad(
+        out, (q_in, b_in), cot, retain_graph=True), reps=5, warmup=1)
 
 
 def phase_kernels(dev: torch.device) -> dict:
@@ -549,10 +582,18 @@ def phase_backward(dev: torch.device) -> dict:
                     for a, w in zip(*grads)]
             tag = (f"window_attention backward {name} BW={bw} H={h} N={n} "
                    f"{str(dtype)[6:]}")
+            extra = ""
+            if name == "stage1" and dtype == torch.bfloat16:
+                library_ms = attention_backward_library_ms(qkv, bias, ids,
+                                                           cot)
+                # qkv and dout read, dqkv and the f32 dbias written, once
+                bnd = bound(2 * nbytes(qkv) + nbytes(cot, bias), 0.0, dtype)
+                extra = (f", library {library_ms:.4f} ms, bound "
+                         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
             log(f"{tag}: qkv / bias grad err {errs[0]:.3e} / {errs[1]:.3e} "
                 f"of max|g| (tol {ATTN_TOL[dtype]:.0e}); backward "
                 f"(recompute) {times[0]:.4f} ms, plain backward "
-                f"{times[1]:.4f} ms")
+                f"{times[1]:.4f} ms{extra}")
             if not max(errs) <= ATTN_TOL[dtype]:
                 fail(f"{tag} disagrees with autograd through the plain "
                      "version")

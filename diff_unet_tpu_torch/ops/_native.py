@@ -53,8 +53,10 @@ def _digest() -> str:
 def _build() -> Path:
     """One nvcc per source, all started together, then one link."""
     out = BUILD_DIR / f"libdut_kernels_{_digest()}.so"
+    log_path = out.with_suffix(".log")     # nvcc's output (ptxas -v)
     if out.exists():
-        build_info.update(path=str(out), seconds=0.0, log="(cached)")
+        log = log_path.read_text() if log_path.exists() else "(cached)"
+        build_info.update(path=str(out), seconds=0.0, log=log)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -82,6 +84,7 @@ def _build() -> Path:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{' '.join(link)}\n{proc.stdout}"
                                f"{proc.stderr}")
+        log_path.write_text("".join(log))
         os.replace(tmp, out)   # atomic: a concurrent process sees a whole file
     build_info.update(path=str(out), seconds=time.perf_counter() - t0,
                       log="".join(log))
@@ -97,12 +100,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.shift_windows_forward.argtypes = [p, p, p, ll, ll, i, p]
     lib.shift_windows_forward.restype = i
     for fn in (lib.window_partition_forward, lib.window_reverse_forward):
-        fn.argtypes = [p, p] + [i] * 11 + [p]
+        fn.argtypes = [p, p] + [i] * 10 + [p]
         fn.restype = i
-    lib.conv3x3_forward.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, p,
-                                    p, f, f, p, p, i, i, i, i, i, i, i, i,
-                                    p]
-    lib.conv3x3_forward.restype = i
+    conv_head = [p, p, p, p, i, i, i, i, i, p, p, p, p, p, f, f, p, p]
+    lib.conv3x3_f32_forward.argtypes = conv_head + [i] * 7 + [p]
+    lib.conv3x3_f32_forward.restype = i
+    lib.conv3x3_bf16_forward.argtypes = conv_head + [p, p] + [i] * 10 + [p]
+    lib.conv3x3_bf16_forward.restype = i
     lib.kernels_error_string.argtypes = [i]
     lib.kernels_error_string.restype = ctypes.c_char_p
     return lib

@@ -22,9 +22,17 @@ compute dtype is that of the parts (float32 or bfloat16); products
 accumulate in float32, ``stats`` (N, 2, Cout) float32 are taken from that
 accumulator before the output is rounded to the compute dtype. The kernel
 source is ``csrc/conv3d.cu``.
+
+The bfloat16 kernel's launch plan (``conv_plan``: output bricks, Cout
+block, the split of the channel chunks across CTAs, TMA or gathered halo)
+and its weight layout (``pack_weight``) are chosen here, in Python, from
+the shapes; the packed weights are kept per weight tensor and parameter
+version (``packed_weight``).
 """
 from __future__ import annotations
 
+import dataclasses
+import weakref
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -41,6 +49,14 @@ MAX_PARTS = 4
 # float32 statistics to 1e-4 of the largest in either dtype.
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 STATS_TOL = 1e-4
+# the bfloat16 kernel's geometry (csrc/conv3d.cu, namespace hw): a CTA
+# owns a (z, y, x) brick of output voxels of one sample, one z slice for
+# each of its two consumer warpgroups, and takes the input in chunks of
+# CHUNK channels; grids under MIN_CTAS CTAs split the chunks
+BRICK = (2, 8, 8)
+CONSUMER_THREADS = 256
+CHUNK = 16
+MIN_CTAS = 2 * 132                 # two CTAs for each SM of an H100
 Prologue = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
                  Optional[float]]
 
@@ -91,6 +107,146 @@ def conv3x3_plain(parts: Sequence[torch.Tensor], weight: torch.Tensor,
     stats = torch.stack([y.sum(dim=(1, 2, 3)), (y * y).sum(dim=(1, 2, 3))],
                         dim=1)
     return out, stats
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """Launch plan of the bfloat16 kernel for one conv: the work is
+    ``grid`` = (bricks, Cout blocks of ``bn``, ``split``) tiles, tile
+    (brick, block, s) taking the channel chunks ``chunks(s)``. The kernel
+    gives a small grid a CTA for each tile and runs a large one on
+    persistent CTAs (as many as fit on the card), each walking the bricks
+    with the stride of their count."""
+    n: int
+    dims: Tuple[int, int, int]     # (D, H, W)
+    cin: int
+    cout: int
+    bn: int                        # output channels per CTA: 64 or 128
+    nchunk: int                    # ceil(cin / CHUNK)
+    split: int                     # CTAs that share one output tile
+    per_split: int                 # chunks per split (the last may be short)
+    tma: bool                      # halo by TMA (else gathered)
+
+    @property
+    def blocks(self) -> Tuple[int, int, int]:
+        return tuple(_cdiv(s, b) for s, b in zip(self.dims, BRICK))
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return (self.n * self.blocks[0] * self.blocks[1] * self.blocks[2],
+                _cdiv(self.cout, self.bn), self.split)
+
+    def brick(self, i: int) -> Tuple[int, int, int, int]:
+        """(sample, z0, y0, x0) of brick i, decoded as the kernel does; its
+        voxels outside the volume are masked out of the store and the
+        statistics."""
+        nzb, nyb, nxb = self.blocks
+        xb, i = i % nxb, i // nxb
+        yb, i = i % nyb, i // nyb
+        zb, n = i % nzb, i // nzb
+        return n, zb * BRICK[0], yb * BRICK[1], xb * BRICK[2]
+
+    def chunks(self, s: int) -> range:
+        return range(s * self.per_split,
+                     min(self.nchunk, (s + 1) * self.per_split))
+
+    def workspace(self) -> Tuple[int, int]:
+        """(f32 partial-tile elements, int32 counters) for split > 1."""
+        if self.split == 1:
+            return 0, 0
+        tiles = self.grid[0] * self.grid[1]
+        return tiles * self.split * CONSUMER_THREADS * self.bn // 2, tiles
+
+
+def conv_plan(n: int, dims: Sequence[int], chans: Sequence[int], cout: int,
+              aligned: bool = True) -> ConvPlan:
+    """The bfloat16 kernel's plan from the shapes: Cout blocks of 64 (Cout
+    <= 64) or 128; a grid under ``MIN_CTAS`` CTAs splits the channel chunks
+    across more; the halo comes by TMA when every part's channels are a
+    multiple of ``CHUNK`` (a chunk then lies in one part) and its pointer
+    is 16-byte aligned (``aligned``)."""
+    cin = sum(chans)
+    nchunk = _cdiv(cin, CHUNK)
+    bn = 64 if cout <= 64 else 128
+    blocks = [_cdiv(s, b) for s, b in zip(dims, BRICK)]
+    ctas = n * blocks[0] * blocks[1] * blocks[2] * _cdiv(cout, bn)
+    split = min(nchunk, _cdiv(MIN_CTAS, ctas)) if ctas < MIN_CTAS else 1
+    per_split = _cdiv(nchunk, split)
+    return ConvPlan(n=n, dims=tuple(dims), cin=cin, cout=cout, bn=bn,
+                    nchunk=nchunk, split=_cdiv(nchunk, per_split),
+                    per_split=per_split,
+                    tma=aligned and all(c % CHUNK == 0 for c in chans))
+
+
+def pack_weight(weight: torch.Tensor, bn: int) -> torch.Tensor:
+    """(Cout, Cin, 3, 3, 3) -> the bfloat16 kernel's layout (Cout_pad / bn,
+    nchunk, 27, 2, bn, 8), zero-padded: element [cb, j, tap, g, c, e] is
+    weight[cb * bn + c, 16 j + 8 g + e, tap]. One (cb, j, dz) slab of 9
+    taps is one contiguous stage of the kernel's weight ring, in wgmma's
+    core-matrix layout (8 output channels x 8 input channels, 128 bytes)."""
+    cout, cin = weight.shape[:2]
+    ncb, nchunk = _cdiv(cout, bn), _cdiv(cin, CHUNK)
+    w = torch.zeros((ncb * bn, nchunk * CHUNK, 27), dtype=weight.dtype,
+                    device=weight.device)
+    w[:cout, :cin] = weight.reshape(cout, cin, 27)
+    w = w.reshape(ncb, bn, nchunk, 2, 8, 27).permute(0, 2, 5, 3, 1, 4)
+    return w.contiguous()
+
+
+def unpack_weight(packed: torch.Tensor, cout: int, cin: int) -> torch.Tensor:
+    """The inverse of ``pack_weight``: (Cout, Cin, 3, 3, 3)."""
+    ncb, nchunk, _, _, bn, _ = packed.shape
+    w = packed.permute(0, 4, 1, 3, 5, 2).reshape(ncb * bn, nchunk * CHUNK,
+                                                 27)
+    return w[:cout, :cin].reshape(cout, cin, 3, 3, 3)
+
+
+def pack_weight_f32(weight: torch.Tensor) -> torch.Tensor:
+    """The float32 kernel's layout: (Cout_pad, K_pad), k = tap * Cin + ci,
+    K padded to a multiple of 32 and Cout to 64 with zeros."""
+    cout, cin = weight.shape[:2]
+    k = 27 * cin
+    w = torch.zeros((_cdiv(cout, 64) * 64, _cdiv(k, 32) * 32),
+                    dtype=weight.dtype, device=weight.device)
+    w[:cout, :k] = weight.permute(0, 2, 3, 4, 1).reshape(cout, k)
+    return w
+
+
+_PACKED: dict = {}   # id(weight) -> (weakref to it, key, packed weights)
+
+
+def packed_weight(weight: torch.Tensor, dtype: torch.dtype,
+                  device: torch.device, bn: int = 0) -> torch.Tensor:
+    """``weight`` in the kernel's layout for ``dtype`` (``pack_weight``
+    with Cout blocks of ``bn`` for bfloat16, ``pack_weight_f32`` for
+    float32), on ``device``. The result is kept while the weight tensor
+    lives and reused while its storage, version counter (bumped by every
+    in-place update), dtype, device and ``bn`` stay the same. Inference
+    tensors have no version counter: they are packed at every call."""
+    try:
+        key = (weight.data_ptr(), weight._version, dtype, device, bn)
+    except RuntimeError:
+        key = None
+    entry = _PACKED.get(id(weight))
+    if (key is not None and entry is not None and entry[0]() is weight
+            and entry[1] == key):
+        return entry[2]
+    w = weight.detach().to(device, dtype)
+    packed = pack_weight(w, bn) if dtype == torch.bfloat16 \
+        else pack_weight_f32(w)
+    if key is not None:
+        i = id(weight)
+        _PACKED[i] = (weakref.ref(weight, lambda _: _PACKED.pop(i, None)),
+                      key, packed)
+    packed_weight.packs += 1
+    return packed
+
+
+packed_weight.packs = 0
 
 
 def _f32_rows(v: Optional[torch.Tensor], n: int, cin: int,
@@ -159,12 +315,6 @@ def conv3x3(parts: Sequence[torch.Tensor], weight: torch.Tensor,
         if pro[0] is None or pro[1] is None:
             raise ValueError("prologue needs scale and shift")
         pro_slope = 1.0 if slope is None else float(slope)
-    # (Cout, K) with K = (kd, kh, kw, ci) flattened, zero-padded to the
-    # kernel's tiles: K to a multiple of 32, Cout to a multiple of 64
-    k = 27 * cin
-    k_pad, cout_pad = -(-k // 32) * 32, -(-cout // 64) * 64
-    wt = torch.zeros((cout_pad, k_pad), dtype=dt, device=dev)
-    wt[:cout, :k] = weight.to(dev, dt).permute(0, 2, 3, 4, 1).reshape(cout, k)
     out = torch.empty((n, d, h, w, cout), dtype=dt, device=dev)
     stats = (torch.zeros((n, 2, cout), dtype=torch.float32, device=dev)
              if with_stats else None)
@@ -174,12 +324,31 @@ def conv3x3(parts: Sequence[torch.Tensor], weight: torch.Tensor,
 
     ptrs = [p.data_ptr() for p in parts] + [None] * (MAX_PARTS - len(parts))
     chans_arg = chans + [0] * (MAX_PARTS - len(parts))
-    err = _native.load().conv3x3_forward(
-        *ptrs, *chans_arg, len(parts), wt.data_ptr(), ptr(bias), *map(ptr, pro),
-        pro_slope, 1.0 if negative_slope is None else float(negative_slope),
-        out.data_ptr(), ptr(stats), n, d, h, w, cout, k_pad, cout_pad,
-        0 if dt == torch.float32 else 1, _native.stream_ptr(dev))
-    _native.check(err, "conv3x3_forward")
+    common = (*ptrs, *chans_arg, len(parts))
+    epilogue = (ptr(bias), *map(ptr, pro), pro_slope,
+                1.0 if negative_slope is None else float(negative_slope),
+                out.data_ptr(), ptr(stats))
+    stream = _native.stream_ptr(dev)
+    if dt == torch.bfloat16:
+        plan = conv_plan(n, (d, h, w), chans, cout,
+                         aligned=all(p.data_ptr() % 16 == 0 for p in parts))
+        wt = packed_weight(weight, dt, dev, plan.bn)
+        n_partial, n_counter = plan.workspace()
+        partial = counter = None
+        if plan.split > 1:
+            partial = torch.empty(n_partial, dtype=torch.float32, device=dev)
+            counter = torch.zeros(n_counter, dtype=torch.int32, device=dev)
+        err = _native.load().conv3x3_bf16_forward(
+            *common, wt.data_ptr(), *epilogue, ptr(partial), ptr(counter),
+            n, d, h, w, cout, plan.bn, plan.nchunk, plan.split,
+            plan.per_split, int(plan.tma), stream)
+        _native.check(err, "conv3x3_bf16_forward")
+    else:
+        wt = packed_weight(weight, dt, dev)
+        err = _native.load().conv3x3_f32_forward(
+            *common, wt.data_ptr(), *epilogue, n, d, h, w, cout,
+            wt.shape[1], wt.shape[0], stream)
+        _native.check(err, "conv3x3_f32_forward")
     conv3x3.launches += 1
     return (out, stats) if with_stats else out
 

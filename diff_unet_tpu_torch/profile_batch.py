@@ -159,7 +159,8 @@ def main() -> None:
                       if "conv3d_" in e.key) / 1e3
         print(f"3x3x3 conv work per batch: {conv_flops[0] / 1e12:.3f} TFLOP "
               f"({conv_flops[0] / sw / 1e12:.3f} per window); conv kernel "
-              f"{conv_ms:.1f} ms = "
+              f"{conv_ms:.1f} ms ({conv_ms / device_ms:.1%} of the device "
+              f"time) = "
               f"{conv_flops[0] / conv_ms / 1e9:.1f} TFLOP/s; bound at the "
               f"bf16 peak {conv_flops[0] / PEAK_BF16_FLOP_PER_S * 1e3:.1f} ms")
     rows = sorted(kernels, key=lambda e: _device_us(e, True), reverse=True)

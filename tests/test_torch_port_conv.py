@@ -32,9 +32,17 @@ from diff_unet_tpu.ops.pallas_packed_conv import (
 )
 from diff_unet_tpu_torch.ops import blocks as tb
 from diff_unet_tpu_torch.ops.conv3d import (
+    BRICK,
+    CHUNK,
+    MIN_CTAS,
     conv3x3,
     conv3x3_plain,
+    conv_plan,
     norm_affine_from_stats,
+    pack_weight,
+    pack_weight_f32,
+    packed_weight,
+    unpack_weight,
 )
 from diff_unet_tpu_torch.utils.weights import load_jax_params
 from tests.test_torch_port_swin import random_flax_params
@@ -162,6 +170,82 @@ def test_conv3x3_wrapper_raises_off_cpu():
         conv3x3([x], w)
     with pytest.raises(ValueError, match="parts"):
         conv3x3([], w)
+
+
+# (spatial dims, part channels, Cout) of every distinct conv of DiffUNet at
+# the AMOS ROI (96^3) and at the test sizes 32^3 and 32x32x22
+AMOS_CONVS = [((96,) * 3, [1], 64), ((96,) * 3, [1, 15], 64),
+              ((96,) * 3, [64], 64), ((96,) * 3, [64, 64], 64),
+              ((48,) * 3, [64], 64), ((48,) * 3, [64, 64], 64),
+              ((24,) * 3, [64], 128), ((24,) * 3, [128], 128),
+              ((24,) * 3, [128, 128], 128), ((12,) * 3, [128], 256),
+              ((12,) * 3, [256], 256), ((12,) * 3, [256, 256], 256),
+              ((6,) * 3, [256], 512), ((6,) * 3, [512], 512)]
+SMALL_CONVS = [(dims, chans, cout) for dims in ((32, 32, 32), (32, 32, 22))
+               for chans, cout in (([1, 15], 8), ([8], 8), ([8, 8], 16),
+                                   ([16], 32), ([64, 64], 64))]
+
+
+@pytest.mark.parametrize("cout,cin,bn", [(24, 40, 64), (64, 16, 64),
+                                         (256, 512, 128), (130, 1, 128)])
+def test_pack_weight_unpacks_to_the_original(cout, cin, bn):
+    w = torch.from_numpy(np.random.default_rng(cin).standard_normal(
+        (cout, cin, 3, 3, 3)).astype(np.float32))
+    packed = pack_weight(w, bn)
+    nchunk = -(-cin // CHUNK)
+    assert packed.shape == (-(-cout // bn), nchunk, 27, 2, bn, 8)
+    assert torch.equal(unpack_weight(packed, cout, cin), w)
+    # element [cb, j, tap, g, c, e] is w[cb * bn + c, 16 j + 8 g + e, tap]
+    co, ci, tap = cout - 1, cin - 1, 26
+    cb, c = divmod(co, bn)
+    j, r = divmod(ci, CHUNK)
+    assert packed[cb, j, tap, r // 8, c, r % 8] == w[co, ci, 2, 2, 2]
+    # the zero padding of both channel axes
+    assert packed.count_nonzero() == w.count_nonzero()
+    f32 = pack_weight_f32(w)
+    assert f32.shape[0] % 64 == 0 and f32.shape[1] % 32 == 0
+    assert torch.equal(f32[:cout, :27 * cin].reshape(cout, 3, 3, 3, cin)
+                       .permute(0, 4, 1, 2, 3), w)
+
+
+@pytest.mark.parametrize("dims,chans,cout", AMOS_CONVS + SMALL_CONVS)
+def test_conv_plan_covers_voxels_and_taps_once(dims, chans, cout):
+    """Every output voxel in exactly one brick (of one sample), every
+    (tap, input channel) in exactly one split, every Cout in one block."""
+    n = 4
+    plan = conv_plan(n, dims, chans, cout)
+    assert plan.bn in (64, 128) and plan.bn * plan.grid[1] >= cout
+    assert plan.tma == all(c % CHUNK == 0 for c in chans)
+    seen = np.zeros((n, *dims), np.int32)
+    for i in range(plan.grid[0]):
+        s, z0, y0, x0 = plan.brick(i)
+        seen[s, z0:z0 + BRICK[0], y0:y0 + BRICK[1], x0:x0 + BRICK[2]] += 1
+    assert (seen == 1).all()
+    cin = sum(chans)
+    taps = np.zeros((27, plan.nchunk * CHUNK), np.int32)
+    for s in range(plan.split):
+        assert len(plan.chunks(s)) > 0           # no split is empty
+        for j in plan.chunks(s):
+            taps[:, j * CHUNK:(j + 1) * CHUNK] += 1
+    assert (taps[:, :cin] == 1).all() and plan.nchunk * CHUNK - cin < CHUNK
+    ctas = plan.grid[0] * plan.grid[1]
+    assert (plan.split > 1) == (ctas < MIN_CTAS and plan.nchunk > 1)
+    assert plan.workspace() == ((ctas * plan.split * 256 * plan.bn // 2,
+                                 ctas) if plan.split > 1 else (0, 0))
+
+
+def test_packed_weight_is_reused_until_the_weight_changes():
+    w = torch.randn((64, 16, 3, 3, 3))
+    cpu = torch.device("cpu")
+    first = packed_weight(w, torch.bfloat16, cpu, 64)
+    packs = packed_weight.packs
+    assert packed_weight(w, torch.bfloat16, cpu, 64) is first
+    assert packed_weight.packs == packs
+    assert packed_weight(w, torch.float32, cpu) is not first   # dtype
+    w.add_(1.0)                                                # version
+    again = packed_weight(w, torch.bfloat16, cpu, 64)
+    assert again is not first and packed_weight.packs == packs + 2
+    assert torch.equal(unpack_weight(again, 64, 16), w.bfloat16())
 
 
 @pytest.fixture(scope="module")

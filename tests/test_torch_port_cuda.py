@@ -17,6 +17,7 @@ from diff_unet_tpu_torch.ops.conv3d import (
     STATS_TOL,
     conv3x3,
     conv3x3_plain,
+    packed_weight,
 )
 from diff_unet_tpu_torch.ops.swin import window_region_ids
 from diff_unet_tpu_torch.ops.window_partition import (
@@ -210,18 +211,39 @@ def test_predictor_serves_through_both_kernels(dev):
     assert (on_card.cpu() - want).abs().max().item() <= 1e-3
 
 
+CONV_SMALL = [(2, 6, 7, 9), (1, 8, 8, 8)]
+# (part channels, prologue: None / "const" / "no const", statistics, shape,
+# Cout): the switches at two small shapes, then the bf16 kernel's edges:
+# ragged bricks, split chunks, Cin 512, four parts, the stems at N = 4
+CONV_KERNEL_CASES = [
+    (chans, prologue, stats, shape, 24)
+    for shape in CONV_SMALL
+    for chans, prologue, stats in [
+        ([1], None, True), ([1, 15], None, True), ([64], "const", True),
+        ([64, 64], None, True), ([64], None, False), ([3, 5], "const", False)]
+] + [
+    ([64], "const", True, (2, 6, 6, 6), 64),
+    ([64], "const", True, (1, 12, 12, 12), 128),
+    ([32], "no const", True, (1, 32, 32, 22), 64),
+    ([512], "const", True, (1, 6, 6, 6), 256),
+    ([16, 16, 32, 16], None, True, (1, 8, 8, 8), 64),
+    ([1], None, True, (4, 16, 16, 16), 64),
+    ([1, 15], None, True, (4, 16, 16, 16), 64),
+    ([256, 256], None, True, (2, 12, 12, 12), 256),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("chans,prologue,stats", [
-    ([1], False, True), ([1, 15], False, True), ([64], True, True),
-    ([64, 64], False, True), ([64], False, False), ([3, 5], True, False),
-])
-@pytest.mark.parametrize("shape", [(2, 6, 7, 9), (1, 8, 8, 8)])
+@pytest.mark.parametrize("chans,prologue,stats,shape,cout",
+                         CONV_KERNEL_CASES)
 def test_conv3x3_kernel_matches_plain(dev, dtype, chans, prologue, stats,
-                                      shape):
+                                      shape, cout):
     """Odd W, parts that split the channels, the prologue and statistics
-    on and off; bias and LeakyReLU epilogue on the one-part cases."""
+    on and off; bias and LeakyReLU epilogue on the one-part cases; ragged
+    bricks (6^3, 12^3, 6x7x9, 32x32x22), shapes that split the channel
+    chunks across CTAs, several chunks and four TMA-mapped parts."""
     g = torch.Generator(device=dev).manual_seed(sum(chans) + shape[1])
-    n, cin, cout = shape[0], sum(chans), 24
+    n, cin = shape[0], sum(chans)
     parts = [torch.randn((*shape, c), generator=g, device=dev).to(dtype)
              for c in chans]
     w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) \
@@ -231,7 +253,8 @@ def test_conv3x3_kernel_matches_plain(dev, dtype, chans, prologue, stats,
     if prologue:
         pro = (1 + 0.3 * torch.randn((n, cin), generator=g, device=dev),
                0.3 * torch.randn((n, cin), generator=g, device=dev),
-               0.2 * torch.randn((n, cin), generator=g, device=dev), 0.1)
+               0.2 * torch.randn((n, cin), generator=g, device=dev)
+               if prologue == "const" else None, 0.1)
     slope = 0.1 if len(chans) == 1 else None
     before = conv3x3.launches
     got = conv3x3(parts, w, b, prologue=pro, negative_slope=slope,
@@ -248,6 +271,24 @@ def test_conv3x3_kernel_matches_plain(dev, dtype, chans, prologue, stats,
     scale = max(1.0, want.float().abs().max().item())
     err = (got.float() - want.float()).abs().max().item()
     assert err <= KERNEL_TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_reuses_packed_weights(dev, dtype):
+    """A second call with the same weight packs nothing; an in-place
+    update of the weight re-packs it, and the output follows it."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((1, 8, 8, 8, 16), generator=g, device=dev).to(dtype)
+    w = torch.randn((64, 16, 3, 3, 3), generator=g, device=dev) / 12.0
+    first = conv3x3([x], w)
+    packs = packed_weight.packs
+    assert torch.equal(conv3x3([x], w), first)
+    assert packed_weight.packs == packs
+    w.mul_(-1.0)
+    second = conv3x3([x], w)
+    torch.cuda.synchronize()
+    assert packed_weight.packs == packs + 1
+    assert torch.equal(second, -first)
 
 
 def test_conv3x3_checks_inputs(dev):
