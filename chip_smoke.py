@@ -8,7 +8,8 @@ PyTorch built for CUDA. Phases, each of which must pass:
 1. the card: name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``diff_unet_tpu_torch/csrc`` with ``nvcc``
    (one process per source, in parallel), print each kernel's ptxas
-   registers and spills, and fail if the bf16 conv kernel spills;
+   registers and spills, and fail if a bf16 conv or attention kernel
+   spills;
 3. every kernel against its plain PyTorch version on the card at the
    shapes its slice gives it, with CUDA-event times of the kernel, the
    plain version and one PyTorch library call computing the same function
@@ -16,7 +17,9 @@ PyTorch built for CUDA. Phases, each of which must pass:
    a. window attention at the four Swin stage geometries of a 96^3 ROI
       with sw_batch_size 2, shifted and unshifted, bf16 and fp32
       (library: ``scaled_dot_product_attention`` with the bias and region
-      mask as ``attn_mask``); the window shift forward and inverse at the
+      mask as ``attn_mask``), beside its bound and its softmax floor (one
+      exponential per score at 16 per clock per SM at the card's maximum
+      SM clock); the window shift forward and inverse at the
       7^3 / 4^3 / 2^3 window grids, bit-exact (library: ``index_select``
       with the same table);
    b. the 3x3x3 conv at every distinct conv of DiffUNet at a 96^3 ROI with
@@ -31,12 +34,15 @@ PyTorch built for CUDA. Phases, each of which must pass:
       the partition table);
    d. the backwards: the shift's backward kernel and the partition's
       adjoint pair against autograd through the plain versions, bit-exact;
-      the attention's gradients (qkv and bias; the backward recomputes the
-      plain version) at the four stage geometries of a training batch,
-      within 1e-4 (fp32) and 3e-2 (bf16) of each gradient's max |g|; at
-      stage 1 in bf16 also the library's backward (``torch.autograd.grad``
-      through ``scaled_dot_product_attention`` with the f32 bias as a float
-      ``attn_mask``) and the bytes bound of a backward;
+      the attention's backward kernel (qkv and bias gradients) at the four
+      stage geometries of a training batch, fp32 and bf16, against
+      ``window_attention_backward_plain`` and against autograd through the
+      plain version, within 1e-4 (fp32) and 3e-2 (bf16) of each gradient's
+      max |g|, with the times of the kernel, of ``torch.autograd.grad``
+      through the port and through the plain version, of the library's
+      backward (``torch.autograd.grad`` through
+      ``scaled_dot_product_attention`` with the f32 bias as a float
+      ``attn_mask``), the bound and the softmax floor;
 4. small models on the card against the same weights on the CPU's plain
    path, fp32 with TF32 off: a DiffSwinUNETR denoiser step (feature 12,
    32^3), a DiffUNet denoiser step (features (8, 8, 16, 32, 64, 8), 32^3),
@@ -73,6 +79,7 @@ shapes and the H100 SXM peaks), then, last, one JSON line with
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -132,12 +139,14 @@ PARTITION_CASES = [("stage1", 48, 48, 7), ("stage2", 24, 96, 7),
 ATTN_GRAD_CASES = [("stage1", 343, 3, 343, True), ("stage2", 64, 6, 343, True),
                    ("stage3", 8, 12, 343, True), ("stage4", 1, 24, 216, False)]
 TRAIN_STEPS = 8
+# the bf16 kernels that must not spill (substrings of their mangled names)
+BF16_KERNELS = ("conv3d_wgmma", "attn_fwd_bf16", "attn_bwd_bf16")
 # per window batch of BTCV serving (1 embed + 10 denoiser Swin passes of 4
 # stages) and per BTCV train step (the encoder's and the denoiser's Swin
 # pass): forward launches, and launches inside the backward
 SERVE_PER_BATCH = {"window_attention": 88, "shift_windows": 66,
                    "window_partition": 44, "window_reverse": 44}
-TRAIN_PER_STEP = {"window_attention": (16, 0), "shift_windows": (12, 12),
+TRAIN_PER_STEP = {"window_attention": (16, 16), "shift_windows": (12, 12),
                   "window_partition": (8, 8), "window_reverse": (8, 8)}
 
 
@@ -157,6 +166,13 @@ def bound(nbytes: float, flops: float, dtype: torch.dtype) -> dict:
     t_ops = flops / PEAK_FLOP_PER_S[dtype] * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def softmax_floor_ms(exps: float, clock_hz: float) -> float:
+    """The least time the SFUs take for ``exps`` exponentials: 16 per clock
+    per SM at the SM clock ``clock_hz``."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return exps / (16 * sms * clock_hz) * 1e3
 
 
 def nbytes(*tensors) -> int:
@@ -183,7 +199,9 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_card() -> str:
+def phase_card() -> tuple:
+    """The nvidia-smi name and power limit line, and the maximum SM clock
+    in Hz."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     smi = subprocess.run(
@@ -193,9 +211,28 @@ def phase_card() -> str:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if clk.returncode != 0:
+        fail(f"nvidia-smi failed: {clk.stderr.strip()}")
+    log(f"max SM clock {clk.stdout.strip().splitlines()[0]}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
-    return card
+    return card, float(clk.stdout.split()[0]) * 1e6
+
+
+def short_name(mangled: str) -> str:
+    """A kernel's name and the start of its template arguments, out of its
+    mangled name."""
+    i, names = (3 if mangled.startswith("_ZN") else 2), []
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        names.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    return (names[-1] + mangled[i:i + 12]) if names else mangled[:60]
 
 
 def phase_build() -> None:
@@ -207,17 +244,19 @@ def phase_build() -> None:
         f"(nvcc {_native.build_info['seconds']:.2f} s) "
         f"-> {_native.build_info['path']}")
     # ptxas -v: each entry function's properties (stack and spills), then
-    # its registers; the bf16 conv kernels must not spill
-    name = ""
+    # its registers; the bf16 conv and attention kernels must not spill
+    name, spills = "", []
     for line in _native.build_info["log"].splitlines():
         if "Function properties for" in line:
             name = line.split("Function properties for")[-1].strip()
         elif "spill" in line or "registers" in line:
-            log(f"  ptxas: {name[:60]}: {line.strip()}")
-            if ("conv3d_wgmma" in name and "spill" in line
+            log(f"  ptxas: {short_name(name)}: {line.strip()}")
+            if (any(k in name for k in BF16_KERNELS) and "spill" in line
                     and " 0 bytes spill stores, 0 bytes spill loads"
                     not in line):
-                fail(f"the bf16 conv kernel spills: {name}: {line.strip()}")
+                spills.append(f"{short_name(name)}: {line.strip()}")
+    if spills:
+        fail("bf16 kernels spill: " + "; ".join(spills))
 
 
 def attention_library_ms(qkv: torch.Tensor, bias: torch.Tensor,
@@ -255,12 +294,12 @@ def attention_backward_library_ms(qkv: torch.Tensor, bias: torch.Tensor,
         out, (q_in, b_in), cot, retain_graph=True), reps=5, warmup=1)
 
 
-def phase_kernels(dev: torch.device) -> dict:
+def phase_attention(dev: torch.device, clock_hz: float) -> dict:
+    """The attention's forward kernel against its plain version at every
+    ATTN_CASES geometry, shifted and unshifted, fp32 and bf16."""
     from diff_unet_tpu_torch.ops.swin import window_region_ids
     from diff_unet_tpu_torch.ops.window_attention import (
         window_attention, window_attention_plain)
-    from diff_unet_tpu_torch.ops.window_shift import (
-        shift_table, shift_windows, shift_windows_plain)
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     report = {}
@@ -285,19 +324,32 @@ def phase_kernels(dev: torch.device) -> dict:
                 library_ms = attention_library_ms(qkv, bias, ids)
                 bnd = bound(nbytes(qkv, bias, ids, got),
                             4.0 * bw * h * n * n * 16, dtype)
+                floor = softmax_floor_ms(bw * h * n * n, clock_hz)
                 tag = (f"window_attention {name} {'shift' if shifted else 'noshift'}"
                        f" {str(dtype)[6:]} BW={bw} H={h} N={n}")
                 log(f"{tag}: max_abs_err {err:.3e} (tol "
                     f"{ATTN_TOL[dtype]:.0e}) kernel {ms:.4f} ms plain "
                     f"{plain_ms:.4f} ms library {library_ms:.4f} ms bound "
-                    f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+                    f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) softmax "
+                    f"floor {floor:.4f} ms")
                 if not err <= ATTN_TOL[dtype]:
                     fail(f"{tag} disagrees with its plain version")
                 if name == "stage1" and shifted and dtype == torch.bfloat16:
                     report["window_attention"] = dict(
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        library_ms=library_ms, **bnd)
+                        library_ms=library_ms, **bnd,
+                        softmax_floor_ms=floor)
                 del qkv, bias, ids, got, want
+    return report
+
+
+def phase_shift(dev: torch.device) -> dict:
+    """The window shift forward and inverse, bit-exact."""
+    from diff_unet_tpu_torch.ops.window_shift import (
+        shift_table, shift_windows, shift_windows_plain)
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    report = {}
     for grid, c in SHIFT_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn((2 * int(np.prod(grid)), 343, c), generator=g,
@@ -496,11 +548,7 @@ def phase_partition(dev: torch.device) -> dict:
 
 def phase_backward(dev: torch.device) -> dict:
     """The shift's backward kernel and the partition pair's adjoints
-    against autograd through the plain versions (bit-exact), and the
-    attention's gradients at the training batch's stage geometries."""
-    from diff_unet_tpu_torch.ops.swin import window_region_ids
-    from diff_unet_tpu_torch.ops.window_attention import (
-        window_attention, window_attention_plain)
+    against autograd through the plain versions (bit-exact)."""
     from diff_unet_tpu_torch.ops.window_partition import (
         partition_windows, partition_windows_plain)
     from diff_unet_tpu_torch.ops.window_shift import (
@@ -555,6 +603,29 @@ def phase_backward(dev: torch.device) -> dict:
             f"{torch.equal(xg.grad, xp.grad)}")
         if not torch.equal(xg.grad, xp.grad):
             fail(f"window partition backward {name} is not bit-exact")
+    return report
+
+
+def attention_grad_bound(qkv, bias, ids, lse, cot, dtype) -> dict:
+    """qkv, bias, region ids, lse and dout read once, dqkv and the f32
+    dbias written once; the products S, dP, dV, dK and dQ (2 Dh operations
+    a score each)."""
+    bw, n, _, h, dh = qkv.shape
+    return bound(2 * nbytes(qkv) + 2 * nbytes(bias) + nbytes(ids, lse, cot),
+                 10.0 * bw * h * n * n * dh, dtype)
+
+
+def phase_attention_backward(dev: torch.device, clock_hz: float) -> dict:
+    """The attention's backward kernel at the training batch's stage
+    geometries, fp32 and bf16: against ``window_attention_backward_plain``
+    and against autograd through the plain version, with the times of the
+    kernel, of autograd through the port, through the plain version and
+    through ``scaled_dot_product_attention``."""
+    from diff_unet_tpu_torch.ops import window_attention as wa
+    from diff_unet_tpu_torch.ops.swin import window_region_ids
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    report = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, bw, h, n, shifted in ATTN_GRAD_CASES:
             qkv = torch.randn((bw, n, 3, h, 16), generator=g, device=dev
@@ -568,7 +639,9 @@ def phase_backward(dev: torch.device) -> dict:
             cot = torch.randn((bw, n, h, 16), generator=g, device=dev
                               ).to(dtype)
             grads, times = [], []
-            for fn in (window_attention, window_attention_plain):
+            before = (wa.window_attention.launches,
+                      wa.window_attention.backward_launches)
+            for fn in (wa.window_attention, wa.window_attention_plain):
                 q = qkv.clone().requires_grad_()
                 b = bias.clone().requires_grad_()
                 out = fn(q, b, ids)
@@ -577,27 +650,41 @@ def phase_backward(dev: torch.device) -> dict:
                 times.append(cuda_ms(lambda: torch.autograd.grad(
                     out, (q, b), cot, retain_graph=True), reps=5, warmup=1))
                 del out
+            if (wa.window_attention.launches - before[0],
+                    wa.window_attention.backward_launches - before[1]) != (
+                        1, 7):
+                fail("the attention's autograd did not run the forward "
+                     "kernel once and the backward kernel for each grad")
+            direct = wa.window_attention_backward_plain(qkv, bias, ids, cot)
             errs = [((a.float() - w.float()).abs().max()
                      / w.float().abs().max()).item()
-                    for a, w in zip(*grads)]
+                    for want in (grads[1], direct)
+                    for a, w in zip(grads[0], want)]
+            _, lse = wa._forward(qkv, bias, ids, with_stats=True)
+            ms = cuda_ms(lambda: wa._backward(qkv, bias, ids, lse, cot),
+                         reps=5, warmup=1)
+            library_ms = attention_backward_library_ms(qkv, bias, ids, cot)
+            bnd = attention_grad_bound(qkv, bias, ids, lse, cot, dtype)
+            floor = softmax_floor_ms(bw * h * n * n, clock_hz)
             tag = (f"window_attention backward {name} BW={bw} H={h} N={n} "
                    f"{str(dtype)[6:]}")
-            extra = ""
-            if name == "stage1" and dtype == torch.bfloat16:
-                library_ms = attention_backward_library_ms(qkv, bias, ids,
-                                                           cot)
-                # qkv and dout read, dqkv and the f32 dbias written, once
-                bnd = bound(2 * nbytes(qkv) + nbytes(cot, bias), 0.0, dtype)
-                extra = (f", library {library_ms:.4f} ms, bound "
-                         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
             log(f"{tag}: qkv / bias grad err {errs[0]:.3e} / {errs[1]:.3e} "
-                f"of max|g| (tol {ATTN_TOL[dtype]:.0e}); backward "
-                f"(recompute) {times[0]:.4f} ms, plain backward "
-                f"{times[1]:.4f} ms{extra}")
+                f"of max|g| against autograd through the plain version, "
+                f"{errs[2]:.3e} / {errs[3]:.3e} against "
+                f"window_attention_backward_plain (tol "
+                f"{ATTN_TOL[dtype]:.0e}); kernel {ms:.4f} ms, autograd "
+                f"through the port {times[0]:.4f} ms, plain backward "
+                f"{times[1]:.4f} ms, library {library_ms:.4f} ms, bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), softmax "
+                f"floor {floor:.4f} ms")
             if not max(errs) <= ATTN_TOL[dtype]:
-                fail(f"{tag} disagrees with autograd through the plain "
-                     "version")
-            del qkv, bias, cot, grads
+                fail(f"{tag} disagrees with the plain backward")
+            if name == "stage1" and dtype == torch.bfloat16:
+                report["window_attention_backward"] = dict(
+                    max_abs_err=max(errs), ms=ms, plain_ms=times[1],
+                    library_ms=library_ms, **bnd, softmax_floor_ms=floor,
+                    autograd_ms=times[0])
+            del qkv, bias, cot, grads, direct, lse
     return report
 
 
@@ -854,7 +941,7 @@ def phase_train(dev: torch.device, counters: dict) -> dict:
 
 
 def main() -> None:
-    card = phase_card()
+    card, clock_hz = phase_card()
     dev = torch.device("cuda", 0)
     phase_build()
     from diff_unet_tpu_torch.ops.conv3d import conv3x3
@@ -863,7 +950,9 @@ def main() -> None:
         partition_windows, reverse_windows)
     from diff_unet_tpu_torch.ops.window_shift import shift_windows
 
-    report = phase_kernels(dev)
+    report = phase_attention(dev, clock_hz)
+    report.update(phase_attention_backward(dev, clock_hz))
+    report.update(phase_shift(dev))
     report.update(phase_conv(dev))
     report.update(phase_partition(dev))
     report.update(phase_backward(dev))
@@ -887,11 +976,17 @@ def main() -> None:
     for k in ("window_partition", "window_reverse"):
         paths[k]["btcv_train"] = sum(counts[k])
     paths["window_attention"]["btcv_train"] = counts["window_attention"][0]
+    paths["window_attention_backward"] = {
+        "btcv_serve": 0, "btcv_train": counts["window_attention"][1]}
     (paths["shift_windows"]["btcv_train"],
      paths["shift_windows_backward"]["btcv_train"]) = counts["shift_windows"]
     replaces = {
         "window_attention": ("diff_unet_tpu_torch/csrc/window_attention.cu",
                              "diff_unet_tpu/ops/pallas_attention.py:115"),
+        "window_attention_backward": (
+            "diff_unet_tpu_torch/csrc/window_attention.cu",
+            "diff_unet_tpu/ops/pallas_attention.py:115 (its custom_vjp, "
+            ":196-222, :260-288)"),
         "shift_windows": ("diff_unet_tpu_torch/csrc/window_shift.cu",
                           "diff_unet_tpu/ops/pallas_shift.py:71"),
         "shift_windows_backward": (

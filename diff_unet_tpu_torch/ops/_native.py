@@ -94,9 +94,10 @@ def _build() -> Path:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_longlong
-    lib.window_attention_forward.argtypes = [p, p, p, p, i, i, i, i, i, f,
-                                             i, p]
+    lib.window_attention_forward.argtypes = [p] * 5 + [i] * 5 + [f, i, p]
     lib.window_attention_forward.restype = i
+    lib.window_attention_backward.argtypes = [p] * 7 + [i] * 6 + [f, i, p]
+    lib.window_attention_backward.restype = i
     lib.shift_windows_forward.argtypes = [p, p, p, ll, ll, i, p]
     lib.shift_windows_forward.restype = i
     for fn in (lib.window_partition_forward, lib.window_reverse_forward):

@@ -163,6 +163,42 @@ def test_window_attention_gradients_match_plain(dev, dtype, tol, n,
         assert (got - want).abs().max().item() <= tol * scale
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("n,dh,shifted,bw", [(343, 16, True, 16),
+                                             (64, 4, True, 8),
+                                             (27, 8, False, 200),
+                                             (216, 32, False, 1),
+                                             (8, 16, True, 8)])
+def test_window_attention_backward_kernel_matches_plain(dev, dtype, tol, n,
+                                                        dh, shifted, bw):
+    """The backward kernel (every head dim the wrapper takes; one group,
+    a window a group and runs of windows a group) against ``window_attention_backward_plain``,
+    within tol of each gradient's max |g|, and its launch count."""
+    from diff_unet_tpu_torch.ops import window_attention as wa
+
+    g = torch.Generator(device=dev).manual_seed(n + dh)
+    h = 3
+    qkv = torch.randn((bw, n, 3, h, dh), generator=g, device=dev).to(dtype)
+    bias = 0.5 * torch.randn((h, n, n), generator=g, device=dev)
+    ids = None
+    if shifted:
+        side = round(n ** (1 / 3))
+        ids = torch.from_numpy(window_region_ids(
+            (2 * side,) * 3, (side,) * 3, (side // 2,) * 3)).to(dev)
+    cot = torch.randn((bw, n, h, dh), generator=g, device=dev).to(dtype)
+    _, lse = wa._forward(qkv, bias, ids, with_stats=True)
+    before = window_attention.backward_launches
+    got = wa._backward(qkv, bias, ids, lse, cot)
+    want = wa.window_attention_backward_plain(qkv, bias, ids, cot)
+    torch.cuda.synchronize()
+    assert window_attention.backward_launches == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    for a, w in zip(got, want):
+        scale = w.float().abs().max().item()
+        assert (a.float() - w.float()).abs().max().item() <= tol * scale
+
+
 def test_wrappers_check_inputs(dev):
     qkv = torch.randn((2, 8, 3, 2, 4), device=dev, requires_grad=True)
     bias = torch.zeros((2, 8, 8), device=dev)
