@@ -43,12 +43,22 @@ PyTorch built for CUDA. Phases, each of which must pass:
       backward (``torch.autograd.grad`` through
       ``scaled_dot_product_attention`` with the f32 bias as a float
       ``attn_mask``), the bound and the softmax floor;
+   e. the conv's backward at every distinct DiffUNet conv of an AMOS
+      training batch (N 10), bf16 and fp32: dgrad (the forward kernel with
+      the flipped weights; not at the stems, whose inputs need no
+      gradient) against ``conv3x3_dgrad_plain`` and the weight-gradient
+      kernel against ``conv3x3_wgrad_plain`` (1e-4 / 1e-3 of max |plain|
+      in fp32 / bf16), with kernel, plain and cuDNN times
+      (``aten.convolution_backward`` with an input-only or weight-only
+      output mask) and the bound; and the conv's autograd Function against
+      autograd through the plain version at two small shapes;
 4. small models on the card against the same weights on the CPU's plain
    path, fp32 with TF32 off: a DiffSwinUNETR denoiser step (feature 12,
    32^3), a DiffUNet denoiser step (features (8, 8, 16, 32, 64, 8), 32^3),
-   and two DiffSwinUNETR train steps (feature 12, 32^3, the same t and
-   noise): loss, grad norm, every gradient, and the parameters after them
-   within 2 lr per step;
+   and two train steps of each (the same t and noise): loss, grad norm,
+   every gradient, and the parameters after them within 2 lr per step;
+   DiffUNet's card step, run twice from the same start, gives the same
+   bits;
 5. each slice at full width from the repository's config with seeded
    random weights:
    a. ``cfg/btcv/test.yaml`` (diff_swin_unetr, feature 48, 13 classes,
@@ -67,7 +77,13 @@ PyTorch built for CUDA. Phases, each of which must pass:
       grad norms finite, parameters moved, and each Swin kernel's exact
       count per step, forward and backward; then the median s/step of
       the trainer's step over the same batches with the card synchronised
-      around each step, and the peak device memory of ``train()``.
+      around each step, and the peak device memory of ``train()``;
+   d. ``cfg/amos/train.yaml`` (diff_unet at full width, 15 classes, 96^3
+      patches, batch 10, bf16 over fp32 parameters, mse+bce+dice, AdamW
+      with warmup-cosine): a ``Trainer`` takes ``AMOS_TRAIN_STEPS`` steps
+      on synthetic batches of 16 label values, with exactly 28 forward,
+      26 dgrad and 28 wgrad conv launches a step; losses, grad norms,
+      moved parameters, median s/step and peak memory as in c.
 
 Serving outputs are checked for shape, finiteness and a binary mask. Each
 path is driven with its kernels' launch counters set to 0 just before it
@@ -140,7 +156,8 @@ ATTN_GRAD_CASES = [("stage1", 343, 3, 343, True), ("stage2", 64, 6, 343, True),
                    ("stage3", 8, 12, 343, True), ("stage4", 1, 24, 216, False)]
 TRAIN_STEPS = 8
 # the bf16 kernels that must not spill (substrings of their mangled names)
-BF16_KERNELS = ("conv3d_wgmma", "attn_fwd_bf16", "attn_bwd_bf16")
+BF16_KERNELS = ("conv3d_wgmma", "attn_fwd_bf16", "attn_bwd_bf16",
+                "conv3d_wgrad_kernelI13__nv_bfloat16")
 # per window batch of BTCV serving (1 embed + 10 denoiser Swin passes of 4
 # stages) and per BTCV train step (the encoder's and the denoiser's Swin
 # pass): forward launches, and launches inside the backward
@@ -148,6 +165,21 @@ SERVE_PER_BATCH = {"window_attention": 88, "shift_windows": 66,
                    "window_partition": 44, "window_reverse": 44}
 TRAIN_PER_STEP = {"window_attention": (16, 16), "shift_windows": (12, 12),
                   "window_partition": (8, 8), "window_reverse": (8, 8)}
+# the conv's backward at every distinct DiffUNet conv of an AMOS training
+# batch (CONV_CASES' first 15 rows at N = 10); the stems' inputs need no
+# gradient, so they have no dgrad
+CONV_GRAD_N = 10
+CONV_GRAD_REPORT = ("L0 conv_1", torch.bfloat16)
+STEMS = ("encoder stem", "denoiser stem")
+# (N, D, H, W), part channels, Cout, prologue of the Function's whole
+# backward against autograd through the plain version
+CONV_FUNCTION_CASES = [((2, 12, 12, 12), [64], 64, True),
+                       ((1, 16, 16, 16), [64, 64], 64, False)]
+# per AMOS train step: 10 convs in the encoder and 18 in the denoiser pass,
+# the dgrad of all but the two stems, the wgrad of all
+AMOS_TRAIN_STEPS = 4
+AMOS_TRAIN_PER_STEP = {"conv3x3": 28, "conv3x3_dgrad": 26,
+                       "conv3x3_wgrad": 28}
 
 
 def fail(msg: str) -> None:
@@ -462,11 +494,151 @@ def phase_conv(dev: torch.device) -> dict:
     return report
 
 
+def conv_backward_library_ms(x_cl, w_cl, g_cl, mask, reps) -> float:
+    """One ``aten.convolution_backward`` (cuDNN) on the channels-last views,
+    the output mask picking the input gradient or the weight gradient."""
+    return cuda_ms(lambda: torch.ops.aten.convolution_backward(
+        g_cl, x_cl, w_cl, None, [1] * 3, [1] * 3, [1] * 3, False, [0] * 3,
+        1, mask), reps, 1)
+
+
+def phase_conv_backward(dev: torch.device) -> dict:
+    """The conv's backward at every distinct DiffUNet conv of an AMOS
+    training batch (N = CONV_GRAD_N), bf16 and fp32: dgrad (the forward
+    kernel with the flipped weights) against ``conv3x3_dgrad_plain`` at
+    KERNEL_TOL, the weight-gradient kernel against ``conv3x3_wgrad_plain``
+    at WGRAD_TOL of max |plain|, each with kernel / plain / cuDNN times and
+    the bound; then the Function's whole backward against autograd
+    through the plain version at CONV_FUNCTION_CASES, within GRAD_TOL."""
+    from diff_unet_tpu_torch.ops.conv3d import (
+        GRAD_TOL, KERNEL_TOL, WGRAD_TOL, conv3x3, conv3x3_dgrad,
+        conv3x3_dgrad_plain, conv3x3_plain, conv3x3_wgrad,
+        conv3x3_wgrad_plain)
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    report = {}
+    n = CONV_GRAD_N
+    for tag, chans, cout, side, pro_on, *_ in CONV_CASES[:15]:
+        for dtype in (torch.float32, torch.bfloat16):
+            shape = (n, side, side, side)
+            cin = sum(chans)
+            parts = [torch.randn((*shape, c), generator=g, device=dev)
+                     .to(dtype) for c in chans]
+            w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) \
+                / (27 * cin) ** 0.5
+            gy = torch.randn((*shape, cout), generator=g, device=dev
+                             ).to(dtype)
+            pro = None
+            if pro_on:
+                pro = tuple(torch.randn((n, cin), generator=g, device=dev)
+                            * sd + mu for mu, sd in ((1.0, 0.3), (0.0, 0.3),
+                                                     (0.0, 0.2))) + (0.1,)
+            reps = 3 if side == 96 else 10
+            x_cl = torch.cat(parts, dim=-1).permute(0, 4, 1, 2, 3)
+            w_cl = w.to(dtype).contiguous(
+                memory_format=torch.channels_last_3d)
+            g_cl = gy.permute(0, 4, 1, 2, 3)
+            flops = 2.0 * gy.numel() * 27 * cin
+            name = (f"{tag} {str(dtype)[6:]} {chans}->{cout} at "
+                    f"{n}x{side}^3")
+            if tag not in STEMS:
+                got = conv3x3_dgrad(gy, w)
+                want = conv3x3_dgrad_plain(gy, w)
+                torch.cuda.synchronize()
+                tol = KERNEL_TOL[dtype] * max(
+                    1.0, want.float().abs().max().item())
+                err = (got.float() - want.float()).abs().max().item()
+                del want
+                ms = cuda_ms(lambda: conv3x3_dgrad(gy, w), reps, 1)
+                plain_ms = cuda_ms(lambda: conv3x3_dgrad_plain(gy, w),
+                                   reps, 1)
+                library_ms = conv_backward_library_ms(
+                    x_cl, w_cl, g_cl, [True, False, False], reps)
+                bnd = bound(nbytes(gy, got) + w.numel() * got.element_size(),
+                            flops, dtype)
+                log(f"conv3x3_dgrad {name}: max_abs_err {err:.3e} (tol "
+                    f"{tol:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                    f"library {library_ms:.4f} ms bound "
+                    f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), kernel "
+                    f"{flops / ms / 1e9:.1f} TFLOP/s")
+                if not (err <= tol and torch.isfinite(got).all()):
+                    fail(f"conv3x3_dgrad {name} disagrees with its plain "
+                         "version")
+                if (tag, dtype) == CONV_GRAD_REPORT:
+                    report["conv3x3_dgrad"] = dict(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        library_ms=library_ms, **bnd)
+                del got
+            got = conv3x3_wgrad(gy, parts, pro)
+            want = conv3x3_wgrad_plain(gy, parts, pro)
+            torch.cuda.synchronize()
+            ref = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            del want
+            ms = cuda_ms(lambda: conv3x3_wgrad(gy, parts, pro), reps, 1)
+            plain_ms = cuda_ms(lambda: conv3x3_wgrad_plain(gy, parts, pro),
+                               reps, 1)
+            library_ms = conv_backward_library_ms(
+                x_cl, w_cl, g_cl, [False, True, False], reps)
+            bnd = bound(nbytes(gy, *parts, got, *(pro or ())[:3]), flops,
+                        dtype)
+            log(f"conv3x3_wgrad {name}: max_abs_err {err:.3e} of max|plain| "
+                f"{ref:.3e} (tol {WGRAD_TOL[dtype]:.0e} of it) kernel "
+                f"{ms:.4f} ms plain {plain_ms:.4f} ms library "
+                f"{library_ms:.4f} ms bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['bound_by']}), kernel {flops / ms / 1e9:.1f} "
+                "TFLOP/s")
+            if not (err <= WGRAD_TOL[dtype] * ref
+                    and torch.isfinite(got).all()):
+                fail(f"conv3x3_wgrad {name} disagrees with its plain version")
+            if (tag, dtype) == CONV_GRAD_REPORT:
+                report["conv3x3_wgrad"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=library_ms, **bnd)
+            del parts, gy, got, x_cl, g_cl
+    for shape, chans, cout, pro_on in CONV_FUNCTION_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            cin = sum(chans)
+            leaves = [torch.randn((cout, cin, 3, 3, 3), generator=g,
+                                  device=dev) / (27 * cin) ** 0.5,
+                      0.1 * torch.randn((cout,), generator=g, device=dev)]
+            if pro_on:
+                leaves += [torch.randn((shape[0], cin), generator=g,
+                                       device=dev) * sd + mu
+                           for mu, sd in ((1.0, 0.3), (0.0, 0.3), (0.0, 0.2))]
+            leaves += [torch.randn((*shape, c), generator=g, device=dev)
+                       .to(dtype) for c in chans]
+            cy = torch.randn((*shape, cout), generator=g, device=dev)
+            cs = torch.randn((shape[0], 2, cout), generator=g, device=dev)
+            grads = []
+            for fn in (conv3x3, conv3x3_plain):
+                inputs = [v.clone().requires_grad_() for v in leaves]
+                pro = (*inputs[2:5], 0.1) if pro_on else None
+                y, st = fn(inputs[5 if pro_on else 2:], inputs[0],
+                           inputs[1], prologue=pro, with_stats=True)
+                grads.append(torch.autograd.grad(
+                    (y.float() * cy).sum() + (st * cs).sum(), inputs))
+            errs = [((a.float() - b.float()).abs().max()
+                     / b.float().abs().max()).item()
+                    for a, b in zip(*grads)]
+            log(f"conv3x3 Function backward {chans}->{cout} at {shape} "
+                f"{str(dtype)[6:]}{' prologue' if pro_on else ''}: worst "
+                f"gradient error {max(errs):.3e} of its max|g| against "
+                f"autograd through the plain version (tol "
+                f"{GRAD_TOL[dtype]:.0e})")
+            if not max(errs) <= GRAD_TOL[dtype]:
+                fail("the conv's Function backward disagrees with autograd "
+                     "through the plain version")
+    return report
+
+
 def reset(counters: dict) -> None:
     for fn in counters.values():
         fn.launches = 0
-        if hasattr(fn, "backward_launches"):
-            fn.backward_launches = 0
+        for attr in ("backward_launches", "dgrad_launches"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
 def partition_tables(padded, ws, valid):
@@ -743,16 +915,29 @@ def phase_small_diff_unet(dev: torch.device) -> None:
         fail("small DiffUNet on the card disagrees with the CPU")
 
 
-def phase_small_train(dev: torch.device) -> None:
-    """Two train steps of a small DiffSwinUNETR on the card and on the CPU
-    from the same weights, t and noise (fp32, TF32 off)."""
+def phase_small_train(dev: torch.device, model_name: str) -> None:
+    """Two train steps of a small model on the card and on the CPU from the
+    same weights, t and noise (fp32, TF32 off): DiffSwinUNETR (feature 12)
+    or DiffUNet (features (8, 8, 16, 32, 64, 8), every conv forward and
+    backward on the conv kernels). DiffUNet's second step starts from the
+    CPU's parameters on both sides: Adam's first update is lr * sign(g)
+    even where g is rounding noise (conv biases before an instance norm,
+    other near-zero gradients), and its 2^3 instance norms amplify such
+    sign flips into gradient differences of up to ~1e-2 at the next step,
+    which would measure the flips, not the backward. DiffUNet's card step
+    is also run a second time from the same start and must give the same
+    bits: no float atomics on its path (the conv statistics and split
+    sums are added in a fixed order), so a LeakyReLU input within rounding
+    of 0 takes the same side on every run."""
     from diff_unet_tpu_torch.api import DiffusionSegmenter
     from diff_unet_tpu_torch.engine.train import TrainStep, make_optimizer
     from diff_unet_tpu_torch.losses.losses import CompositeLoss
-    from diff_unet_tpu_torch.models.swin_unetr import DiffSwinUNETR
+    from diff_unet_tpu_torch.models.model_hub import create_model
     from diff_unet_tpu_torch.utils.weights import init_random
 
     s, classes, lr = 32, 3, 2e-4
+    kw = (dict(features=(8, 8, 16, 32, 64, 8)) if model_name == "diff_unet"
+          else dict(feature_size=12))
     rng = np.random.default_rng(SEED)
     steps = [(rng.random((1, s, s, s, 1), np.float32),
               np.eye(classes, dtype=np.float32)[
@@ -760,26 +945,51 @@ def phase_small_train(dev: torch.device) -> None:
               np.array([int(rng.integers(0, 1000))]),
               rng.standard_normal((1, s, s, s, classes), np.float32))
              for _ in range(2)]
-    runs = []
-    for where in (torch.device("cpu"), dev):
-        model = init_random(DiffSwinUNETR(classes, image_size=(s,) * 3,
-                                          feature_size=12), SEED).to(where)
+    resync = model_name == "diff_unet"
+
+    def trainer(where):
+        model = init_random(create_model(
+            model_name, out_channels=classes, image_size=s, spatial_size=s,
+            **kw), SEED).to(where)
         opt, schedule = make_optimizer(model.parameters(), lr=lr,
                                        weight_decay=1e-4)
-        step = TrainStep(DiffusionSegmenter(model, classes),
-                         CompositeLoss("mse,bce,dice", classes), opt,
-                         schedule)
-        record = []
-        for image, labels, t, noise in steps:
-            m = step(torch.from_numpy(image).to(where),
-                     torch.from_numpy(labels).to(where),
-                     t=torch.from_numpy(t).to(where),
-                     noise=torch.from_numpy(noise).to(where))
-            record.append((m["loss"].item(), m["grad_norm"].item(),
-                           [p.grad.detach().cpu().clone()
-                            for p in model.parameters()]))
-        runs.append((record, [p.detach().cpu() for p in model.parameters()]))
-    (cpu, cpu_params), (card, card_params) = runs
+        return model, TrainStep(DiffusionSegmenter(model, classes),
+                                CompositeLoss("mse,bce,dice", classes),
+                                opt, schedule)
+
+    def run(model, step, where, image, labels, t, noise):
+        m = step(torch.from_numpy(image).to(where),
+                 torch.from_numpy(labels).to(where),
+                 t=torch.from_numpy(t).to(where),
+                 noise=torch.from_numpy(noise).to(where))
+        return (m["loss"].item(), m["grad_norm"].item(),
+                [p.grad.detach().cpu().clone() for p in model.parameters()])
+
+    models, trainers, records = [], [], ([], [])
+    for where in (torch.device("cpu"), dev):
+        model, step = trainer(where)
+        models.append(model)
+        trainers.append(step)
+    for k, batch in enumerate(steps):
+        if resync and k:
+            with torch.no_grad():
+                for a, b in zip(models[0].parameters(),
+                                models[1].parameters()):
+                    b.copy_(a)
+        for where, model, step, record in zip((torch.device("cpu"), dev),
+                                              models, trainers, records):
+            record.append(run(model, step, where, *batch))
+    cpu, card = records
+    reproducible = True
+    if model_name == "diff_unet":
+        again = run(*trainer(dev), dev, *steps[0])
+        reproducible = again[0] == card[0][0] and all(
+            torch.equal(a, b) for a, b in zip(again[2], card[0][2]))
+        log(f"small {model_name} train step on the card run twice from the "
+            f"same start: {'the same' if reproducible else 'different'} "
+            "loss and gradients, bit for bit")
+    cpu_params, card_params = ([p.detach().cpu() for p in m.parameters()]
+                               for m in models)
     worst = [0.0, 0.0, 0.0]            # loss / grad norm rel, grad vs tol
     for (lc, nc, gc), (lg, ng, gg) in zip(cpu, card):
         worst[0] = max(worst[0], abs(lg - lc) / abs(lc))
@@ -793,24 +1003,27 @@ def phase_small_train(dev: torch.device) -> None:
     # Adam moves a weight by about lr wherever |g| >> eps, whatever |g|, so
     # a gradient at rounding noise (a conv bias before an instance norm)
     # may take the other sign on the card: 2 lr per step apart at most
-    ptol = 2 * lr * len(steps)
-    names = [n for n, _ in model.named_parameters()]
+    ptol = 2 * lr * (1 if resync else len(steps))
+    names = [n for n, _ in models[0].named_parameters()]
     perrs = [(a - b).abs().max().item()
              for a, b in zip(cpu_params, card_params)]
     i = int(np.argmax(perrs))
     gmax = max(a.abs().max().item() for a in cpu[-1][2])
-    log(f"small model train steps (feature 12, {s}^3, fp32, TF32 off) cuda "
-        f"vs cpu: loss rel {worst[0]:.3e}, grad norm rel {worst[1]:.3e} (tol "
+    log(f"small {model_name} train steps ({kw}, {s}^3, fp32, TF32 off) "
+        f"cuda vs cpu: loss rel {worst[0]:.3e}, grad norm rel "
+        f"{worst[1]:.3e} (tol "
         f"{MODEL_TOL:.0e}); worst gradient error {worst[2]:.3e} of max(|g| "
         f"max, 0.1 model max) (tol {MODEL_TOL:.0e}); parameters after "
-        f"{len(steps)} steps {perrs[i]:.3e} (tol {ptol:.0e}), worst "
+        f"{len(steps)} steps"
+        f"{' (the second from the same ones)' if resync else ''} "
+        f"{perrs[i]:.3e} (tol {ptol:.0e}), worst "
         f"{names[i]} whose last |g| max is "
         f"{cpu[-1][2][i].abs().max().item() / gmax:.1e} of the model's; "
         f"losses {[round(r[0], 6) for r in cpu]}")
-    if not (max(worst) <= MODEL_TOL and perrs[i] <= ptol
+    if not (max(worst) <= MODEL_TOL and perrs[i] <= ptol and reproducible
             and all(np.isfinite(r[0]) for r in card)):
-        fail("small DiffSwinUNETR train steps on the card disagree with the "
-             "CPU")
+        fail(f"small {model_name} train steps on the card disagree with "
+             "the CPU")
 
 
 def phase_serve(dev: torch.device, data: str, counters: dict,
@@ -845,6 +1058,7 @@ def phase_serve(dev: torch.device, data: str, counters: dict,
         seconds.append(time.perf_counter() - t0)
     counts = {k: fn.launches for k, fn in counters.items()}
     backward = {k: getattr(fn, "backward_launches", 0)
+                + getattr(fn, "dgrad_launches", 0)
                 for k, fn in counters.items()}
 
     steps = pred.seg.sample_steps
@@ -940,11 +1154,83 @@ def phase_train(dev: torch.device, counters: dict) -> dict:
     return counts
 
 
+def phase_train_amos(dev: torch.device) -> dict:
+    """``Trainer.from_config("cfg/amos/train.yaml")`` at full width
+    (DiffUNet, features (64, 64, 128, 256, 512, 64), 15 classes) on
+    synthetic batches of 10 patches of 96^3 with 16 label values, for
+    ``AMOS_TRAIN_STEPS`` steps: finite losses, grad norms above 0, moved
+    parameters, and exactly AMOS_TRAIN_PER_STEP conv launches a step
+    (forward, dgrad, wgrad); then the median synchronised s/step and the
+    peak device memory. Returns the launches of ``train()``."""
+    from diff_unet_tpu_torch.data.synthetic import SyntheticSegmentation
+    from diff_unet_tpu_torch.engine.engine import Trainer
+    from diff_unet_tpu_torch.ops.conv3d import conv3x3, conv3x3_wgrad, \
+        packed_weight
+
+    t0 = time.perf_counter()
+    data = SyntheticSegmentation((96, 96, 96), num_labels=16, batch_size=10,
+                                 batches=AMOS_TRAIN_STEPS, seed=SEED)
+    trainer = Trainer.from_config(
+        ROOT / "cfg/amos/train.yaml", train_data=data, device=dev,
+        classes=str(ROOT / "cfg/amos/classes.yaml"), seed=SEED,
+        max_epochs=1)
+    torch.cuda.synchronize()
+    log(f"trainer: {trainer.model_name}, {trainer.num_classes} classes, "
+        f"patch {trainer._inferer.roi}, batch {trainer.batch_size}, dtype "
+        f"{trainer.dtype}, label smoothing {trainer.label_smoothing}, "
+        f"{sum(p.numel() for p in trainer.module.parameters())} parameters; "
+        f"set-up (data, model) {time.perf_counter() - t0:.1f} s")
+    before = [p.detach().clone() for p in trainer.module.parameters()]
+    torch.cuda.reset_peak_memory_stats(dev)
+    conv3x3.launches = conv3x3.dgrad_launches = conv3x3_wgrad.launches = 0
+    packs = packed_weight.packs
+    trainer.train()
+    torch.cuda.synchronize()
+    counts = {"conv3x3": conv3x3.launches,
+              "conv3x3_dgrad": conv3x3.dgrad_launches,
+              "conv3x3_wgrad": conv3x3_wgrad.launches}
+    packs = packed_weight.packs - packs
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    hist = trainer.history
+    moved = sum(int(not torch.equal(a, p))
+                for a, p in zip(before, trainer.module.parameters()))
+    log("AMOS train steps: " + "; ".join(
+        f"loss {h['loss']:.5f} grad_norm {h['grad_norm']:.5f} lr "
+        f"{h['lr']:.3e}" for h in hist))
+    log(f"launches during AMOS training ({len(hist)} steps): {counts}; "
+        f"weight packs {packs}")
+    step_s = []
+    for image, labels in trainer.batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(image, labels, generator=trainer.generator)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    log(f"AMOS train: median {np.median(step_s[1:]):.4f} s/step over steps "
+        f"2..{len(step_s)} of a synchronised pass, {step_s}; peak device "
+        f"memory {peak:.2f} GiB over the {len(hist)} steps of train() "
+        f"(no activation checkpointing); {moved} of {len(before)} parameter "
+        "tensors moved")
+    if len(hist) != AMOS_TRAIN_STEPS:
+        fail(f"the AMOS trainer took {len(hist)} steps, not "
+             f"{AMOS_TRAIN_STEPS}")
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               and h["grad_norm"] > 0 for h in hist):
+        fail("an AMOS train step has a non-finite loss or a zero grad norm")
+    if hist[0]["lr"] != 0.0 or not moved:
+        fail("the AMOS parameters did not move once the lr was above 0")
+    for k, c in counts.items():
+        if c != AMOS_TRAIN_PER_STEP[k] * len(hist):
+            fail(f"{k}: {c} launches in {len(hist)} AMOS train steps, "
+                 f"predicted {AMOS_TRAIN_PER_STEP[k]} x {len(hist)}")
+    return counts
+
+
 def main() -> None:
     card, clock_hz = phase_card()
     dev = torch.device("cuda", 0)
     phase_build()
-    from diff_unet_tpu_torch.ops.conv3d import conv3x3
+    from diff_unet_tpu_torch.ops.conv3d import conv3x3, conv3x3_wgrad
     from diff_unet_tpu_torch.ops.window_attention import window_attention
     from diff_unet_tpu_torch.ops.window_partition import (
         partition_windows, reverse_windows)
@@ -954,21 +1240,29 @@ def main() -> None:
     report.update(phase_attention_backward(dev, clock_hz))
     report.update(phase_shift(dev))
     report.update(phase_conv(dev))
+    report.update(phase_conv_backward(dev))
     report.update(phase_partition(dev))
     report.update(phase_backward(dev))
     phase_small_model(dev)
     phase_small_diff_unet(dev)
-    phase_small_train(dev)
+    phase_small_train(dev, "diff_swin_unetr")
+    phase_small_train(dev, "diff_unet")
     swin = {"window_attention": window_attention,
             "shift_windows": shift_windows,
             "window_partition": partition_windows,
             "window_reverse": reverse_windows}
-    paths = {k: {} for k in (*swin, "shift_windows_backward", "conv3x3")}
+    paths = {k: {} for k in (*swin, "shift_windows_backward", "conv3x3",
+                             "conv3x3_dgrad", "conv3x3_wgrad")}
     for k, v in phase_serve(dev, "btcv", swin, SERVE_PER_BATCH).items():
         paths[k].update(v)
-    # 10 TwoConv convs in the encoder, 18 in each of the 10 denoiser steps
-    paths["conv3x3"].update(phase_serve(dev, "amos", {"conv3x3": conv3x3},
-                                        {"conv3x3": 10 + 18 * 10})["conv3x3"])
+    # 10 TwoConv convs in the encoder, 18 in each of the 10 denoiser steps;
+    # no dgrad (counted beside conv3x3's backward) and no wgrad
+    for k, v in phase_serve(dev, "amos", {"conv3x3": conv3x3,
+                                          "conv3x3_wgrad": conv3x3_wgrad},
+                            {"conv3x3": 10 + 18 * 10,
+                             "conv3x3_wgrad": 0}).items():
+        paths[k].update(v)
+    paths["conv3x3_dgrad"]["amos_serve"] = 0
     paths["shift_windows_backward"]["btcv_serve"] = 0
     counts = phase_train(dev, swin)
     # the partition kernel runs forward and in the reverse's backward, and
@@ -980,6 +1274,8 @@ def main() -> None:
         "btcv_serve": 0, "btcv_train": counts["window_attention"][1]}
     (paths["shift_windows"]["btcv_train"],
      paths["shift_windows_backward"]["btcv_train"]) = counts["shift_windows"]
+    for k, c in phase_train_amos(dev).items():
+        paths[k]["amos_train"] = c
     replaces = {
         "window_attention": ("diff_unet_tpu_torch/csrc/window_attention.cu",
                              "diff_unet_tpu/ops/pallas_attention.py:115"),
@@ -1002,12 +1298,21 @@ def main() -> None:
                     "diff_unet_tpu/ops/pallas_packed_conv.py:241; "
                     "diff_unet_tpu/ops/pallas_aug_conv.py:65; "
                     "diff_unet_tpu/ops/pallas_conv.py:29"),
+        "conv3x3_dgrad": (
+            "diff_unet_tpu_torch/csrc/conv3d.cu",
+            "the backward of the conv kernels above (the JAX package takes "
+            "it through flax nn.Conv; the same kernel, flipped weights)"),
+        "conv3x3_wgrad": (
+            "diff_unet_tpu_torch/csrc/conv3d_wgrad.cu",
+            "none: the conv's weight gradient, which the JAX package takes "
+            "through flax nn.Conv (jax.value_and_grad)"),
     }
-    # launches: this slice's main path (BTCV training) where the kernel
-    # runs there, else its own slice's serving path
+    # launches: this slice's main path (AMOS training) where the kernel
+    # runs there, else the training path it runs on (BTCV), else its own
+    # slice's serving path
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
-                    launches=paths[k].get("btcv_train",
-                                          paths[k].get("amos_serve")),
+                    launches=paths[k].get("amos_train", paths[k].get(
+                        "btcv_train", paths[k].get("amos_serve"))),
                     launches_by_path=paths[k], **report[k])
                for k, (src, rep) in replaces.items()]
     log(card)

@@ -18,7 +18,14 @@
 //   u   = prologue(x) at in-bounds voxels, 0 in the halo   (rounded to T)
 //   y   = sum_{tap, ci} u[voxel + tap, ci] * w[co, tap, ci] + bias[co]
 //   y   = y >= 0 ? y : y * act_slope                      (act_slope 1: none)
-//   out = T(y);  stats[n, 0, co] += y;  stats[n, 1, co] += y * y  (f32 y)
+//   out = T(y);  stats[n, 0, co] = sum y;  stats[n, 1, co] = sum y * y
+//                                                   (f32 y, over the voxels)
+//
+// The statistics are reproducible: each output tile (a brick of one sample
+// in bf16, a segment of one sample in a 64-row tile in fp32) stores its
+// per-channel partial sums in a slot of its own, and a second kernel adds
+// each sample's slots up in slot order. No float atomics, so two runs on
+// the same inputs give the same bits.
 //
 // What bounds it on an H100: at the 64+ channel levels the conv does
 // 54*Cin operations per output value and needs each input value once from
@@ -33,7 +40,7 @@
 //   times BN (64 or 128) output channels: 128 GEMM rows, 64 for each of a
 //   CTA's two consumer warpgroups (one z slice each). Ragged bricks mask
 //   their rows out of the store and the statistics; a brick never spans
-//   two samples, so the statistics take one atomic pair per (brick,
+//   two samples, so the statistics take one partial pair per (brick,
 //   channel). Large grids run on persistent CTAs (two per SM at BN 64) that
 //   walk the bricks, the producers already loading the next brick while
 //   the consumers finish the last one.
@@ -58,8 +65,9 @@
 //   one group kept in flight.
 // - Where the grid is too small for 132 SMs (12^3, 6^3) the chunk loop is
 //   split across CTAs: f32 partial tiles go to a workspace, and the last
-//   CTA of each tile (an atomic counter) adds them up and runs the
-//   epilogue, so the statistics are taken once, from the finished sums.
+//   CTA of each tile (an atomic counter) adds them up in split order and
+//   runs the epilogue, so the statistics are taken once, from the finished
+//   sums.
 // - Epilogue from the registers: bias, LeakyReLU, statistics by warp
 //   shuffles and a shared-memory reduction, bf16 rounding staged through
 //   shared memory for 16-byte coalesced stores.
@@ -93,7 +101,7 @@ struct ConvArgs {
   float pro_slope;              // 1: no prologue activation
   float act_slope;              // 1: no epilogue activation
   void* out;                    // (m_total, cout)
-  float* stats;                 // (n, 2, cout), zeroed, or null
+  float* stats_part;            // (tiles + n, 2, cout) slots, or null
   int n, d, h, w, cin, cout, k_total, k_pad, spatial;
   long long m_total;
 };
@@ -232,8 +240,10 @@ __device__ __forceinline__ uint4 load_b(const ConvArgs& a, int co, int k0) {
 
 // Epilogue shared by both paths. cs holds the block's BM x BN f32 results
 // (bias and activation applied), row stride LDC. Writes the rounded output
-// (coalesced along channels) and adds the per-(sample, channel) sum and
-// sum of squares to stats.
+// (coalesced along channels) and the per-(sample, channel) partial sum and
+// sum of squares of the tile's rows: the rows of sample n in tile t go to
+// slot t + n (each tile or sample boundary along the rows starts the next
+// slot, so no two segments share one).
 template <typename T, int BM, int BN, int LDC>
 __device__ __forceinline__ void store_and_stats(const ConvArgs& a,
                                                 const float* cs,
@@ -247,16 +257,17 @@ __device__ __forceinline__ void store_and_stats(const ConvArgs& a,
     if (m < a.m_total && co < a.cout)
       out[m * a.cout + co] = from_f<T>(cs[r * LDC + c]);
   }
-  if (a.stats == nullptr) return;
+  if (a.stats_part == nullptr) return;
 
   constexpr int RG = kThreads / BN;  // row groups per column
   constexpr int RPG = BM / RG;       // rows per group
   const int c = t % BN, g = t / BN, co = n0 + c;
+  const long long tile = m0 / BM;
   const long long last = (m0 + BM < a.m_total ? m0 + BM : a.m_total) - 1;
   const bool one_sample = (m0 / a.spatial) == (last / a.spatial);
   if (one_sample) {
-    // block-uniform branch: reduce the row groups in shared memory, then
-    // one atomic pair per column
+    // block-uniform branch: reduce the row groups in shared memory in
+    // group order, then one partial pair per column
     __shared__ float red[2][kThreads];
     float s = 0.f, s2 = 0.f;
     for (int r = g * RPG; r < (g + 1) * RPG; ++r) {
@@ -273,35 +284,31 @@ __device__ __forceinline__ void store_and_stats(const ConvArgs& a,
         s += red[0][k * BN + c];
         s2 += red[1][k * BN + c];
       }
-      const int n = (int)(m0 / a.spatial);
-      atomicAdd(&a.stats[(2 * n) * a.cout + co], s);
-      atomicAdd(&a.stats[(2 * n + 1) * a.cout + co], s2);
+      const long long slot = tile + m0 / a.spatial;
+      a.stats_part[(2 * slot) * a.cout + co] = s;
+      a.stats_part[(2 * slot + 1) * a.cout + co] = s2;
     }
     return;
   }
-  if (co >= a.cout) return;
+  // the tile spans samples (small volumes): one thread per column walks
+  // the rows in order and stores each sample's segment
+  if (g != 0 || co >= a.cout) return;
   float s = 0.f, s2 = 0.f;
-  int cur = -1;
-  for (int r = g * RPG; r < (g + 1) * RPG; ++r) {
-    const long long m = m0 + r;
-    if (m > last) break;
-    const int n = (int)(m / a.spatial);
+  long long cur = m0 / a.spatial;
+  for (long long m = m0; m <= last; ++m) {
+    const long long n = m / a.spatial;
     if (n != cur) {
-      if (cur >= 0) {
-        atomicAdd(&a.stats[(2 * cur) * a.cout + co], s);
-        atomicAdd(&a.stats[(2 * cur + 1) * a.cout + co], s2);
-      }
+      a.stats_part[(2 * (tile + cur)) * a.cout + co] = s;
+      a.stats_part[(2 * (tile + cur) + 1) * a.cout + co] = s2;
       cur = n;
       s = s2 = 0.f;
     }
-    const float v = cs[r * LDC + c];
+    const float v = cs[(m - m0) * LDC + c];
     s += v;
     s2 += v * v;
   }
-  if (cur >= 0) {
-    atomicAdd(&a.stats[(2 * cur) * a.cout + co], s);
-    atomicAdd(&a.stats[(2 * cur + 1) * a.cout + co], s2);
-  }
+  a.stats_part[(2 * (tile + cur)) * a.cout + co] = s;
+  a.stats_part[(2 * (tile + cur) + 1) * a.cout + co] = s2;
 }
 
 __device__ __forceinline__ float epilogue_value(const ConvArgs& a, float acc,
@@ -446,7 +453,7 @@ struct WArgs {
   const float* pro_const;       // or null
   float pro_slope, act_slope;
   __nv_bfloat16* out;           // (n, d, h, w, cout)
-  float* stats;                 // (n, 2, cout), zeroed, or null
+  float* stats_part;            // (nbricks, 2, cout) slots, or null
   float* partial;               // split > 1: (tiles, split, 256, BN / 2)
   int* counter;                 // split > 1: (tiles), zeroed
   int n, d, h, w, cin, cout, nchunk, split, per_split, nzb, nyb, nxb;
@@ -893,18 +900,25 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
       consumers_sync();
       if (!*last_flag) continue;
       __threadfence();
-      for (int s = 0; s < a.split; ++s) {
-        if (s == split) continue;
-        const float* other =
-            a.partial + ((tile * a.split + s) * kConsumers + t) * (BN / 2);
+      // the runs in split order, this CTA's own included, so the sum does
+      // not depend on which CTA came last
+      const float* runs =
+          a.partial + (tile * a.split * kConsumers + t) * (BN / 2);
 #pragma unroll
-        for (int i = 0; i < BN / 2; i += 4) {
-          const float4 v = __ldcg(reinterpret_cast<const float4*>(other + i));
-          acc[i] += v.x;
-          acc[i + 1] += v.y;
-          acc[i + 2] += v.z;
-          acc[i + 3] += v.w;
+      for (int i = 0; i < BN / 2; i += 4) {
+        float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int s = 0; s < a.split; ++s) {
+          const float4 v = __ldcg(reinterpret_cast<const float4*>(
+              runs + (long long)s * kConsumers * (BN / 2) + i));
+          sum.x += v.x;
+          sum.y += v.y;
+          sum.z += v.z;
+          sum.w += v.w;
         }
+        acc[i] = sum.x;
+        acc[i + 1] = sum.y;
+        acc[i + 2] = sum.z;
+        acc[i + 3] = sum.w;
       }
     }
 
@@ -941,7 +955,7 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
         const int k = TMA ? 2 * jj + q : 0;
         sum[k] = v0 + v1;
         sq[k] = v0 * v0 + v1 * v1;
-        if (!TMA && a.stats) {
+        if (!TMA && a.stats_part) {
 #pragma unroll
           for (int m = 4; m < 32; m <<= 1) {
             sum[0] += __shfl_xor_sync(0xffffffffu, sum[0], m);
@@ -954,7 +968,7 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
         }
       }
     }
-    if (TMA && a.stats) {
+    if (TMA && a.stats_part) {
 #pragma unroll
       for (int k = 0; k < BN / 4; ++k) {
 #pragma unroll
@@ -975,7 +989,7 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
       }
     }
     consumers_sync();
-    if (a.stats && t < BN && cb * BN + t < a.cout) {
+    if (a.stats_part && t < BN && cb * BN + t < a.cout) {
       float s = 0.f, s2 = 0.f;
 #pragma unroll
       for (int k = 0; k < kConsumers / 32; ++k) {
@@ -983,8 +997,8 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
         s2 += red[(2 * k + 1) * BN + t];
       }
       const int co = cb * BN + t;
-      atomicAdd(&a.stats[(2 * b.n) * a.cout + co], s);
-      atomicAdd(&a.stats[(2 * b.n + 1) * a.cout + co], s2);
+      a.stats_part[(2 * (long long)brick) * a.cout + co] = s;
+      a.stats_part[(2 * (long long)brick + 1) * a.cout + co] = s2;
     }
     // 16-byte stores of 8 channels, consecutive threads along a voxel's row
     const bool vec = a.cout % 8 == 0;
@@ -1004,6 +1018,55 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
       }
     }
   }
+}
+
+// stats[n, :, co] from the slots of sample n, summed in slot order: 32
+// groups of a block each add every 32nd slot, then one thread adds the
+// groups in order. Sample n's slots are [lo, hi]: bricks n * per ..
+// n * per + per - 1 (bf16, bm 0), or the segments t + n of the 64-row
+// tiles t that hold its rows (fp32, bm 64).
+constexpr int kReduceGroups = 32;
+__global__ void __launch_bounds__(32 * kReduceGroups)
+stats_reduce_kernel(const float* __restrict__ part, float* __restrict__ stats,
+                    int cout, int per, long long spatial, int bm) {
+  const int n = blockIdx.y, lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int co = blockIdx.x * 32 + lane;
+  long long lo, hi;
+  if (bm > 0) {
+    lo = n * spatial / bm + n;
+    hi = ((n + 1) * spatial - 1) / bm + n;
+  } else {
+    lo = (long long)n * per;
+    hi = lo + per - 1;
+  }
+  float s = 0.f, s2 = 0.f;
+  if (co < cout) {
+    for (long long i = lo + g; i <= hi; i += kReduceGroups) {
+      s += __ldg(part + (2 * i) * cout + co);
+      s2 += __ldg(part + (2 * i + 1) * cout + co);
+    }
+  }
+  __shared__ float red[2][kReduceGroups][33];
+  red[0][g][lane] = s;
+  red[1][g][lane] = s2;
+  __syncthreads();
+  if (g == 0 && co < cout) {
+    for (int k = 1; k < kReduceGroups; ++k) {
+      s += red[0][k][lane];
+      s2 += red[1][k][lane];
+    }
+    stats[(2LL * n) * cout + co] = s;
+    stats[(2LL * n + 1) * cout + co] = s2;
+  }
+}
+
+cudaError_t reduce_stats(const float* part, float* stats, int n, int cout,
+                         int per, long long spatial, int bm,
+                         cudaStream_t s) {
+  const dim3 grid((unsigned)((cout + 31) / 32), (unsigned)n);
+  stats_reduce_kernel<<<grid, 32 * kReduceGroups, 0, s>>>(
+      part, stats, cout, per, spatial, bm);
+  return cudaGetLastError();
 }
 
 bool aligned16(const void* p) {
@@ -1075,13 +1138,15 @@ cudaError_t launch_wgmma(const WArgs& a, int ncb, cudaStream_t s) {
 }  // namespace
 
 // float32 (FFMA). k_pad is a multiple of 32 and cout_pad of 64; wt is
-// (cout_pad, k_pad) with zero padding. Returns the cudaError_t of the
-// launch (0 on success).
+// (cout_pad, k_pad) with zero padding. stats (n, 2, cout) needs stats_part,
+// (ceil(n * d * h * w / 64) + n, 2, cout) f32 slots. Returns the
+// cudaError_t of the launches (0 on success).
 extern "C" int conv3x3_f32_forward(
     const void* p0, const void* p1, const void* p2, const void* p3, int c0,
     int c1, int c2, int c3, int nparts, const void* wt, const void* bias,
     const void* pro_scale, const void* pro_shift, const void* pro_const,
-    float pro_slope, float act_slope, void* out, void* stats, int n, int d,
+    float pro_slope, float act_slope, void* out, void* stats,
+    void* stats_part, int n, int d,
     int h, int w, int cout, int k_pad, int cout_pad, void* stream) {
   ConvArgs a;
   const void* ps[kMaxParts] = {p0, p1, p2, p3};
@@ -1108,7 +1173,7 @@ extern "C" int conv3x3_f32_forward(
   a.pro_slope = pro_slope;
   a.act_slope = act_slope;
   a.out = out;
-  a.stats = static_cast<float*>(stats);
+  a.stats_part = static_cast<float*>(stats_part);
   a.n = n;
   a.d = d;
   a.h = h;
@@ -1120,7 +1185,8 @@ extern "C" int conv3x3_f32_forward(
   a.spatial = d * h * w;
   a.m_total = (long long)n * d * h * w;
   if (a.m_total == 0) return (int)cudaSuccess;
-  if (k_pad % 32 || k_pad < a.k_total || cout_pad % 64 || cout_pad < cout)
+  if (k_pad % 32 || k_pad < a.k_total || cout_pad % 64 || cout_pad < cout ||
+      (stats == nullptr) != (stats_part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((unsigned)((a.m_total + f32::BM - 1) / f32::BM),
@@ -1129,7 +1195,11 @@ extern "C" int conv3x3_f32_forward(
     conv3d_f32_kernel<true><<<grid, kThreads, 0, s>>>(a);
   else
     conv3d_f32_kernel<false><<<grid, kThreads, 0, s>>>(a);
-  return (int)cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && stats != nullptr)
+    err = reduce_stats(a.stats_part, static_cast<float*>(stats), n, cout, 0,
+                       a.spatial, f32::BM, s);
+  return (int)err;
 }
 
 // bfloat16 (wgmma). wt is packed as (cout_pad / bn, nchunk, 27, 2, bn, 8)
@@ -1137,13 +1207,15 @@ extern "C" int conv3x3_f32_forward(
 // chunks are split in `split` runs of `per_split` (split > 1 needs the
 // partial workspace and zeroed counters, sized from the grid). tma 1: every
 // part's channels are a multiple of 16 and its pointer 16-byte aligned, so
-// the halo comes by TMA; 0: the producer warps gather it. Returns the
-// cudaError_t of the launch (0 on success).
+// the halo comes by TMA; 0: the producer warps gather it. stats (n, 2,
+// cout) needs stats_part, (bricks, 2, cout) f32 slots. Returns the
+// cudaError_t of the launches (0 on success).
 extern "C" int conv3x3_bf16_forward(
     const void* p0, const void* p1, const void* p2, const void* p3, int c0,
     int c1, int c2, int c3, int nparts, const void* wt, const void* bias,
     const void* pro_scale, const void* pro_shift, const void* pro_const,
-    float pro_slope, float act_slope, void* out, void* stats, void* partial,
+    float pro_slope, float act_slope, void* out, void* stats,
+    void* stats_part, void* partial,
     void* counter, int n, int d, int h, int w, int cout, int bn, int nchunk,
     int split, int per_split, int tma, void* stream) {
   WArgs a;   // holds four 64-byte-aligned tensor maps
@@ -1171,7 +1243,7 @@ extern "C" int conv3x3_bf16_forward(
   a.pro_slope = pro_slope;
   a.act_slope = act_slope;
   a.out = static_cast<__nv_bfloat16*>(out);
-  a.stats = static_cast<float*>(stats);
+  a.stats_part = static_cast<float*>(stats_part);
   a.partial = static_cast<float*>(partial);
   a.counter = static_cast<int*>(counter);
   a.n = n;
@@ -1190,7 +1262,8 @@ extern "C" int conv3x3_bf16_forward(
   if ((long long)n * d * h * w == 0) return (int)cudaSuccess;
   if (nchunk * hw::KC < off || split < 1 || per_split < 1 ||
       (long long)split * per_split < nchunk ||
-      (split > 1 && (partial == nullptr || counter == nullptr)))
+      (split > 1 && (partial == nullptr || counter == nullptr)) ||
+      (stats == nullptr) != (stats_part == nullptr))
     return (int)cudaErrorInvalidValue;
   if (tma) {
     EncodeTiledFn encode = encode_tiled();
@@ -1221,5 +1294,8 @@ extern "C" int conv3x3_bf16_forward(
   else
     err = tma ? launch_wgmma<128, true>(a, ncb, s)
               : launch_wgmma<128, false>(a, ncb, s);
+  if (err == cudaSuccess && stats != nullptr)
+    err = reduce_stats(a.stats_part, static_cast<float*>(stats), n, cout,
+                       a.nzb * a.nyb * a.nxb, 0, 0, s);
   return (int)err;
 }

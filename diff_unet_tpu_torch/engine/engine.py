@@ -6,8 +6,9 @@ for ``diff_unet``, ``cfg/btcv/test.yaml`` for ``diff_swin_unetr``, or
 keyword arguments), holds the model with seeded random weights (or weights
 loaded with ``utils.weights.load_jax_params``), and serves whole volumes:
 ``infer(volume) -> (logits, binary)`` and ``serve(volumes)``. ``Trainer`` is
-built from a train config (``cfg/btcv/train.yaml``) and an iterable of
-batches, and ``train()`` runs the epochs. Both run on ``device`` (default
+built from a train config (``cfg/amos/train.yaml``, ``cfg/btcv/train.yaml``)
+and an iterable of batches, and ``train()`` runs the epochs. Both default to
+``diff_unet``, as the JAX engine does. Both run on ``device`` (default
 ``cuda``) and raise where there is no card unless the caller asks for
 ``device="cpu"``.
 
@@ -53,7 +54,7 @@ _IGNORED_KEYS = frozenset((
 
 
 class Engine:
-    def __init__(self, model_name: str = "diff_swin_unetr",
+    def __init__(self, model_name: str = "diff_unet",
                  sw_batch_size: int = 4, overlap: float = 0.25,
                  image_size: int = 96, spatial_size: int = 96,
                  timesteps: int = 1000,
@@ -167,7 +168,8 @@ class Predictor(Engine):
 
 
 class Trainer(Engine):
-    """Training engine for ``diff_swin_unetr`` over ``train_data``, an
+    """Training engine for ``diff_unet`` (``cfg/amos/train.yaml``) and
+    ``diff_swin_unetr`` (``cfg/btcv/train.yaml``) over ``train_data``, an
     iterable of batches ``{"image": (B, D, H, W, 1) float, "label": (B, D,
     H, W) integer}`` (``data/synthetic.py``; the NIfTI pipeline is not
     ported yet). The batches are prepared once, as the JAX package's cache
@@ -194,11 +196,11 @@ class Trainer(Engine):
                  pretrained_path: Optional[str] = None,
                  ema_rate: Optional[float] = None, accum_steps: int = 1,
                  t_sampler: str = "uniform", use_wandb: bool = False,
-                 model_name: str = "diff_swin_unetr", **kwargs) -> None:
-        if model_name != "diff_swin_unetr":
+                 model_name: str = "diff_unet", **kwargs) -> None:
+        if model_name not in ("diff_unet", "diff_swin_unetr"):
             raise NotImplementedError(
-                f"training {model_name} is not ported yet (ROADMAP.md): "
-                "diff_unet needs a backward for the conv kernel")
+                f"training {model_name} is not ported yet (ROADMAP.md); "
+                "diff_unet and diff_swin_unetr are")
         if train_data is None:
             raise ValueError("Trainer needs train_data: the NIfTI dataset "
                              "pipeline (data_path) is not ported yet "

@@ -40,7 +40,9 @@ def create_model(model_name: str, *, in_channels: int = 1,
             out_channels=out_channels, in_channels=in_channels,
             image_size=parse_image_size(image_size, spatial_size),
             feature_size=feature_size, dtype=dtype)
-    if model_name in MODEL_NAMES:
+    if model_name in MODEL_NAMES and model_name != "attention_unet":
+        # attention_unet is listed but has no model in the reference
+        # either, whose create_model raises ValueError for it
         raise NotImplementedError(
             f"{model_name} is not ported to diff_unet_tpu_torch yet "
             "(ROADMAP.md, modules to port)")

@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "diff_unet_tpu_torch"
 SOURCES = ("window_attention.cu", "window_shift.cu", "window_partition.cu",
-           "conv3d.cu")
+           "conv3d.cu", "conv3d_wgrad.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -103,11 +103,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.window_partition_forward, lib.window_reverse_forward):
         fn.argtypes = [p, p] + [i] * 10 + [p]
         fn.restype = i
-    conv_head = [p, p, p, p, i, i, i, i, i, p, p, p, p, p, f, f, p, p]
+    conv_head = [p, p, p, p, i, i, i, i, i, p, p, p, p, p, f, f, p, p, p]
     lib.conv3x3_f32_forward.argtypes = conv_head + [i] * 7 + [p]
     lib.conv3x3_f32_forward.restype = i
     lib.conv3x3_bf16_forward.argtypes = conv_head + [p, p] + [i] * 10 + [p]
     lib.conv3x3_bf16_forward.restype = i
+    lib.conv3x3_wgrad.argtypes = ([p] * 5 + [i] * 5 + [p] * 3 + [f]
+                                  + [p] * 2 + [i] * 8 + [p])
+    lib.conv3x3_wgrad.restype = i
     lib.kernels_error_string.argtypes = [i]
     lib.kernels_error_string.restype = ctypes.c_char_p
     return lib
@@ -136,12 +139,3 @@ def require_cuda(t: torch.Tensor, name: str) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
 
-
-def forbid_grad(*tensors: torch.Tensor) -> None:
-    """For a kernel with no backward yet: refuse a call autograd would
-    need."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "this diff_unet_tpu_torch CUDA kernel is forward-only (it has "
-            "no backward yet); run under torch.inference_mode() or "
-            "torch.no_grad()")

@@ -21,16 +21,37 @@ the compute dtype. ``weight`` is PyTorch's (Cout, Cin, 3, 3, 3). The
 compute dtype is that of the parts (float32 or bfloat16); products
 accumulate in float32, ``stats`` (N, 2, Cout) float32 are taken from that
 accumulator before the output is rounded to the compute dtype. The kernel
-source is ``csrc/conv3d.cu``.
+source is ``csrc/conv3d.cu``. Its statistics are reproducible: each output
+tile stores its partial sums in a slot of its own, which a second kernel
+adds up in slot order, so two runs on the same inputs give the same bits.
 
 The bfloat16 kernel's launch plan (``conv_plan``: output bricks, Cout
 block, the split of the channel chunks across CTAs, TMA or gathered halo)
 and its weight layout (``pack_weight``) are chosen here, in Python, from
 the shapes; the packed weights are kept per weight tensor and parameter
 version (``packed_weight``).
+
+Gradients (``_Conv3x3``, an autograd Function that ``conv3x3`` routes
+through when autograd needs one): with ``g`` the gradient at the conv's
+pre-activation output,
+
+    g  = (dy + dsum + 2 y dsumsq) * lrelu'(y)       (y: the saved output)
+    dbias = sum of g over the voxels
+    du = conv3x3_dgrad(g, weight): the same SAME conv of g with the
+         spatially flipped weights whose Cin and Cout are swapped, on the
+         forward kernel (a second weight pack)
+    dW = conv3x3_wgrad(g, parts, prologue): the sum over the voxels of
+         g[p, co] * u[p + tap, ci], with u the prologue's rounded output,
+         on a kernel of its own (``csrc/conv3d_wgrad.cu``)
+
+and the prologue's adjoint in plain tensor code (the halo reads 0, so it
+has no halo term): dx = du * a * lrelu'(x a + b), da = sum du lrelu' x,
+db = sum du lrelu', dconst = sum du, per (sample, channel). g is rounded
+to the compute dtype before both products, as the kernels take it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import weakref
 from typing import Optional, Sequence, Tuple
@@ -49,6 +70,14 @@ MAX_PARTS = 4
 # float32 statistics to 1e-4 of the largest in either dtype.
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 STATS_TOL = 1e-4
+# the weight-gradient kernel against its plain version, as a fraction of
+# max |plain|: both sum the same products (of bf16 or fp32 values) in
+# float32, in another order, over up to ~10^7 voxels
+WGRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+# the Function's gradients against autograd through the plain version, as
+# a fraction of each gradient's max |g|: in bfloat16 the Function rounds g
+# to bf16 before both products, where autograd keeps it in float32
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # the bfloat16 kernel's geometry (csrc/conv3d.cu, namespace hw): a CTA
 # owns a (z, y, x) brick of output voxels of one sample, one z slice for
 # each of its two consumer warpgroups, and takes the input in chunks of
@@ -57,16 +86,23 @@ BRICK = (2, 8, 8)
 CONSUMER_THREADS = 256
 CHUNK = 16
 MIN_CTAS = 2 * 132                 # two CTAs for each SM of an H100
+F32_TILE_ROWS = 64                 # output voxels of a float32 kernel tile
 Prologue = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
                  Optional[float]]
 
 
+def _acc_dtype(dt: torch.dtype) -> torch.dtype:
+    """The dtype the plain versions compute in: float64 stays float64
+    (the CPU tests' exact reference), everything else is float32."""
+    return torch.float64 if dt == torch.float64 else torch.float32
+
+
 def _apply_prologue(x: torch.Tensor, prologue: Prologue) -> torch.Tensor:
-    """float32 prologue on a float32 (N, D, H, W, Cin) tensor."""
+    """The prologue on an (N, D, H, W, Cin) tensor, in its dtype."""
     scale, shift, const, slope = prologue
 
     def b(v):
-        return v.float()[:, None, None, None, :]
+        return v.to(x.dtype)[:, None, None, None, :]
 
     u = x * b(scale) + b(shift)
     if slope is not None:
@@ -74,6 +110,29 @@ def _apply_prologue(x: torch.Tensor, prologue: Prologue) -> torch.Tensor:
     if const is not None:
         u = u + b(const)
     return u
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """cuDNN convolutions in full float32 inside the block."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _conv_input(parts: Sequence[torch.Tensor],
+                prologue: Optional[Prologue]) -> torch.Tensor:
+    """u, the conv's input as the kernels see it: the parts' concat, the
+    prologue in the plain versions' dtype rounded to the compute dtype."""
+    dt = parts[0].dtype
+    acc = _acc_dtype(dt)
+    x = torch.cat([p.to(acc) for p in parts], dim=-1)
+    if prologue is not None:
+        x = _apply_prologue(x, prologue).to(dt).to(acc)
+    return x
 
 
 def conv3x3_plain(parts: Sequence[torch.Tensor], weight: torch.Tensor,
@@ -84,21 +143,17 @@ def conv3x3_plain(parts: Sequence[torch.Tensor], weight: torch.Tensor,
     """Plain PyTorch version with the kernel's rounding points: the
     prologue in float32 rounded to the compute dtype, weights rounded to
     it, a float32 convolution (TF32 off) of those values, bias, activation
-    and statistics in float32, then the output rounded."""
+    and statistics in float32, then the output rounded. float64 parts
+    compute in float64 throughout."""
     dt = parts[0].dtype
-    x = torch.cat([p.float() for p in parts], dim=-1)
-    if prologue is not None:
-        x = _apply_prologue(x, prologue).to(dt).float()
-    w = weight.to(dt).float()
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    acc = _acc_dtype(dt)
+    x = _conv_input(parts, prologue)
+    w = weight.to(dt).to(acc)
+    with _no_tf32():
         y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, padding=1)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
     y = y.permute(0, 2, 3, 4, 1)
     if bias is not None:
-        y = y + bias.float()
+        y = y + bias.to(acc)
     if negative_slope is not None:
         y = F.leaky_relu(y, negative_slope)
     out = y.to(dt)
@@ -107,6 +162,31 @@ def conv3x3_plain(parts: Sequence[torch.Tensor], weight: torch.Tensor,
     stats = torch.stack([y.sum(dim=(1, 2, 3)), (y * y).sum(dim=(1, 2, 3))],
                         dim=1)
     return out, stats
+
+
+def flip_weight(weight: torch.Tensor) -> torch.Tensor:
+    """The dgrad weights: W'[ci, co, t] = W[co, ci, 26 - t]."""
+    return weight.transpose(0, 1).flip(2, 3, 4)
+
+
+def conv3x3_dgrad_plain(g: torch.Tensor, weight: torch.Tensor
+                        ) -> torch.Tensor:
+    """Plain version of the input gradient: ``conv3x3_plain`` of g with the
+    flipped weights (same rounding points), (N, D, H, W, Cin)."""
+    return conv3x3_plain([g], flip_weight(weight))
+
+
+def conv3x3_wgrad_plain(g: torch.Tensor, parts: Sequence[torch.Tensor],
+                        prologue: Optional[Prologue] = None
+                        ) -> torch.Tensor:
+    """Plain version of the weight gradient: cuDNN's (or the CPU's) weight
+    gradient of the rounded conv input u and of g, in float32 with TF32
+    off (float64 for float64), (Cout, Cin, 3, 3, 3)."""
+    u = _conv_input(parts, prologue).permute(0, 4, 1, 2, 3)
+    gt = g.to(u.dtype).permute(0, 4, 1, 2, 3)
+    shape = (g.shape[-1], u.shape[1], 3, 3, 3)
+    with _no_tf32():
+        return torch.nn.grad.conv3d_weight(u, shape, gt, padding=1)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -162,6 +242,18 @@ class ConvPlan:
         return tiles * self.split * CONSUMER_THREADS * self.bn // 2, tiles
 
 
+def stats_slots(n: int, dims: Sequence[int],
+                plan: Optional[ConvPlan] = None) -> int:
+    """Slots of the statistics' partial sums (each ``2 * Cout`` floats):
+    one per brick of the bfloat16 ``plan``; in float32 (no plan) one per
+    segment of a sample in a tile of ``F32_TILE_ROWS`` voxels, segment
+    (tile t, sample s) in slot t + s. The kernel adds sample s's slots up
+    in order."""
+    if plan is not None:
+        return plan.grid[0]
+    return _cdiv(n * dims[0] * dims[1] * dims[2], F32_TILE_ROWS) + n
+
+
 def conv_plan(n: int, dims: Sequence[int], chans: Sequence[int], cout: int,
               aligned: bool = True) -> ConvPlan:
     """The bfloat16 kernel's plan from the shapes: Cout blocks of 64 (Cout
@@ -180,6 +272,43 @@ def conv_plan(n: int, dims: Sequence[int], chans: Sequence[int], cout: int,
                     nchunk=nchunk, split=_cdiv(nchunk, per_split),
                     per_split=per_split,
                     tma=aligned and all(c % CHUNK == 0 for c in chans))
+
+
+# the weight-gradient kernel's geometry (csrc/conv3d_wgrad.cu): a CTA owns
+# WGRAD_TILE (Cout, Cin) channels x the nine (y, x) taps of one z tap, and
+# walks chunks of WGRAD_PATCH (y, x) output voxels of one (sample, z)
+# slice; the chunks are split across CTAs until the grid has about
+# WGRAD_CTAS of them
+WGRAD_TILE = (64, 32)
+WGRAD_PATCH = (16, 8)
+WGRAD_CTAS = 8 * 132
+
+
+@dataclasses.dataclass(frozen=True)
+class WgradPlan:
+    """Launch plan of the weight-gradient kernel: ``groups`` CTA tiles of
+    (Cout block, Cin block, z tap) times ``split`` runs of
+    ``per_split`` chunks; each run's partial dW goes to a workspace that a
+    second pass sums in a fixed order (split 1 writes dW itself)."""
+    groups: int
+    nchunk: int
+    split: int
+    per_split: int
+
+    def chunks(self, s: int) -> range:
+        return range(s * self.per_split,
+                     min(self.nchunk, (s + 1) * self.per_split))
+
+
+def wgrad_plan(n: int, dims: Sequence[int], cin: int,
+               cout: int) -> WgradPlan:
+    d, h, w = dims
+    nchunk = n * d * _cdiv(h, WGRAD_PATCH[0]) * _cdiv(w, WGRAD_PATCH[1])
+    groups = _cdiv(cout, WGRAD_TILE[0]) * _cdiv(cin, WGRAD_TILE[1]) * 3
+    split = max(1, min(nchunk, _cdiv(WGRAD_CTAS, groups)))
+    per_split = _cdiv(nchunk, split)
+    return WgradPlan(groups=groups, nchunk=nchunk,
+                     split=_cdiv(nchunk, per_split), per_split=per_split)
 
 
 def pack_weight(weight: torch.Tensor, bn: int) -> torch.Tensor:
@@ -216,32 +345,39 @@ def pack_weight_f32(weight: torch.Tensor) -> torch.Tensor:
     return w
 
 
-_PACKED: dict = {}   # id(weight) -> (weakref to it, key, packed weights)
+# (id(weight), transposed) -> (weakref to the weight, key, packed weights)
+_PACKED: dict = {}
 
 
 def packed_weight(weight: torch.Tensor, dtype: torch.dtype,
-                  device: torch.device, bn: int = 0) -> torch.Tensor:
+                  device: torch.device, bn: int = 0,
+                  transposed: bool = False) -> torch.Tensor:
     """``weight`` in the kernel's layout for ``dtype`` (``pack_weight``
     with Cout blocks of ``bn`` for bfloat16, ``pack_weight_f32`` for
-    float32), on ``device``. The result is kept while the weight tensor
-    lives and reused while its storage, version counter (bumped by every
-    in-place update), dtype, device and ``bn`` stay the same. Inference
-    tensors have no version counter: they are packed at every call."""
+    float32), on ``device``; with ``transposed``, the dgrad weights
+    ``flip_weight(weight)`` instead, kept beside the forward pack. The
+    result is kept while the weight tensor lives and reused while its
+    storage, version counter (bumped by every in-place update), dtype,
+    device and ``bn`` stay the same. Inference tensors have no version
+    counter: they are packed at every call."""
     try:
         key = (weight.data_ptr(), weight._version, dtype, device, bn)
     except RuntimeError:
         key = None
-    entry = _PACKED.get(id(weight))
+    slot = (id(weight), transposed)
+    entry = _PACKED.get(slot)
     if (key is not None and entry is not None and entry[0]() is weight
             and entry[1] == key):
         return entry[2]
     w = weight.detach().to(device, dtype)
+    if transposed:
+        w = flip_weight(w)
     packed = pack_weight(w, bn) if dtype == torch.bfloat16 \
         else pack_weight_f32(w)
     if key is not None:
-        i = id(weight)
-        _PACKED[i] = (weakref.ref(weight, lambda _: _PACKED.pop(i, None)),
-                      key, packed)
+        _PACKED[slot] = (
+            weakref.ref(weight, lambda _: _PACKED.pop(slot, None)), key,
+            packed)
     packed_weight.packs += 1
     return packed
 
@@ -260,24 +396,18 @@ def _f32_rows(v: Optional[torch.Tensor], n: int, cin: int,
     return v
 
 
-def conv3x3(parts: Sequence[torch.Tensor], weight: torch.Tensor,
-            bias: Optional[torch.Tensor] = None, *,
-            prologue: Optional[Prologue] = None,
-            negative_slope: Optional[float] = None,
-            with_stats: bool = False):
-    """y, or (y, stats) with ``with_stats``. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (forward only) or raise."""
-    parts = list(parts)
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _check_parts(parts: Sequence[torch.Tensor]) -> list:
+    """The parts' channel counts, after checking that they are CUDA
+    tensors of one supported dtype and (N, D, H, W) and contiguous."""
     if not parts or len(parts) > MAX_PARTS:
         raise ValueError(f"conv3x3 takes 1 to {MAX_PARTS} parts, got "
                          f"{len(parts)}")
     x0 = parts[0]
-    if x0.device.type == "cpu":
-        return conv3x3_plain(parts, weight, bias, prologue=prologue,
-                             negative_slope=negative_slope,
-                             with_stats=with_stats)
     _native.require_cuda(x0, "parts[0]")
-    _native.forbid_grad(*parts, weight)
     dt, dev = x0.dtype, x0.device
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"parts dtype {dt} not supported (float32 or "
@@ -285,75 +415,253 @@ def conv3x3(parts: Sequence[torch.Tensor], weight: torch.Tensor,
     if x0.dim() != 5:
         raise ValueError(f"parts must be (N, D, H, W, C), got "
                          f"{tuple(x0.shape)}")
-    n, d, h, w = x0.shape[:4]
     for i, p in enumerate(parts):
-        if (p.dim() != 5 or tuple(p.shape[:4]) != (n, d, h, w)
+        if (p.dim() != 5 or p.shape[:4] != x0.shape[:4]
                 or p.dtype != dt or p.device != dev):
             raise ValueError(f"part {i} {tuple(p.shape)} {p.dtype} on "
                              f"{p.device} does not match part 0 "
                              f"{tuple(x0.shape)} {dt} on {dev}")
         if not p.is_contiguous():
             raise ValueError(f"part {i} must be contiguous (NDHWC)")
-    chans = [p.shape[4] for p in parts]
+    return [p.shape[4] for p in parts]
+
+
+def _part_args(parts: Sequence[torch.Tensor], chans: Sequence[int]) -> tuple:
+    """The C entry points' (p0..p3, c0..c3, nparts)."""
+    pad = MAX_PARTS - len(parts)
+    return (*[p.data_ptr() for p in parts], *[None] * pad, *chans,
+            *[0] * pad, len(parts))
+
+
+def _prologue_args(prologue: Optional[Prologue], n: int, cin: int,
+                   dev: torch.device) -> tuple:
+    """(scale, shift, const) as contiguous float32 rows (or None) and the
+    prologue's slope (1: no activation)."""
+    if prologue is None:
+        return (None, None, None), 1.0
+    scale, shift, const, slope = prologue
+    pro = tuple(_f32_rows(v, n, cin, dev, name) for v, name in
+                ((scale, "scale"), (shift, "shift"), (const, "const")))
+    if pro[0] is None or pro[1] is None:
+        raise ValueError("prologue needs scale and shift")
+    return pro, 1.0 if slope is None else float(slope)
+
+
+def _launch(parts: Sequence[torch.Tensor], weight: torch.Tensor,
+            bias: Optional[torch.Tensor], prologue: Optional[Prologue],
+            negative_slope: Optional[float], with_stats: bool,
+            transposed: bool = False):
+    """One launch of the forward kernel on CUDA parts; with
+    ``transposed``, of the conv with ``flip_weight(weight)`` (dgrad)."""
+    chans = _check_parts(parts)
+    x0 = parts[0]
+    dt, dev = x0.dtype, x0.device
+    n, d, h, w = x0.shape[:4]
     cin = sum(chans)
-    cout = weight.shape[0]
-    if tuple(weight.shape) != (cout, cin, 3, 3, 3):
-        raise ValueError(f"weight must be ({cout}, {cin}, 3, 3, 3) for "
-                         f"parts of {chans} channels, got "
+    cout = weight.shape[1 if transposed else 0]
+    want = (cin, cout) if transposed else (cout, cin)
+    if tuple(weight.shape) != (*want, 3, 3, 3):
+        raise ValueError(f"weight must be ({want[0]}, {want[1]}, 3, 3, 3) "
+                         f"for parts of {chans} channels, got "
                          f"{tuple(weight.shape)}")
     if bias is not None:
         if tuple(bias.shape) != (cout,):
             raise ValueError(f"bias must be ({cout},), got "
                              f"{tuple(bias.shape)}")
         bias = bias.to(dev, torch.float32).contiguous()
-    pro = [None, None, None]
-    pro_slope = 1.0
-    if prologue is not None:
-        scale, shift, const, slope = prologue
-        pro = [_f32_rows(v, n, cin, dev, name) for v, name in
-               ((scale, "scale"), (shift, "shift"), (const, "const"))]
-        if pro[0] is None or pro[1] is None:
-            raise ValueError("prologue needs scale and shift")
-        pro_slope = 1.0 if slope is None else float(slope)
+    pro, pro_slope = _prologue_args(prologue, n, cin, dev)
     out = torch.empty((n, d, h, w, cout), dtype=dt, device=dev)
-    stats = (torch.zeros((n, 2, cout), dtype=torch.float32, device=dev)
-             if with_stats else None)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    ptrs = [p.data_ptr() for p in parts] + [None] * (MAX_PARTS - len(parts))
-    chans_arg = chans + [0] * (MAX_PARTS - len(parts))
-    common = (*ptrs, *chans_arg, len(parts))
-    epilogue = (ptr(bias), *map(ptr, pro), pro_slope,
+    plan = (conv_plan(n, (d, h, w), chans, cout,
+                      aligned=all(p.data_ptr() % 16 == 0 for p in parts))
+            if dt == torch.bfloat16 else None)
+    stats = stats_part = None
+    if with_stats:
+        # each output tile's partial sums get a slot of their own, which a
+        # second kernel adds up in order (reproducible, no float atomics)
+        slots = stats_slots(n, (d, h, w), plan)
+        stats = torch.zeros((n, 2, cout), dtype=torch.float32, device=dev)
+        stats_part = torch.empty(slots * 2 * cout, dtype=torch.float32,
+                                 device=dev)
+    common = _part_args(parts, chans)
+    epilogue = (_ptr(bias), *map(_ptr, pro), pro_slope,
                 1.0 if negative_slope is None else float(negative_slope),
-                out.data_ptr(), ptr(stats))
+                out.data_ptr(), _ptr(stats), _ptr(stats_part))
     stream = _native.stream_ptr(dev)
-    if dt == torch.bfloat16:
-        plan = conv_plan(n, (d, h, w), chans, cout,
-                         aligned=all(p.data_ptr() % 16 == 0 for p in parts))
-        wt = packed_weight(weight, dt, dev, plan.bn)
+    if plan is not None:
+        wt = packed_weight(weight, dt, dev, plan.bn, transposed)
         n_partial, n_counter = plan.workspace()
         partial = counter = None
         if plan.split > 1:
             partial = torch.empty(n_partial, dtype=torch.float32, device=dev)
             counter = torch.zeros(n_counter, dtype=torch.int32, device=dev)
         err = _native.load().conv3x3_bf16_forward(
-            *common, wt.data_ptr(), *epilogue, ptr(partial), ptr(counter),
+            *common, wt.data_ptr(), *epilogue, _ptr(partial), _ptr(counter),
             n, d, h, w, cout, plan.bn, plan.nchunk, plan.split,
             plan.per_split, int(plan.tma), stream)
         _native.check(err, "conv3x3_bf16_forward")
     else:
-        wt = packed_weight(weight, dt, dev)
+        wt = packed_weight(weight, dt, dev, transposed=transposed)
         err = _native.load().conv3x3_f32_forward(
             *common, wt.data_ptr(), *epilogue, n, d, h, w, cout,
             wt.shape[1], wt.shape[0], stream)
         _native.check(err, "conv3x3_f32_forward")
-    conv3x3.launches += 1
     return (out, stats) if with_stats else out
 
 
-conv3x3.launches = 0
+def _forward(parts, weight, bias, prologue, negative_slope, with_stats):
+    """The forward without autograd: the plain version for CPU parts, the
+    kernel for CUDA parts."""
+    if parts[0].device.type == "cpu":
+        return conv3x3_plain(parts, weight, bias, prologue=prologue,
+                             negative_slope=negative_slope,
+                             with_stats=with_stats)
+    out = _launch(parts, weight, bias, prologue, negative_slope, with_stats)
+    conv3x3.launches += 1
+    return out
+
+
+def conv3x3_dgrad(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The conv's input gradient (N, D, H, W, Cin) from the gradient g at
+    its pre-activation output: the plain version on the CPU, on CUDA the
+    forward kernel with the flipped weights (no bias, no statistics)."""
+    if g.device.type == "cpu":
+        return conv3x3_dgrad_plain(g, weight)
+    out = _launch([g], weight, None, None, None, False, transposed=True)
+    conv3x3.dgrad_launches += 1
+    return out
+
+
+def conv3x3_wgrad(g: torch.Tensor, parts: Sequence[torch.Tensor],
+                  prologue: Optional[Prologue] = None) -> torch.Tensor:
+    """The conv's weight gradient (Cout, Cin, 3, 3, 3), float32 (float64
+    for float64 on the CPU), from g (N, D, H, W, Cout) in the parts' dtype
+    and the conv's input parts and prologue: the plain version on the CPU,
+    on CUDA the kernel of ``csrc/conv3d_wgrad.cu``."""
+    parts = list(parts)
+    if g.device.type == "cpu":
+        return conv3x3_wgrad_plain(g, parts, prologue)
+    chans = _check_parts(parts)
+    dt, dev = parts[0].dtype, parts[0].device
+    n, d, h, w = parts[0].shape[:4]
+    if (g.dim() != 5 or g.shape[:4] != parts[0].shape[:4] or g.dtype != dt
+            or g.device != dev or not g.is_contiguous()):
+        raise ValueError(f"g {tuple(g.shape)} {g.dtype} on {g.device} must "
+                         f"be a contiguous ({n}, {d}, {h}, {w}, Cout) "
+                         f"{dt} tensor on {dev}")
+    cin, cout = sum(chans), g.shape[4]
+    pro, pro_slope = _prologue_args(prologue, n, cin, dev)
+    plan = wgrad_plan(n, (d, h, w), cin, cout)
+    out = torch.empty((cout, cin, 3, 3, 3), dtype=torch.float32, device=dev)
+    partial = (torch.empty(plan.split * out.numel(), dtype=torch.float32,
+                           device=dev) if plan.split > 1 else None)
+    err = _native.load().conv3x3_wgrad(
+        g.data_ptr(), *_part_args(parts, chans), *map(_ptr, pro), pro_slope,
+        out.data_ptr(), _ptr(partial), n, d, h, w, cout, plan.split,
+        plan.per_split, int(dt == torch.bfloat16),
+        _native.stream_ptr(dev))
+    _native.check(err, "conv3x3_wgrad")
+    conv3x3_wgrad.launches += 1
+    return out
+
+
+conv3x3_wgrad.launches = 0
+
+
+class _Conv3x3(torch.autograd.Function):
+    """``conv3x3`` with its gradients (module docstring). ``meta`` is
+    (number of parts, prologue slope, prologue on, negative_slope,
+    with_stats); the prologue's scale, shift and const are inputs of
+    their own (None where absent)."""
+
+    @staticmethod
+    def forward(ctx, meta, weight, bias, scale, shift, const, *parts):
+        _, pro_slope, has_pro, slope, with_stats = meta
+        prologue = (scale, shift, const, pro_slope) if has_pro else None
+        out = _forward(list(parts), weight, bias, prologue, slope,
+                       with_stats)
+        ctx.meta = meta
+        ctx.save_for_backward(weight, bias, scale, shift, const,
+                              out[0] if with_stats else out, *parts)
+        ctx.set_materialize_grads(False)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, dstats=None):
+        nparts, pro_slope, has_pro, slope, _ = ctx.meta
+        weight, bias, scale, shift, const, y, *parts = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        dt = y.dtype
+        acc = _acc_dtype(dt)
+        g = torch.zeros(y.shape, dtype=acc, device=y.device) \
+            if dy is None else dy.to(acc, copy=True)
+        if dstats is not None:
+            ds = dstats.to(acc)[:, :, None, None, None, :]
+            g.add_(ds[:, 0]).addcmul_(y, 2.0 * ds[:, 1])
+        if slope is not None:
+            g = torch.where(y > 0, g, g * slope)
+        dbias = (g.sum((0, 1, 2, 3)).to(bias.dtype)
+                 if bias is not None and needs[2] else None)
+        g = g.to(dt)
+        prologue = (scale, shift, const, pro_slope) if has_pro else None
+        dweight = (conv3x3_wgrad(g, parts, prologue).to(weight.dtype)
+                   if needs[1] else None)
+        dparts = [None] * nparts
+        dpro = [None, None, None]
+        if any(needs[6:]) or (has_pro and any(needs[3:6])):
+            du = conv3x3_dgrad(g, weight)
+            sums = [], [], []            # da, db, dconst per part
+            off = 0
+            for i, p in enumerate(parts):
+                c = p.shape[-1]
+                dui = du[..., off:off + c]
+                if has_pro:
+                    dui = dui.to(acc)
+                    a = scale[:, off:off + c].to(acc)[:, None, None, None]
+                    xi = p.to(acc)
+                    pre = xi * a + shift[:, off:off + c].to(acc)[
+                        :, None, None, None]
+                    t = (dui if pro_slope is None
+                         else torch.where(pre > 0, dui, dui * pro_slope))
+                    for k, v in enumerate((t * xi, t, dui)):
+                        sums[k].append(v.sum((1, 2, 3)))
+                    dui = t * a
+                if needs[6 + i]:
+                    dparts[i] = dui.to(p.dtype)
+                off += c
+            if has_pro:
+                for k, v in enumerate((scale, shift, const)):
+                    if v is not None and needs[3 + k]:
+                        dpro[k] = torch.cat(sums[k], dim=1).to(v.dtype)
+        return (None, dweight, dbias, *dpro, *dparts)
+
+
+def conv3x3(parts: Sequence[torch.Tensor], weight: torch.Tensor,
+            bias: Optional[torch.Tensor] = None, *,
+            prologue: Optional[Prologue] = None,
+            negative_slope: Optional[float] = None,
+            with_stats: bool = False):
+    """y, or (y, stats) with ``with_stats``. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise. Where autograd needs
+    a gradient the call goes through ``_Conv3x3``, whose backward launches
+    ``conv3x3_dgrad`` and ``conv3x3_wgrad`` (their plain versions on the
+    CPU)."""
+    parts = list(parts)
+    if not parts or len(parts) > MAX_PARTS:
+        raise ValueError(f"conv3x3 takes 1 to {MAX_PARTS} parts, got "
+                         f"{len(parts)}")
+    pro = (None,) * 3 if prologue is None else tuple(prologue[:3])
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (*parts, weight, bias, *pro)):
+        meta = (len(parts), None if prologue is None else prologue[3],
+                prologue is not None, negative_slope, with_stats)
+        return _Conv3x3.apply(meta, weight, bias, *pro, *parts)
+    return _forward(parts, weight, bias, prologue, negative_slope,
+                    with_stats)
+
+
+conv3x3.launches = 0          # forward launches
+conv3x3.dgrad_launches = 0    # launches of the forward kernel as dgrad
 
 
 def norm_affine_from_stats(stats: torch.Tensor, gamma: torch.Tensor,

@@ -4,10 +4,13 @@ train step of its training path, on the card.
     python -m diff_unet_tpu_torch.profile_batch amos [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch btcv [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch btcv_train [--out FILE]
+    python -m diff_unet_tpu_torch.profile_batch amos_train [--out FILE]
 
-``btcv_train`` builds the ``Trainer`` of ``cfg/btcv/train.yaml`` on
-synthetic batches (``data/synthetic.py``) and profiles its train step
-(q_sample, denoise, loss, backward, AdamW) the same way.
+``btcv_train`` and ``amos_train`` build the ``Trainer`` of
+``cfg/btcv/train.yaml`` (batch 1, 14 label values) or
+``cfg/amos/train.yaml`` (batch 10, 16 label values) on synthetic batches
+(``data/synthetic.py``) and profile its train step (q_sample, denoise,
+loss, backward, AdamW) the same way.
 
 Builds the ``Predictor`` of ``cfg/<data>/test.yaml`` with seeded random
 weights and runs what it runs for each window batch: the image embedding
@@ -69,16 +72,23 @@ def _window_batch(dev: torch.device, data: str):
                          f"DDIM-{pred.seg.sample_steps})")
 
 
-def _train_step(dev: torch.device):
-    """The Trainer of ``cfg/btcv/train.yaml`` and one of its train steps
+# labels of the synthetic batches (the classes table's entries) and batch
+# size of each train config
+_TRAIN = {"btcv": (14, 1), "amos": (16, 10)}
+
+
+def _train_step(dev: torch.device, data: str):
+    """The Trainer of ``cfg/<data>/train.yaml`` and one of its train steps
     on a synthetic batch."""
     from diff_unet_tpu_torch.data.synthetic import SyntheticSegmentation
     from diff_unet_tpu_torch.engine.engine import Trainer
 
+    labels, batch = _TRAIN[data]
     trainer = Trainer.from_config(
-        ROOT / "cfg/btcv/train.yaml", device=dev, seed=0, max_epochs=1,
-        classes=str(ROOT / "cfg/btcv/classes.yaml"),
-        train_data=SyntheticSegmentation((96, 96, 96), batches=1))
+        ROOT / f"cfg/{data}/train.yaml", device=dev, seed=0, max_epochs=1,
+        classes=str(ROOT / f"cfg/{data}/classes.yaml"),
+        train_data=SyntheticSegmentation((96, 96, 96), num_labels=labels,
+                                         batch_size=batch, batches=1))
     image, labels = trainer.batches[0]
 
     def step():
@@ -92,7 +102,8 @@ def _train_step(dev: torch.device):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("data", choices=("amos", "btcv", "btcv_train"))
+    ap.add_argument("data", choices=("amos", "btcv", "btcv_train",
+                                     "amos_train"))
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
@@ -108,19 +119,30 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     dev = torch.device("cuda", 0)
-    if args.data == "btcv_train":
-        pred, batch, what = _train_step(dev)
+    train = args.data.endswith("_train")
+    if train:
+        pred, batch, what = _train_step(dev, args.data[:-len("_train")])
     else:
         pred, batch, what = _window_batch(dev, args.data)
 
     conv_flops = [0.0]
+    stems = ("embed_model.conv_0", "model.conv_0")   # inputs need no grad
 
-    def count(mod, args, out):
-        parts = args[0] if isinstance(args[0], (list, tuple)) else [args[0]]
-        cin, cout = sum(p.shape[-1] for p in parts), out.shape[-1]
-        conv_flops[0] += 2.0 * out.numel() * 27 * (cin + cout)
+    def counter(name):
+        def count(mod, args, out):
+            parts = (args[0] if isinstance(args[0], (list, tuple))
+                     else [args[0]])
+            cin, cout = sum(p.shape[-1] for p in parts), out.shape[-1]
+            f0, f1 = (2.0 * out.numel() * 27 * c for c in (cin, cout))
+            # a train step adds the wgrad of both convs and the dgrad of
+            # all but a stem's first
+            conv_flops[0] += ((3 * f0 + 3 * f1 - (f0 if name in stems
+                                                   else 0.0))
+                              if train else f0 + f1)
+        return count
 
-    hooks = [m.register_forward_hook(count) for m in pred.module.modules()
+    hooks = [m.register_forward_hook(counter(name))
+             for name, m in pred.module.named_modules()
              if isinstance(m, TwoConv)]
     batch()
     for h in hooks:
@@ -157,8 +179,10 @@ def main() -> None:
         sw = pred.sw_batch_size
         conv_ms = sum(_device_us(e, True) for e in kernels
                       if "conv3d_" in e.key) / 1e3
-        print(f"3x3x3 conv work per batch: {conv_flops[0] / 1e12:.3f} TFLOP "
-              f"({conv_flops[0] / sw / 1e12:.3f} per window); conv kernel "
+        per = ("forward, dgrad and wgrad" if train else
+               f"{conv_flops[0] / sw / 1e12:.3f} per window")
+        print(f"3x3x3 conv work per {args.data} unit: "
+              f"{conv_flops[0] / 1e12:.3f} TFLOP ({per}); conv kernels "
               f"{conv_ms:.1f} ms ({conv_ms / device_ms:.1%} of the device "
               f"time) = "
               f"{conv_flops[0] / conv_ms / 1e9:.1f} TFLOP/s; bound at the "

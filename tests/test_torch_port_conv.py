@@ -37,11 +37,13 @@ from diff_unet_tpu_torch.ops.conv3d import (
     MIN_CTAS,
     conv3x3,
     conv3x3_plain,
+    F32_TILE_ROWS,
     conv_plan,
     norm_affine_from_stats,
     pack_weight,
     pack_weight_f32,
     packed_weight,
+    stats_slots,
     unpack_weight,
 )
 from diff_unet_tpu_torch.utils.weights import load_jax_params
@@ -232,6 +234,33 @@ def test_conv_plan_covers_voxels_and_taps_once(dims, chans, cout):
     assert (plan.split > 1) == (ctas < MIN_CTAS and plan.nchunk > 1)
     assert plan.workspace() == ((ctas * plan.split * 256 * plan.bn // 2,
                                  ctas) if plan.split > 1 else (0, 0))
+
+
+@pytest.mark.parametrize("n,dims", [(10, (2, 2, 2)), (5, (3, 3, 3)),
+                                    (2, (6, 7, 9)), (3, (4, 4, 4)),
+                                    (4, (12, 12, 12)), (10, (6, 6, 6))])
+def test_stats_slots_are_distinct_and_in_sample_order(n, dims):
+    """The statistics' partial-sum slots: in float32 each (64-voxel tile,
+    sample) segment gets slot tile + sample, distinct, within
+    ``stats_slots``, and sample s's slots are the run the reducing kernel
+    reads (tiles first..last of s, plus s); in bfloat16 one slot per brick,
+    sample s's the run s * bricks .. (s + 1) * bricks - 1."""
+    v = dims[0] * dims[1] * dims[2]
+    rows = np.arange(n * v)
+    segments = sorted(set(zip(rows // F32_TILE_ROWS, rows // v)))
+    slots = [t + s for t, s in segments]
+    assert len(set(slots)) == len(slots)
+    assert max(slots) < stats_slots(n, dims)
+    for s in range(n):
+        first = s * v // F32_TILE_ROWS
+        last = ((s + 1) * v - 1) // F32_TILE_ROWS
+        assert [t + q for t, q in segments if q == s] == \
+            list(range(first + s, last + s + 1))
+    plan = conv_plan(n, dims, [64], 64)
+    per = plan.grid[0] // n
+    assert stats_slots(n, dims, plan) == n * per
+    assert [plan.brick(i)[0] for i in range(plan.grid[0])] == \
+        [i // per for i in range(plan.grid[0])]
 
 
 def test_packed_weight_is_reused_until_the_weight_changes():

@@ -1,6 +1,8 @@
 """PyTorch port on a CUDA card: each kernel against its plain version,
-forward and (for the Swin kernels) backward, the wrappers' input checks,
-and tiny Predictors (DiffSwinUNETR, DiffUNet) run through their kernels.
+forward and backward (the Swin kernels', the conv's dgrad and weight
+gradient and its autograd Function), the wrappers' input checks, tiny
+Predictors (DiffSwinUNETR, DiffUNet) and a small DiffUNet train step run
+through their kernels.
 
 Marked ``cuda`` and skipped where there is no card. This file imports no
 jax (the card's machine has none); run it there without the repository's
@@ -13,10 +15,16 @@ import pytest
 import torch
 
 from diff_unet_tpu_torch.ops.conv3d import (
+    GRAD_TOL,
     KERNEL_TOL,
     STATS_TOL,
+    WGRAD_TOL,
     conv3x3,
+    conv3x3_dgrad,
+    conv3x3_dgrad_plain,
     conv3x3_plain,
+    conv3x3_wgrad,
+    conv3x3_wgrad_plain,
     packed_weight,
 )
 from diff_unet_tpu_torch.ops.swin import window_region_ids
@@ -266,6 +274,9 @@ CONV_KERNEL_CASES = [
     ([1], None, True, (4, 16, 16, 16), 64),
     ([1, 15], None, True, (4, 16, 16, 16), 64),
     ([256, 256], None, True, (2, 12, 12, 12), 256),
+    # fp32 tiles of 64 voxels that span samples: 8 and 27 voxels a sample
+    ([8], "const", True, (10, 2, 2, 2), 16),
+    ([8], None, True, (5, 3, 3, 3), 16),
 ]
 
 
@@ -277,7 +288,9 @@ def test_conv3x3_kernel_matches_plain(dev, dtype, chans, prologue, stats,
     """Odd W, parts that split the channels, the prologue and statistics
     on and off; bias and LeakyReLU epilogue on the one-part cases; ragged
     bricks (6^3, 12^3, 6x7x9, 32x32x22), shapes that split the channel
-    chunks across CTAs, several chunks and four TMA-mapped parts."""
+    chunks across CTAs, several chunks and four TMA-mapped parts; run
+    twice, bit-identical (no float atomics in the statistics or the split
+    chunks' sums)."""
     g = torch.Generator(device=dev).manual_seed(sum(chans) + shape[1])
     n, cin = shape[0], sum(chans)
     parts = [torch.randn((*shape, c), generator=g, device=dev).to(dtype)
@@ -293,12 +306,15 @@ def test_conv3x3_kernel_matches_plain(dev, dtype, chans, prologue, stats,
                if prologue == "const" else None, 0.1)
     slope = 0.1 if len(chans) == 1 else None
     before = conv3x3.launches
-    got = conv3x3(parts, w, b, prologue=pro, negative_slope=slope,
-                  with_stats=stats)
+    got, again = (conv3x3(parts, w, b, prologue=pro, negative_slope=slope,
+                          with_stats=stats) for _ in range(2))
     want = conv3x3_plain(parts, w, b, prologue=pro, negative_slope=slope,
                          with_stats=stats)
     torch.cuda.synchronize()
-    assert conv3x3.launches == before + 1
+    assert conv3x3.launches == before + 2
+    for first, second in zip(*((got, again) if stats else ([got],
+                                                           [again]))):
+        assert torch.equal(first, second)
     if stats:
         (got, gst), (want, wst) = got, want
         scale = wst.abs().max().item()
@@ -330,10 +346,14 @@ def test_conv3x3_reuses_packed_weights(dev, dtype):
 def test_conv3x3_checks_inputs(dev):
     x = torch.zeros((1, 4, 4, 4, 8), device=dev)
     w = torch.zeros((8, 8, 3, 3, 3), device=dev)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        conv3x3([x], w.requires_grad_())
+    # a weight that needs a gradient goes through the autograd Function
+    assert conv3x3([x], w.requires_grad_()).grad_fn is not None
     with torch.no_grad():
         w = w.detach()
+        with pytest.raises(ValueError, match="g "):
+            conv3x3_wgrad(torch.zeros((1, 4, 4, 5, 8), device=dev), [x])
+        with pytest.raises(ValueError, match="weight"):
+            conv3x3_dgrad(torch.zeros((1, 4, 4, 4, 6), device=dev), w)
         with pytest.raises(TypeError, match="dtype"):
             conv3x3([x.half()], w)
         with pytest.raises(ValueError, match="contiguous"):
@@ -372,3 +392,163 @@ def test_diff_unet_predictor_serves_through_the_conv_kernel(dev):
         want = Predictor(device="cpu", **kw).seg.ddim_sample(win, noise=noise)
         on_card = card.seg.ddim_sample(win.to(dev), noise=noise.to(dev))
     assert (on_card.cpu() - want).abs().max().item() <= 1e-3
+
+
+# (parts of the conv input, Cout, (N, D, H, W), prologue) of the backward
+# card tests: gathered (Cin 8, the stems) and TMA-mapped parts, ragged
+# bricks and chunks, split chunks and split voxels
+CONV_GRAD_CASES = [
+    ([8], 8, (1, 32, 32, 22), True),
+    ([1, 15], 64, (2, 16, 16, 16), False),
+    ([64], 64, (2, 12, 12, 12), True),
+    ([64, 64], 64, (1, 16, 16, 16), False),
+    ([8], 16, (1, 6, 7, 9), True),
+    ([256], 512, (2, 6, 6, 6), True),
+]
+
+
+def _grad_inputs(dev, dtype, chans, cout, shape, prologue, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed + sum(chans) + cout)
+    n, cin = shape[0], sum(chans)
+    parts = [torch.randn((*shape, c), generator=g, device=dev).to(dtype)
+             for c in chans]
+    w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) \
+        / (27 * cin) ** 0.5
+    b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+    pro = None
+    if prologue:
+        pro = (1 + 0.3 * torch.randn((n, cin), generator=g, device=dev),
+               0.3 * torch.randn((n, cin), generator=g, device=dev),
+               0.2 * torch.randn((n, cin), generator=g, device=dev), 0.1)
+    gy = torch.randn((*shape, cout), generator=g, device=dev).to(dtype)
+    return parts, w, b, pro, gy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chans,cout,shape,prologue", CONV_GRAD_CASES)
+def test_conv3x3_dgrad_kernel_matches_plain(dev, dtype, chans, cout, shape,
+                                            prologue):
+    """dgrad: the forward kernel with the flipped weights, Cout -> Cin."""
+    parts, w, _, _, gy = _grad_inputs(dev, dtype, chans, cout, shape, False)
+    before = (conv3x3.launches, conv3x3.dgrad_launches)
+    got = conv3x3_dgrad(gy, w)
+    want = conv3x3_dgrad_plain(gy, w)
+    torch.cuda.synchronize()
+    assert (conv3x3.launches, conv3x3.dgrad_launches) == (
+        before[0], before[1] + 1)
+    assert got.dtype == dtype and got.shape == (*shape, sum(chans))
+    scale = max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= \
+        KERNEL_TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chans,cout,shape,prologue", CONV_GRAD_CASES)
+def test_conv3x3_wgrad_kernel_matches_plain(dev, dtype, chans, cout, shape,
+                                            prologue):
+    """wgrad: the new kernel, the prologue on its load, against cuDNN's
+    weight gradient of the rounded input; run twice, bit-identical (the
+    split partials are summed in a fixed order)."""
+    parts, _, _, pro, gy = _grad_inputs(dev, dtype, chans, cout, shape,
+                                        prologue)
+    before = conv3x3_wgrad.launches
+    got = conv3x3_wgrad(gy, parts, pro)
+    again = conv3x3_wgrad(gy, parts, pro)
+    want = conv3x3_wgrad_plain(gy, parts, pro)
+    torch.cuda.synchronize()
+    assert conv3x3_wgrad.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == (cout, sum(chans), 3,
+                                                        3, 3)
+    assert torch.equal(got, again)
+    err = (got - want).abs().max().item()
+    assert err <= WGRAD_TOL[dtype] * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chans,cout,shape,prologue", [CONV_GRAD_CASES[0],
+                                                       CONV_GRAD_CASES[3]])
+def test_conv3x3_function_gradients_match_plain(dev, dtype, chans, cout,
+                                                shape, prologue):
+    """The whole backward on the card (the kernels and the adjoint chain)
+    against autograd through the plain version, through y and the
+    statistics."""
+    parts, w, b, pro, gy = _grad_inputs(dev, dtype, chans, cout, shape,
+                                        prologue)
+    cs = torch.randn((shape[0], 2, cout), device=dev)
+    leaves = [w, b] + [v for v in (pro or ())[:3]] + parts
+    grads = []
+    for fn in (conv3x3, conv3x3_plain):
+        inputs = [v.detach().clone().requires_grad_() for v in leaves]
+        w_, b_ = inputs[:2]
+        pro_ = (*inputs[2:5], 0.1) if pro else None
+        parts_ = inputs[5 if pro else 2:]
+        y, st = fn(parts_, w_, b_, prologue=pro_, with_stats=True)
+        grads.append(torch.autograd.grad(
+            (y.float() * gy.float()).sum() + (st * cs).sum(), inputs))
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        scale = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= \
+            GRAD_TOL[dtype] * scale
+
+
+def test_diff_unet_train_step_runs_the_conv_kernels_both_ways(dev):
+    """A small DiffUNet train step: 28 forward, 26 dgrad (not the stems)
+    and 28 wgrad launches, one forward and one dgrad pack per conv and
+    step once the weights move, finite loss."""
+    from diff_unet_tpu_torch.api import DiffusionSegmenter
+    from diff_unet_tpu_torch.engine.train import TrainStep, make_optimizer
+    from diff_unet_tpu_torch.losses.losses import CompositeLoss
+    from diff_unet_tpu_torch.models.diff_unet import DiffUNet
+    from diff_unet_tpu_torch.utils.weights import init_random
+
+    model = init_random(DiffUNet(3, features=(8, 8, 16, 32, 64, 8),
+                                 dtype=torch.bfloat16), 0).to(dev)
+    opt, schedule = make_optimizer(model.parameters(), lr=1e-3)
+    step = TrainStep(DiffusionSegmenter(model, 3),
+                     CompositeLoss("mse,bce,dice", 3), opt, schedule)
+    g = torch.Generator(device=dev).manual_seed(0)
+    image = torch.rand((2, 32, 32, 32, 1), generator=g, device=dev)
+    labels = (torch.rand((2, 32, 32, 32, 3), generator=g, device=dev)
+              > 0.5).float()
+    step(image, labels, generator=g)
+    conv3x3.launches = conv3x3.dgrad_launches = conv3x3_wgrad.launches = 0
+    packs = packed_weight.packs
+    m = step(image, labels, generator=g)
+    torch.cuda.synchronize()
+    assert (conv3x3.launches, conv3x3.dgrad_launches,
+            conv3x3_wgrad.launches) == (28, 26, 28)
+    assert packed_weight.packs - packs == 28 + 26
+    assert torch.isfinite(m["loss"]) and m["grad_norm"].item() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_diff_unet_train_step_is_reproducible(dev, dtype):
+    """The same small DiffUNet train step twice from the same start gives
+    the same loss, gradients and parameters, bit for bit: no float atomics
+    on the path (the conv's statistics and split sums are added in a fixed
+    order, the weight gradient's split partials too)."""
+    from diff_unet_tpu_torch.api import DiffusionSegmenter
+    from diff_unet_tpu_torch.engine.train import TrainStep, make_optimizer
+    from diff_unet_tpu_torch.losses.losses import CompositeLoss
+    from diff_unet_tpu_torch.models.diff_unet import DiffUNet
+    from diff_unet_tpu_torch.utils.weights import init_random
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    image = torch.rand((2, 32, 32, 32, 1), generator=g, device=dev)
+    labels = (torch.rand((2, 32, 32, 32, 3), generator=g, device=dev)
+              > 0.5).float()
+    t = torch.tensor([17, 640], device=dev)
+    noise = torch.randn((2, 32, 32, 32, 3), generator=g, device=dev)
+    runs = []
+    for _ in range(2):
+        model = init_random(DiffUNet(3, features=(8, 8, 16, 32, 64, 8),
+                                     dtype=dtype), 0).to(dev)
+        opt, schedule = make_optimizer(model.parameters(), lr=1e-3)
+        step = TrainStep(DiffusionSegmenter(model, 3),
+                         CompositeLoss("mse,bce,dice", 3), opt, schedule)
+        m = step(image, labels, t=t, noise=noise)
+        runs.append([m["loss"]] + [p.grad.clone() for p in model.parameters()]
+                    + [p.detach().clone() for p in model.parameters()])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

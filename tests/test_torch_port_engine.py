@@ -169,3 +169,22 @@ def test_package_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_engines_default_to_diff_unet_like_jax():
+    """Without ``model_name`` both engines build DiffUNet, the JAX
+    ``Engine``'s default."""
+    import inspect
+
+    from diff_unet_tpu.engine.engine import Engine as JEngine
+    from diff_unet_tpu_torch.engine.engine import Engine, Trainer
+    from diff_unet_tpu_torch.models.diff_unet import DiffUNet
+
+    want = inspect.signature(JEngine).parameters["model_name"].default
+    assert want == "diff_unet"
+    for cls in (Engine, Trainer):
+        assert inspect.signature(cls).parameters[
+            "model_name"].default == want
+    p = Predictor(features=(8, 8, 16, 32, 64, 8), image_size=32,
+                  spatial_size=32, use_amp=False, device="cpu")
+    assert p.model_name == "diff_unet" and isinstance(p.module, DiffUNet)

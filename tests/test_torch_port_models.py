@@ -140,3 +140,15 @@ def test_create_model_and_seeded_init():
         create_model("nope", out_channels=2)
     with pytest.raises(ValueError, match="2\\^5"):
         create_model("diff_swin_unetr", out_channels=2, image_size=40)
+
+
+def test_create_model_attention_unet_raises_like_jax():
+    """``attention_unet`` is a listed name with no model in the reference:
+    both factories raise ValueError for it."""
+    from diff_unet_tpu.models.model_hub import create_model as jcreate
+
+    with pytest.raises(ValueError, match="Invalid model type") as want:
+        jcreate("attention_unet", out_channels=2)
+    with pytest.raises(ValueError, match="Invalid model type") as got:
+        create_model("attention_unet", out_channels=2)
+    assert got.type is want.type

@@ -1,9 +1,12 @@
 """PyTorch port, the training path against the JAX package: the losses
 (1e-6), label smoothing and label conversion (exact), the warmup-cosine
 schedule (1e-7), two AdamW updates against ``optax.adamw`` (1e-6), one
-DiffSwinUNETR train step (feature 12, 32^3) against ``jax.value_and_grad``
-in float64 with injected t and noise (loss and gradients 1e-4), and the
-Trainer built from ``cfg/btcv/train.yaml`` on synthetic batches."""
+train step of DiffSwinUNETR (feature 12, 32^3) and of DiffUNet (features
+(8, 8, 16, 32, 64, 8), 32^3, every conv through the conv's autograd
+Function) against ``jax.value_and_grad`` in float64 with injected t and
+noise (loss and gradients 1e-4), and the Trainers built from
+``cfg/btcv/train.yaml`` and ``cfg/amos/train.yaml`` on synthetic
+batches."""
 from pathlib import Path
 
 import numpy as np
@@ -20,6 +23,7 @@ from diff_unet_tpu.diffusion import gaussian as jg
 from diff_unet_tpu.engine import engine as jengine
 from diff_unet_tpu.engine import train as jtrain
 from diff_unet_tpu.losses.losses import CompositeLoss as JLoss
+from diff_unet_tpu.models.diff_unet import DiffUNet as JDiffUNet
 from diff_unet_tpu.models.swin_unetr import DiffSwinUNETR as JModel
 from diff_unet_tpu_torch.api import DiffusionSegmenter as TSeg
 from diff_unet_tpu_torch.data import label_smoothing as tls
@@ -28,6 +32,7 @@ from diff_unet_tpu_torch.data.synthetic import SyntheticSegmentation, \
 from diff_unet_tpu_torch.engine import engine as tengine
 from diff_unet_tpu_torch.engine import train as ttrain
 from diff_unet_tpu_torch.losses.losses import CompositeLoss as TLoss
+from diff_unet_tpu_torch.models.diff_unet import DiffUNet as TDiffUNet
 from diff_unet_tpu_torch.models.swin_unetr import DiffSwinUNETR as TModel
 from diff_unet_tpu_torch.utils.weights import export_jax_params, \
     load_jax_params
@@ -36,6 +41,17 @@ from tests.test_torch_port_swin import random_flax_params
 
 ROOT = Path(__file__).resolve().parents[1]
 S, C, FS = 32, 3, 12
+FEATURES = (8, 8, 16, 32, 64, 8)
+
+
+def _models(name):
+    """The JAX module and a constructor of the port's module, small
+    widths."""
+    if name == "diff_unet":
+        return (JDiffUNet(out_channels=C, features=FEATURES),
+                lambda: TDiffUNet(C, features=FEATURES))
+    return (JModel(out_channels=C, image_size=(S,) * 3, feature_size=FS),
+            lambda: TModel(C, image_size=(S,) * 3, feature_size=FS))
 
 
 @pytest.mark.parametrize("losses", ["mse", "bce", "dice", "mse,bce,dice"])
@@ -113,20 +129,26 @@ def test_two_adamw_updates_match_optax(scheduler):
                                    rtol=1e-6, atol=1e-6)
 
 
-def test_train_step_matches_jax_value_and_grad():
+@pytest.mark.parametrize("model", ["diff_swin_unetr", "diff_unet"])
+def test_train_step_matches_jax_value_and_grad(model):
     """fp32 port against float64 JAX: the same params, t and noise; the
     loss at 1e-4, each gradient at 1e-4 of the model's largest gradient
     (fp32 rounding leaves ~4e-6 of it; a tensor's own scale is no
     yardstick where its exact gradient is ~0, as for a conv bias before an
     instance norm), and the parameters after one AdamW update within 2 lr
     (Adam's first update is lr * sign(g) where |g| is far above eps, so a
-    gradient that is ~0 in float64 may flip it)."""
+    gradient that is ~0 in float64 may flip it). DiffUNet's gradients
+    come through the conv's Function (dgrad, wgrad, the statistics' and
+    the prologue's adjoints), the JAX ones through flax ``nn.Conv``; its
+    port side runs in float64, which the Function's plain backward keeps:
+    the model's 2^3 instance norms amplify float32 rounding to the size of
+    the tolerance itself."""
     rng = np.random.default_rng(0)
     image = rng.random((1, S, S, S, 1)).astype(np.float32)
     labels = np.eye(C, dtype=np.float32)[rng.integers(0, C, (1, S, S, S))]
     noise = rng.standard_normal(labels.shape).astype(np.float32)
     t = np.array([417], np.int32)
-    jm = JModel(out_channels=C, image_size=(S,) * 3, feature_size=FS)
+    jm, build = _models(model)
     params = random_flax_params(jm, image, labels, t, seed=1)
     crit = JLoss("mse,bce,dice", C, "sum", fold=1)
     sched = JSeg(module=jm, num_classes=C).train_schedule
@@ -140,15 +162,16 @@ def test_train_step_matches_jax_value_and_grad():
                                     image, labels, t, noise)
 
     lr = 2e-4
-    tm = load_jax_params(TModel(C, image_size=(S,) * 3, feature_size=FS),
-                         params)
+    dtype = torch.float64 if model == "diff_unet" else torch.float32
+    tm = load_jax_params(build(), params).to(dtype)
     opt, schedule = ttrain.make_optimizer(tm.parameters(), lr=lr,
                                           weight_decay=1e-4)
     step = ttrain.TrainStep(TSeg(tm, C), TLoss("mse,bce,dice", C), opt,
                             schedule)
-    metrics = step(torch.from_numpy(image), torch.from_numpy(labels),
+    metrics = step(torch.from_numpy(image).to(dtype),
+                   torch.from_numpy(labels).to(dtype),
                    t=torch.from_numpy(t).long(),
-                   noise=torch.from_numpy(noise))
+                   noise=torch.from_numpy(noise).to(dtype))
     np.testing.assert_allclose(metrics["loss"].item(), float(want_loss),
                                rtol=1e-4)
     got = dict(jax.tree_util.tree_leaves_with_path(
@@ -197,9 +220,16 @@ def test_trainer_runs_btcv_recipe_on_synthetic_batches():
     trainer.max_epochs, trainer.val_freq = 2, 2
     with pytest.raises(NotImplementedError, match="validation"):
         trainer.train()
-    with pytest.raises(NotImplementedError, match="diff_unet"):
+    # the same recipe trains DiffUNet (the engines' default model)
+    unet = tengine.Trainer.from_config(
+        cfg, train_data=data, max_epochs=1,
+        **{**kw, "model_name": "diff_unet", "features": FEATURES})
+    assert isinstance(unet.module, TDiffUNet)
+    unet.train()
+    assert len(unet.history) == 2 and np.isfinite(unet.history[-1]["loss"])
+    with pytest.raises(NotImplementedError, match="swin_unetr"):
         tengine.Trainer.from_config(cfg, train_data=data,
-                                    **{**kw, "model_name": "diff_unet"})
+                                    **{**kw, "model_name": "swin_unetr"})
     with pytest.raises(ValueError, match="train_data"):
         tengine.Trainer.from_config(cfg, **kw)
     seg, crit = trainer.seg, trainer.criterion
@@ -210,3 +240,33 @@ def test_trainer_runs_btcv_recipe_on_synthetic_batches():
         ttrain.TrainStep(seg, crit, opt, schedule, t_sampler="loss_aware")
     with pytest.raises(NotImplementedError, match="accum_steps"):
         ttrain.make_optimizer(trainer.module.parameters(), accum_steps=2)
+
+
+def test_trainer_runs_amos_recipe_on_synthetic_batches():
+    """``Trainer.from_config("cfg/amos/train.yaml")`` at a small width on
+    the CPU: DiffUNet (the config's model), 15 classes from the 16-entry
+    AMOS class table without background, one-hot labels (no smoothing),
+    lr 5e-4 with 100 warmup epochs (0 at the first update), mse + bce +
+    dice; finite losses, gradients and moved parameters."""
+    cfg = ROOT / "cfg/amos/train.yaml"
+    data = SyntheticSegmentation((S, S, S), num_labels=16, batch_size=2,
+                                 batches=2)
+    trainer = tengine.Trainer.from_config(
+        cfg, train_data=data, device="cpu", features=FEATURES,
+        image_size=S, spatial_size=S, use_amp=False, batch_size=2,
+        max_epochs=1, classes=str(ROOT / "cfg/amos/classes.yaml"))
+    assert trainer.model_name == "diff_unet"
+    assert isinstance(trainer.module, TDiffUNet)
+    assert trainer.num_classes == 15 and not trainer.label_smoothing
+    image, labels = trainer.batches[0]
+    assert image.shape == (2, S, S, S, 1) and labels.shape == (2, S, S, S, 15)
+    assert set(labels.unique().tolist()) == {0.0, 1.0}
+    before = {k: v.clone() for k, v in trainer.module.named_parameters()}
+    trainer.train()
+    assert [h["lr"] for h in trainer.history] == pytest.approx(
+        [0.0, 5e-4 / 200], rel=1e-12, abs=0)
+    assert all(np.isfinite(h["loss"]) and h["grad_norm"] > 0
+               for h in trainer.history)
+    moved = [k for k, v in trainer.module.named_parameters()
+             if not torch.equal(before[k], v)]
+    assert len(moved) == len(before)
