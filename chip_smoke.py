@@ -8,8 +8,8 @@ PyTorch built for CUDA. Phases, each of which must pass:
 1. the card: name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``diff_unet_tpu_torch/csrc`` with ``nvcc``
    (one process per source, in parallel), print each kernel's ptxas
-   registers and spills, and fail if a bf16 conv or attention kernel
-   spills;
+   registers and spills, and fail if a bf16 conv, weight-gradient or
+   attention kernel spills;
 3. every kernel against its plain PyTorch version on the card at the
    shapes its slice gives it, with CUDA-event times of the kernel, the
    plain version and one PyTorch library call computing the same function
@@ -50,8 +50,11 @@ PyTorch built for CUDA. Phases, each of which must pass:
       kernel against ``conv3x3_wgrad_plain`` (1e-4 / 1e-3 of max |plain|
       in fp32 / bf16), with kernel, plain and cuDNN times
       (``aten.convolution_backward`` with an input-only or weight-only
-      output mask) and the bound; and the conv's autograd Function against
-      autograd through the plain version at two small shapes;
+      output mask), the bound and the kernel's share of it; then the
+      weight gradient's kernel, cuDNN and bound times summed over one AMOS
+      train step (each conv times its launches a step, 28 in all); and the
+      conv's autograd Function against autograd through the plain version
+      at two small shapes;
 4. small models on the card against the same weights on the CPU's plain
    path, fp32 with TF32 off: a DiffSwinUNETR denoiser step (feature 12,
    32^3), a DiffUNet denoiser step (features (8, 8, 16, 32, 64, 8), 32^3),
@@ -157,7 +160,7 @@ ATTN_GRAD_CASES = [("stage1", 343, 3, 343, True), ("stage2", 64, 6, 343, True),
 TRAIN_STEPS = 8
 # the bf16 kernels that must not spill (substrings of their mangled names)
 BF16_KERNELS = ("conv3d_wgmma", "attn_fwd_bf16", "attn_bwd_bf16",
-                "conv3d_wgrad_kernelI13__nv_bfloat16")
+                "conv3d_wgrad_wgmma")
 # per window batch of BTCV serving (1 embed + 10 denoiser Swin passes of 4
 # stages) and per BTCV train step (the encoder's and the denoiser's Swin
 # pass): forward launches, and launches inside the backward
@@ -171,6 +174,13 @@ TRAIN_PER_STEP = {"window_attention": (16, 16), "shift_windows": (12, 12),
 CONV_GRAD_N = 10
 CONV_GRAD_REPORT = ("L0 conv_1", torch.bfloat16)
 STEMS = ("encoder stem", "denoiser stem")
+# weight-gradient launches of each of those convs in one AMOS train step
+# (28 in all; the dgrad's are the same less the stems')
+WGRAD_PER_STEP = {"encoder stem": 1, "denoiser stem": 1, "L0 conv_1": 3,
+                  "L0 upcat": 1, "L1 conv_0": 2, "L1 conv_1": 3,
+                  "L1 upcat": 1, "L2 conv_0": 2, "L2 conv_1": 3,
+                  "L2 upcat": 1, "L3 conv_0": 2, "L3 conv_1": 3,
+                  "L3 upcat": 1, "L4 conv_0": 2, "L4 conv_1": 2}
 # (N, D, H, W), part channels, Cout, prologue of the Function's whole
 # backward against autograd through the plain version
 CONV_FUNCTION_CASES = [((2, 12, 12, 12), [64], 64, True),
@@ -519,6 +529,8 @@ def phase_conv_backward(dev: torch.device) -> dict:
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     report = {}
     n = CONV_GRAD_N
+    # launch-weighted sums over one AMOS step: kernel, cuDNN, bound ms
+    step = {dt: [0.0, 0.0, 0.0] for dt in (torch.float32, torch.bfloat16)}
     for tag, chans, cout, side, pro_on, *_ in CONV_CASES[:15]:
         for dtype in (torch.float32, torch.bfloat16):
             shape = (n, side, side, side)
@@ -587,8 +599,11 @@ def phase_conv_backward(dev: torch.device) -> dict:
                 f"{ref:.3e} (tol {WGRAD_TOL[dtype]:.0e} of it) kernel "
                 f"{ms:.4f} ms plain {plain_ms:.4f} ms library "
                 f"{library_ms:.4f} ms bound {bnd['bound_ms']:.4f} ms "
-                f"({bnd['bound_by']}), kernel {flops / ms / 1e9:.1f} "
-                "TFLOP/s")
+                f"({bnd['bound_by']}, {bnd['bound_ms'] / ms:.1%} of it), "
+                f"kernel {flops / ms / 1e9:.1f} TFLOP/s, "
+                f"{ms / library_ms:.2f}x the library")
+            for i, v in enumerate((ms, library_ms, bnd["bound_ms"])):
+                step[dtype][i] += WGRAD_PER_STEP[tag] * v
             if not (err <= WGRAD_TOL[dtype] * ref
                     and torch.isfinite(got).all()):
                 fail(f"conv3x3_wgrad {name} disagrees with its plain version")
@@ -597,6 +612,12 @@ def phase_conv_backward(dev: torch.device) -> dict:
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     library_ms=library_ms, **bnd)
             del parts, gy, got, x_cl, g_cl
+    for dtype, (ms, library_ms, bound_ms) in step.items():
+        log(f"conv3x3_wgrad over one AMOS train step "
+            f"({sum(WGRAD_PER_STEP.values())} launches, {str(dtype)[6:]}): "
+            f"kernel {ms:.3f} ms library {library_ms:.3f} ms "
+            f"({ms / library_ms:.2f}x) bound {bound_ms:.3f} ms "
+            f"({bound_ms / ms:.1%} of it)")
     for shape, chans, cout, pro_on in CONV_FUNCTION_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             cin = sum(chans)

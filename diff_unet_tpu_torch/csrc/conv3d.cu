@@ -83,6 +83,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kMaxParts = 4;
@@ -460,85 +462,9 @@ struct WArgs {
   int nbricks;                  // n * nzb * nyb * nxb
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-// Wait until the phase of the given parity has completed. A wait of more
-// than ~2^35 cycles (tens of seconds) traps: a lost arrival becomes a
-// launch error instead of a hung card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1LL << 35)) __trap();
-  }
-}
-// Generic-proxy writes to shared memory, made visible to wgmma and TMA.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(hw::kConsumers) : "memory");
 }
-__device__ __forceinline__ void tma_load_5d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-        "r"(c1), "r"(c2), "r"(c3), "r"(c4) : "memory");
-}
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-// wgmma shared-memory descriptor, no swizzle: lbo steps between the two
-// 8-channel core matrices of a k16 step, sbo between 8-row groups.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving accesses of v across an asynchronous
-// wgmma that writes it.
-__device__ __forceinline__ void reg_fence(float& v) {
-  asm volatile("" : "+f"(v)::"memory");
-}
-
 // d += A * B for one m64nBNk16 step, A and B read from shared memory
 // through their descriptors (K-major, no swizzle).
 template <int BN>
@@ -1067,37 +993,6 @@ cudaError_t reduce_stats(const float* part, float* stats, int n, int cout,
   stats_reduce_kernel<<<grid, 32 * kReduceGroups, 0, s>>>(
       part, stats, cout, per, spatial, bm);
   return cudaGetLastError();
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, looked up through the CUDA runtime
-// (the library is not linked against libcuda).
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
 }
 
 // Persistent CTAs: as many as fit on the card at once (two per SM at BN

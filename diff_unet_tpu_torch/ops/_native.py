@@ -25,6 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "diff_unet_tpu_torch"
 SOURCES = ("window_attention.cu", "window_shift.cu", "window_partition.cu",
            "conv3d.cu", "conv3d_wgrad.cu")
+HEADERS = ("hopper.cuh",)          # included by the sources: in the hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,7 +45,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -109,7 +110,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.conv3x3_bf16_forward.argtypes = conv_head + [p, p] + [i] * 10 + [p]
     lib.conv3x3_bf16_forward.restype = i
     lib.conv3x3_wgrad.argtypes = ([p] * 5 + [i] * 5 + [p] * 3 + [f]
-                                  + [p] * 2 + [i] * 8 + [p])
+                                  + [p] * 2 + [i] * 12 + [p])
     lib.conv3x3_wgrad.restype = i
     lib.kernels_error_string.argtypes = [i]
     lib.kernels_error_string.restype = ctypes.c_char_p

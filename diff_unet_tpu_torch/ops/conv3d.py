@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import weakref
 from typing import Optional, Sequence, Tuple
 
@@ -274,41 +275,161 @@ def conv_plan(n: int, dims: Sequence[int], chans: Sequence[int], cout: int,
                     tma=aligned and all(c % CHUNK == 0 for c in chans))
 
 
-# the weight-gradient kernel's geometry (csrc/conv3d_wgrad.cu): a CTA owns
-# WGRAD_TILE (Cout, Cin) channels x the nine (y, x) taps of one z tap, and
-# walks chunks of WGRAD_PATCH (y, x) output voxels of one (sample, z)
-# slice; the chunks are split across CTAs until the grid has about
+# the weight-gradient kernel's geometry (csrc/conv3d_wgrad.cu). float32: a
+# CTA owns WGRAD_TILE (Cout, Cin) channels x the nine (y, x) taps of one z
+# tap, and walks chunks of WGRAD_PATCH (y, x) output voxels of one (sample,
+# z) slice; the chunks are split across CTAs until the grid has about
 # WGRAD_CTAS of them
 WGRAD_TILE = (64, 32)
 WGRAD_PATCH = (16, 8)
 WGRAD_CTAS = 8 * 132
+# bfloat16 (wgmma): a CTA owns WGRAD_BF16_TILE[0] Cout x WGRAD_BF16_TILE[1]
+# Cin (WGRAD_STEM_CI at Cin <= WGRAD_STEM_CI: the stems) x the nine (y, x)
+# taps of one z tap; a chunk is whole slices where a slice is at most
+# WGRAD_K voxels, else 128 voxels of one slice (256 for the stems), K a
+# multiple of WGRAD_K_UNIT (the kernel keeps four k16 steps in flight).
+# The chunks are split as far as the estimate below gains, with a
+# workspace of at most WGRAD_WORKSPACE bytes.
+WGRAD_BF16_TILE = (64, 64)
+WGRAD_STEM_CI = 16
+WGRAD_K = 192
+WGRAD_K_UNIT = 64
+WGRAD_WORKSPACE = 32e6
+# the kernel's ring of stages (shared memory) and the fewest stages it runs
+# with: a chunk must fit three times
+WGRAD_RING_BYTES = 200 * 1024
+WGRAD_MIN_STAGES = 3
+SMS = 132                          # streaming multiprocessors of an H100
+# for the split estimate: a CTA's multiply-adds a second (60% of an SM's
+# bf16 peak) and the bytes a second of the partials' second pass
+_WGRAD_FMA_PER_S = 0.6 * 989e12 / 2 / SMS
+_WGRAD_REDUCE_BYTES_PER_S = 2.5e12
 
 
 @dataclasses.dataclass(frozen=True)
 class WgradPlan:
     """Launch plan of the weight-gradient kernel: ``groups`` CTA tiles of
-    (Cout block, Cin block, z tap) times ``split`` runs of
+    (Cout block, Cin block of ``ci_tile``, z tap) times ``split`` runs of
     ``per_split`` chunks; each run's partial dW goes to a workspace that a
-    second pass sums in a fixed order (split 1 writes dW itself)."""
+    second pass sums in a fixed order (split 1 writes dW itself). A chunk
+    is ``slices`` (sample, z) slices x ``ty`` x ``tx`` output voxels at one
+    (y, x) tile; ``nchunk`` counts those of the middle z tap. ``dense``
+    (bfloat16): a z tap's chunks enumerate only the slices whose z + dz
+    lies in the volume; float32 enumerates every slice and skips the
+    others."""
+    n: int
+    dims: Tuple[int, int, int]
     groups: int
     nchunk: int
     split: int
     per_split: int
+    ci_tile: int
+    tx: int
+    ty: int
+    slices: int
+    dense: bool
 
     def chunks(self, s: int) -> range:
         return range(s * self.per_split,
                      min(self.nchunk, (s + 1) * self.per_split))
 
+    def chunk(self, q: int, dz: int) -> Tuple[int, int, list]:
+        """(y0, x0) and the (sample, z) slices that chunk q of z tap dz
+        adds up, decoded as the kernel decodes it ([] for a chunk it
+        skips, or past the last)."""
+        d, h, w = self.dims
+        nxt, nyt = _cdiv(w, self.tx), _cdiv(h, self.ty)
+        x0, y0 = q % nxt * self.tx, q // nxt % nyt * self.ty
+        first = q // (nxt * nyt) * self.slices
+        nz = d - abs(dz) if self.dense else d
+        out = []
+        for i in range(first, min(first + self.slices, self.n * nz)):
+            n, z = divmod(i, nz)
+            z += (dz < 0) if self.dense else 0
+            if 0 <= z + dz < d:
+                out.append((n, z))
+        return y0, x0, out
 
-def wgrad_plan(n: int, dims: Sequence[int], cin: int,
-               cout: int) -> WgradPlan:
+
+def wgrad_stage_bytes(tx: int, ty: int, slices: int, ci_tile: int) -> int:
+    """Shared memory of one stage of the bf16 kernel's ring: the g tile
+    (128 bytes a voxel) and each slice's (ty + 2) x (tx + 2) halo tile of
+    u, its rows rounded up to 8, at ci_tile * 2 bytes a voxel."""
+    rows = _cdiv((ty + 2) * (tx + 2), 8) * 8
+    return _cdiv(slices * ty * tx * 128 + slices * rows * ci_tile * 2,
+                 1024) * 1024
+
+
+def _wgrad_chunk(h: int, w: int, ci_tile: int) -> Tuple[int, int, int]:
+    """(tx, ty, slices) of a bfloat16 chunk: runs of 8 x, tx 16 unless 8
+    pads less; whole slices while a slice has at most WGRAD_K voxels (ty
+    its rows, rounded up to even), as many as fit in WGRAD_K, else 128
+    voxels of one slice (256 at the stems' Cin tile). K = slices * ty * tx
+    is a multiple of WGRAD_K_UNIT and a stage fits WGRAD_MIN_STAGES times
+    in the ring: where whole slices cannot give that, fewer slices or
+    padding rows do."""
+    tx = 16 if _cdiv(w, 16) * 16 <= _cdiv(w, 8) * 8 else 8
+    if h * tx > WGRAD_K:
+        # the stems' 16 channels leave room for chunks of 256 voxels: more
+        # gathered loads in flight a chunk
+        return tx, (256 if ci_tile == WGRAD_STEM_CI else 128) // tx, 1
+    ty = h + h % 2
+    while True:
+        for slices in range(max(1, WGRAD_K // (ty * tx)), 0, -1):
+            fits = (WGRAD_MIN_STAGES * wgrad_stage_bytes(tx, ty, slices,
+                                                         ci_tile)
+                    <= WGRAD_RING_BYTES)
+            if slices * ty * tx % WGRAD_K_UNIT == 0 and fits:
+                return tx, ty, slices
+        ty += 2
+
+
+def _wgrad_split(nchunk: int, groups: int, chunk_s: float,
+                 out_bytes: int) -> Tuple[int, int]:
+    """(split, per_split) with the least estimated time: the waves of
+    ``groups * split`` CTAs on SMS SMs, each its chunks and one more (the
+    pipeline's fill and the epilogue), plus the partials' second pass."""
+    if nchunk == 0:                    # an empty volume: dW is zeros
+        return 1, 1
+    best = None
+    for split in range(1, min(nchunk, 8 * SMS) + 1):
+        per = _cdiv(nchunk, split)
+        if _cdiv(nchunk, per) != split:
+            continue
+        if split > 1 and split * out_bytes > WGRAD_WORKSPACE:
+            break
+        t = _cdiv(groups * split, SMS) * (per + 1) * chunk_s
+        if split > 1:
+            t += (split + 1) * out_bytes / _WGRAD_REDUCE_BYTES_PER_S
+        if best is None or t < best[0]:
+            best = (t, split, per)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(n: int, dims: Tuple[int, int, int], cin: int, cout: int,
+               dtype: torch.dtype = torch.bfloat16) -> WgradPlan:
     d, h, w = dims
-    nchunk = n * d * _cdiv(h, WGRAD_PATCH[0]) * _cdiv(w, WGRAD_PATCH[1])
-    groups = _cdiv(cout, WGRAD_TILE[0]) * _cdiv(cin, WGRAD_TILE[1]) * 3
-    split = max(1, min(nchunk, _cdiv(WGRAD_CTAS, groups)))
-    per_split = _cdiv(nchunk, split)
-    return WgradPlan(groups=groups, nchunk=nchunk,
-                     split=_cdiv(nchunk, per_split), per_split=per_split)
+    if dtype != torch.bfloat16:
+        nchunk = n * d * _cdiv(h, WGRAD_PATCH[0]) * _cdiv(w, WGRAD_PATCH[1])
+        groups = _cdiv(cout, WGRAD_TILE[0]) * _cdiv(cin, WGRAD_TILE[1]) * 3
+        split = max(1, min(nchunk, _cdiv(WGRAD_CTAS, groups)))
+        per_split = _cdiv(nchunk, split)
+        return WgradPlan(n=n, dims=(d, h, w), groups=groups, nchunk=nchunk,
+                         split=_cdiv(nchunk, per_split), per_split=per_split,
+                         ci_tile=WGRAD_TILE[1], tx=WGRAD_PATCH[1],
+                         ty=WGRAD_PATCH[0], slices=1, dense=False)
+    ci_tile = WGRAD_STEM_CI if cin <= WGRAD_STEM_CI else WGRAD_BF16_TILE[1]
+    tx, ty, slices = _wgrad_chunk(h, w, ci_tile)
+    co_tile = WGRAD_BF16_TILE[0]
+    nchunk = _cdiv(n * d, slices) * _cdiv(h, ty) * _cdiv(w, tx)
+    groups = _cdiv(cout, co_tile) * _cdiv(cin, ci_tile) * 3
+    chunk_s = slices * ty * tx * co_tile * ci_tile * 9 / _WGRAD_FMA_PER_S
+    split, per_split = _wgrad_split(nchunk, groups, chunk_s,
+                                    cout * cin * 27 * 4)
+    return WgradPlan(n=n, dims=(d, h, w), groups=groups, nchunk=nchunk,
+                     split=split, per_split=per_split, ci_tile=ci_tile,
+                     tx=tx, ty=ty, slices=slices, dense=True)
 
 
 def pack_weight(weight: torch.Tensor, bn: int) -> torch.Tensor:
@@ -550,15 +671,15 @@ def conv3x3_wgrad(g: torch.Tensor, parts: Sequence[torch.Tensor],
                          f"{dt} tensor on {dev}")
     cin, cout = sum(chans), g.shape[4]
     pro, pro_slope = _prologue_args(prologue, n, cin, dev)
-    plan = wgrad_plan(n, (d, h, w), cin, cout)
+    plan = wgrad_plan(n, (d, h, w), cin, cout, dt)
     out = torch.empty((cout, cin, 3, 3, 3), dtype=torch.float32, device=dev)
     partial = (torch.empty(plan.split * out.numel(), dtype=torch.float32,
                            device=dev) if plan.split > 1 else None)
     err = _native.load().conv3x3_wgrad(
         g.data_ptr(), *_part_args(parts, chans), *map(_ptr, pro), pro_slope,
         out.data_ptr(), _ptr(partial), n, d, h, w, cout, plan.split,
-        plan.per_split, int(dt == torch.bfloat16),
-        _native.stream_ptr(dev))
+        plan.per_split, int(dt == torch.bfloat16), plan.tx, plan.ty,
+        plan.slices, plan.ci_tile, _native.stream_ptr(dev))
     _native.check(err, "conv3x3_wgrad")
     conv3x3_wgrad.launches += 1
     return out

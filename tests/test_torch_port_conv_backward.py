@@ -16,6 +16,7 @@ import torch
 from diff_unet_tpu_torch.ops.conv3d import (
     WGRAD_PATCH,
     WGRAD_TILE,
+    WGRAD_WORKSPACE,
     conv3x3,
     conv3x3_dgrad,
     conv3x3_dgrad_plain,
@@ -26,6 +27,7 @@ from diff_unet_tpu_torch.ops.conv3d import (
     packed_weight,
     unpack_weight,
     wgrad_plan,
+    wgrad_stage_bytes,
 )
 from tests.test_torch_port_conv import AMOS_CONVS, SMALL_CONVS
 
@@ -188,25 +190,58 @@ def test_wgrad_plain_rounds_like_the_forward_in_bf16():
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+# the deep levels of the small DiffUNet of the card tests (32^3 patches)
+TINY_CONVS = [((4,) * 3, [32], 64), ((2,) * 3, [64], 64),
+              ((2,) * 3, [64, 64], 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,dims,chans,cout",
                          [(10, *c) for c in AMOS_CONVS]
-                         + [(1, *c) for c in SMALL_CONVS])
+                         + [(1, *c) for c in SMALL_CONVS]
+                         + [(2, *c) for c in TINY_CONVS])
 def test_wgrad_plan_covers_every_chunk_and_weight_once(n, dims, chans,
-                                                       cout):
-    """Every chunk of WGRAD_PATCH (y, x) voxels of each (sample, z) slice in
-    exactly one split, no split empty, and the tiles cover every (Cout,
-    Cin, tap) once."""
+                                                       cout, dtype):
+    """For each z tap, every output voxel whose input slice z + dz lies in
+    the volume in exactly one chunk (as the kernel decodes chunks) and the
+    others in none; every chunk of the middle tap in exactly one split, no
+    split empty; the tiles cover every (Cout, Cin, tap) once; the
+    workspace stays within its bound; a bf16 chunk fits the kernel's ring
+    three times."""
     cin = sum(chans)
-    plan = wgrad_plan(n, dims, cin, cout)
+    plan = wgrad_plan(n, dims, cin, cout, dtype)
     d, h, w = dims
-    assert plan.nchunk == n * d * -(-h // WGRAD_PATCH[0]) \
-        * -(-w // WGRAD_PATCH[1])
+    if dtype == torch.float32:
+        assert (plan.ty, plan.tx, plan.slices) == WGRAD_PATCH + (1,)
+        assert plan.nchunk == n * d * -(-h // WGRAD_PATCH[0]) \
+            * -(-w // WGRAD_PATCH[1])
+    else:
+        assert plan.slices * plan.ty * plan.tx % 64 == 0
+        stage = wgrad_stage_bytes(plan.tx, plan.ty, plan.slices,
+                                  plan.ci_tile)
+        assert 3 * stage <= 200 * 1024
+        # runs of 8 x: at most 25% padding at widths under 16
+        assert -(-w // plan.tx) * plan.tx <= max(w + 4, 8)
     seen = np.zeros(plan.nchunk, np.int32)
     for s in range(plan.split):
         assert len(plan.chunks(s)) > 0
         seen[plan.chunks(s)] += 1
     assert (seen == 1).all()
-    to, ti = WGRAD_TILE
+    nyt, nxt = -(-h // plan.ty), -(-w // plan.tx)
+    for dz in (-1, 0, 1):
+        cells = np.zeros((n, d, nyt, nxt), np.int32)
+        q = 0
+        while True:
+            y0, x0, slices = plan.chunk(q, dz)
+            if not slices and q >= plan.nchunk:
+                break
+            for sn, sz in slices:
+                cells[sn, sz, y0 // plan.ty, x0 // plan.tx] += 1
+            q += 1
+        valid = np.zeros(d, bool)
+        valid[max(0, -dz):d - max(0, dz)] = True
+        assert (cells[:, valid] == 1).all() and (cells[:, ~valid] == 0).all()
+    to, ti = (WGRAD_TILE[0], plan.ci_tile)
     ncob, ncib = -(-cout // to), -(-cin // ti)
     assert plan.groups == ncob * ncib * 3
     cover = np.zeros((ncob * to, ncib * ti, 27), np.int32)
@@ -216,8 +251,83 @@ def test_wgrad_plan_covers_every_chunk_and_weight_once(n, dims, chans,
         cover[cob * to:(cob + 1) * to, cib * ti:(cib + 1) * ti,
               9 * tz:9 * tz + 9] += 1
     assert (cover == 1).all()
-    # a workspace of at most ~150 MB at the training batch
-    assert plan.split * cout * cin * 27 * 4 < 150e6 or plan.split == 1
+    size = plan.split * cout * cin * 27 * 4
+    bound = WGRAD_WORKSPACE if dtype == torch.bfloat16 else 150e6
+    assert plan.split == 1 or size <= bound
+
+
+def _wgrad_emulated(plan, g, u):
+    """dW as the bf16 kernel forms it, in float64: each chunk's g tile
+    (K voxels x Cout) and u halo tiles (one (ty + 2) x (tx + 2) tile a
+    slice, slice tiles usl voxels apart, padding NaN so that a read past a
+    tile shows), and each k16 step's two runs of 8 voxels at every (dy, dx)
+    tap's start, as csrc/conv3d_wgrad.cu addresses them."""
+    n, d, h, w, cout = g.shape
+    cin = u.shape[-1]
+    tx, ty, sl = plan.tx, plan.ty, plan.slices
+    ux = tx + 2
+    uvs = (ty + 2) * ux
+    usl = -(-uvs // 8) * 8
+    rps = 16 // tx
+    sps = ty // rps
+    kstride = 8 if tx == 16 else ux
+    dw = np.zeros((cout, cin, 27))
+    nyt, nxt = -(-h // ty), -(-w // tx)
+
+    def at(a, nn, z, y, x):
+        ok = nn < n and 0 <= z < d and 0 <= y < h and 0 <= x < w
+        return a[nn, z, y, x] if ok else 0.0
+
+    for dz in (-1, 0, 1):
+        nz = d - abs(dz)
+        for q in range(-(-n * nz // sl) * nyt * nxt):
+            x0, y0 = q % nxt * tx, q // nxt % nyt * ty
+            gt = np.zeros((sl * ty * tx, cout))
+            ut = np.full((sl * usl, cin), np.nan)
+            for s in range(sl):
+                i = q // (nxt * nyt) * sl + s
+                nn, z = i // nz, i % nz + (dz < 0)
+                for r in range(ty):
+                    for c in range(tx):
+                        gt[(s * ty + r) * tx + c] = at(g, nn, z, y0 + r,
+                                                       x0 + c)
+                for v in range(uvs):
+                    ut[s * usl + v] = at(u, nn, z + dz, y0 - 1 + v // ux,
+                                         x0 - 1 + v % ux)
+            for j in range(sl * ty * tx // 16):
+                s = j // sps
+                voff = s * usl + (j - s * sps) * rps * ux
+                rows = gt[16 * j:16 * j + 16]
+                for tap in range(9):
+                    start = voff + tap // 3 * ux + tap % 3
+                    vox = np.r_[start:start + 8,
+                                start + kstride:start + kstride + 8]
+                    dw[:, :, 9 * (dz + 1) + tap] += rows.T @ ut[vox]
+    return dw
+
+
+@pytest.mark.parametrize("n,dims,chans,cout", [
+    (2, (6, 7, 9), [8], 16),         # tx 16, one ragged 8 x 16 tile
+    (2, (6, 6, 6), [5], 8),          # tx 8, four whole 6 x 8 slices
+    (2, (3, 7, 20), [3, 4], 8),      # tx 8, three whole slices, ragged x
+    (1, (3, 20, 12), [6], 4),        # tx 16, 8-row tiles of a slice
+    (1, (3, 30, 6), [4], 4),         # tx 8, 16-row tiles of a slice
+])
+def test_wgrad_dense_chunks_give_the_plain_weight_gradient(n, dims, chans,
+                                                           cout):
+    """The bf16 plan's chunk geometry and the kernel's index math (runs of
+    8 x, tap offsets, halo zeros, slices of the valid z only, padded
+    chunks) add up to ``conv3x3_wgrad_plain``'s dW, float64."""
+    rng = np.random.default_rng(sum(dims))
+    parts = [torch.from_numpy(rng.standard_normal((n, *dims, c)))
+             for c in chans]
+    g = torch.from_numpy(rng.standard_normal((n, *dims, cout)))
+    plan = wgrad_plan(n, dims, sum(chans), cout, torch.bfloat16)
+    got = _wgrad_emulated(plan, g.numpy(), torch.cat(parts, -1).numpy())
+    want = conv3x3_wgrad_plain(g, parts).reshape(cout, sum(chans), 27)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want.numpy(), rtol=0,
+                               atol=EXACT * want.abs().max().item())
 
 
 def test_dgrad_pack_lives_beside_the_forward_pack():

@@ -396,7 +396,10 @@ def test_diff_unet_predictor_serves_through_the_conv_kernel(dev):
 
 # (parts of the conv input, Cout, (N, D, H, W), prologue) of the backward
 # card tests: gathered (Cin 8, the stems) and TMA-mapped parts, ragged
-# bricks and chunks, split chunks and split voxels
+# bricks and chunks, split chunks and split voxels; for the bf16 weight
+# gradient every chunk geometry (8 x 16 tiles, whole 16-wide slices, four
+# 8-wide slices a chunk, ragged runs), both instances (Cin 16 for the
+# stems), four parts with one of 5 channels, and g gathered (Cout 5)
 CONV_GRAD_CASES = [
     ([8], 8, (1, 32, 32, 22), True),
     ([1, 15], 64, (2, 16, 16, 16), False),
@@ -404,6 +407,10 @@ CONV_GRAD_CASES = [
     ([64, 64], 64, (1, 16, 16, 16), False),
     ([8], 16, (1, 6, 7, 9), True),
     ([256], 512, (2, 6, 6, 6), True),
+    ([128], 256, (3, 12, 12, 12), True),
+    ([8, 16, 5, 3], 24, (1, 9, 10, 22), True),
+    ([1, 15], 64, (2, 13, 11, 21), False),
+    ([20], 5, (1, 5, 7, 11), True),
 ]
 
 
