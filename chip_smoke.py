@@ -86,21 +86,50 @@ PyTorch built for CUDA. Phases, each of which must pass:
       with warmup-cosine): a ``Trainer`` takes ``AMOS_TRAIN_STEPS`` steps
       on synthetic batches of 16 label values, with exactly 28 forward,
       26 dgrad and 28 wgrad conv launches a step; losses, grad norms,
-      moved parameters, median s/step and peak memory as in c.
+      moved parameters, median s/step and peak memory as in c;
+6. the exact distance transform under HD95 (``ops/edt.py``, host C++ built
+   with g++) against ``scipy.ndimage.distance_transform_edt`` on one
+   96x192x192 organ-surface mask, within 1e-6 of the largest distance,
+   with the ms of each;
+7. the evaluation path (the reference's ``test.py``): a synthetic NIfTI
+   validation set of 2 AMOS CTs (int16, 15 organ ids, spacing
+   (1.5, 1.5, 2.0), preprocessing to 96x192x192 and 88x192x192, thinner
+   than the ROI: 9 windows each), seeded
+   full-width weights saved with ``save_jax_npz`` and loaded through
+   ``model_path`` (equal bit for bit), ``Tester.from_config(
+   "cfg/amos/test.yaml").test()``: every dice and IoU finite and in
+   [0, 1], ``results.pkl`` with fp16 images and bool masks, 190 conv
+   launches per window batch, each case's seconds split into inference,
+   dice on the device, HD95 + IoU on the host and recording; then the
+   device metrics on the card against the CPU on the same masks (1e-6);
+8. ``cfg/amos/train.yaml`` at full width with ``data_path``: 4 training and
+   2 validation synthetic CTs, batch 2 (a cut), 2 epochs with validation
+   and ``epoch_{n}.pt`` every epoch, 28 / 26 / 28 conv launches a step and
+   190 per validation window batch; a second trainer resumed from
+   ``epoch_1.pt`` must end with the same parameters bit for bit; the
+   median s/step with the host pipeline against the same step on a
+   resident batch and against phase 5d, and the peak memory.
 
 Serving outputs are checked for shape, finiteness and a binary mask. Each
 path is driven with its kernels' launch counters set to 0 just before it
-and read just after. It prints one JSON line with the kernels (times,
-error, launches, and the least time the card could take, from this run's
-shapes and the H100 SXM peaks), then, last, one JSON line with
-``"ok": true`` and the device. Any failed phase exits non-zero before that.
+and read just after; the kernels line reports each kernel's launches on
+the first path of ``LAUNCH_ORDER`` it ran on (the AMOS evaluation first)
+and all of them under ``launches_by_path``. Phases 2-8 run in a
+temporary directory under ``build/``, where the trainers' logs and phases
+7-8's data, weights and logs are written. It prints one
+JSON line with the kernels (times, error, launches, and the least time the
+card could take, from this run's shapes and the H100 SXM peaks), then,
+last, one JSON line with ``"ok": true`` and the device. Any failed phase
+exits non-zero before that.
 """
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -190,6 +219,28 @@ CONV_FUNCTION_CASES = [((2, 12, 12, 12), [64], 64, True),
 AMOS_TRAIN_STEPS = 4
 AMOS_TRAIN_PER_STEP = {"conv3x3": 28, "conv3x3_dgrad": 26,
                        "conv3x3_wgrad": 28}
+# the synthetic AMOS CTs of phases 7-8: a body of 96x192x192 voxels at the
+# AMOS target spacing (9 windows of 96^3, 3 window batches at sw 4) in an
+# int16 volume 4 voxels wider on each axis with air around the body, which
+# the foreground crop removes; one ellipsoid organ for each of the 15 AMOS
+# class ids. The second evaluation case is 88 voxels deep, thinner than
+# the 96^3 ROI, which the Predictor pads up and crops back
+AMOS_BODY = (96, 192, 192)
+AMOS_EVAL_BODIES = [(96, 192, 192), (88, 192, 192)]
+AMOS_SPACING = (1.5, 1.5, 2.0)
+AMOS_CONV_PER_BATCH = 10 + 18 * 10      # embed + 10 denoiser passes
+# the data_path trainer: 4 training and 2 validation cases, batch 2 (cut
+# from the recipe's 10 so that 4 cases fill whole batches), 2 epochs, then
+# a resume from epoch_1
+AMOS_DATA_CASES = (4, 2)
+AMOS_DATA_BATCH = 2
+AMOS_DATA_EPOCHS = 2
+# the paths whose launches the kernels line reports, in order of choice
+LAUNCH_ORDER = ("amos_test", "amos_train_data", "amos_train", "btcv_train",
+                "btcv_serve", "amos_serve")
+EDT_SHAPE = (96, 192, 192)
+EDT_TOL = 1e-6                          # of the largest distance
+METRIC_TOL = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -1244,11 +1295,328 @@ def phase_train_amos(dev: torch.device) -> dict:
         if c != AMOS_TRAIN_PER_STEP[k] * len(hist):
             fail(f"{k}: {c} launches in {len(hist)} AMOS train steps, "
                  f"predicted {AMOS_TRAIN_PER_STEP[k]} x {len(hist)}")
-    return counts
+    return counts, float(np.median(step_s[1:]))
+
+
+def phase_edt() -> None:
+    """The built distance transform (``ops/edt.py``, host C++) against
+    ``scipy.ndimage.distance_transform_edt`` on the complement of an organ
+    surface in one 96x192x192 volume, as HD95 calls it."""
+    from scipy import ndimage
+
+    from diff_unet_tpu_torch.ops import edt
+
+    grid = np.ogrid[tuple(slice(0, s) for s in EDT_SHAPE)]
+    organ = sum(((g - c * n) / (r * n)) ** 2 for g, c, r, n in
+                zip(grid, (0.45, 0.4, 0.55), (0.2, 0.2, 0.15),
+                    EDT_SHAPE)) <= 1.0
+    surface = organ ^ ndimage.binary_erosion(organ)
+    mask = ~surface
+    t0 = time.perf_counter()
+    got = edt.distance_transform_edt(mask)          # builds on first use
+    build_s = time.perf_counter() - t0
+    ms = {}
+    for name, fn in (("edt", lambda: edt.distance_transform_edt(mask)),
+                     ("scipy", lambda: ndimage.distance_transform_edt(mask))):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            out = fn()
+        ms[name] = (time.perf_counter() - t0) / 3 * 1e3
+    err = float(np.abs(got - out).max())
+    log(f"EDT {EDT_SHAPE} (host): built and first call {build_s:.2f} s; "
+        f"{ms['edt']:.1f} ms against scipy's {ms['scipy']:.1f} ms; max abs "
+        f"error {err:.3e} over distances up to {float(out.max()):.2f}")
+    if not err <= EDT_TOL * float(out.max()):
+        fail(f"EDT error {err:.3e} above {EDT_TOL} of the largest distance")
+
+
+def amos_case(seed: int, body_shape):
+    """An int16 CT in HU and its label map: soft tissue in a body of
+    ``body_shape`` with 2 voxels of air on each side, one ellipsoid organ
+    per class id 1..15 with its own HU level."""
+    rng = np.random.default_rng(seed)
+    shape = tuple(b + 4 for b in body_shape)
+    img = np.full(shape, -1000, np.int16)
+    lab = np.zeros(shape, np.int16)
+    lo = (2, 2, 2)
+    body = tuple(slice(a, a + b) for a, b in zip(lo, body_shape))
+    img[body] = np.clip(rng.normal(40, 20, body_shape), -150, 300)
+    for c in range(1, 16):
+        radii = rng.uniform(0.05, 0.15, 3) * body_shape
+        centre = [rng.uniform(a + r, a + b - r)
+                  for a, b, r in zip(lo, body_shape, radii)]
+        box = tuple(slice(int(m - r), int(m + r) + 1)
+                    for m, r in zip(centre, radii))
+        grid = np.ogrid[box]
+        inside = sum(((g - m) / r) ** 2 for g, m, r in
+                     zip(grid, centre, radii)) <= 1.0
+        lab[box][inside] = c
+        img[box][inside] = int(rng.uniform(-100, 200)) + rng.integers(
+            -15, 15, int(inside.sum()))
+    return img, lab
+
+
+def write_amos_set(root: Path, train: list, val: list, seed: int) -> Path:
+    """A Decathlon set of synthetic AMOS cases, one for each body shape of
+    ``train`` and of ``val``."""
+    from diff_unet_tpu_torch.data.nifti import write_nifti
+
+    root.mkdir(parents=True, exist_ok=True)
+    items = []
+    for i, body_shape in enumerate(train + val):
+        img, lab = amos_case(seed + i, body_shape)
+        affine = np.diag([*AMOS_SPACING, 1.0])
+        write_nifti(root / f"ct_{i}.nii.gz", img, affine)
+        write_nifti(root / f"label_{i}.nii.gz", lab, affine)
+        items.append({"image": f"ct_{i}.nii.gz",
+                      "label": f"label_{i}.nii.gz"})
+    (root / "dataset.json").write_text(json.dumps(
+        {"training": items[:len(train)], "validation": items[len(train):]}))
+    return root
+
+
+def window_batches(inferer, shape) -> int:
+    roi_padded = tuple(max(r, s) for r, s in zip(inferer.roi, shape))
+    return sum(len(starts) for starts, _ in inferer._geometry(roi_padded))
+
+
+def trees_equal(a: dict, b: dict) -> bool:
+    if a.keys() != b.keys():
+        return False
+    return all(trees_equal(a[k], b[k]) if isinstance(a[k], dict)
+               else np.array_equal(a[k], b[k]) for k in a)
+
+
+def phase_eval_amos(dev: torch.device, work: Path) -> tuple:
+    """``Tester.from_config("cfg/amos/test.yaml")`` at full width on a
+    synthetic NIfTI validation set of AMOS_EVAL_BODIES cases, from seeded
+    weights saved with ``save_jax_npz`` and loaded through ``model_path``:
+    the loaded parameters equal the saved ones bit for bit; every dice and
+    IoU finite and in [0, 1]; ``results.pkl`` with fp16 images and bool
+    masks; exactly AMOS_CONV_PER_BATCH conv launches per window batch.
+    Returns the launches, the results and the per-case seconds."""
+    from diff_unet_tpu_torch.engine.checkpoint import save_jax_npz
+    from diff_unet_tpu_torch.engine.engine import Tester
+    from diff_unet_tpu_torch.models.model_hub import create_model
+    from diff_unet_tpu_torch.ops.conv3d import conv3x3, conv3x3_wgrad
+    from diff_unet_tpu_torch.utils.weights import export_jax_params, \
+        init_random
+
+    t0 = time.perf_counter()
+    data = write_amos_set(work / "amos_eval", [], AMOS_EVAL_BODIES,
+                          SEED + 100)
+    tree = export_jax_params(init_random(
+        create_model("diff_unet", out_channels=15), SEED + 1))
+    weights = work / "amos_eval_weights"
+    weights.mkdir()
+    save_jax_npz(weights / "epoch_3000.npz", tree, meta={"epoch": 3000})
+    tester = Tester.from_config(
+        ROOT / "cfg/amos/test.yaml", data_path=str(data),
+        model_path=str(weights / "epoch_3000"),
+        classes=str(ROOT / "cfg/amos/classes.yaml"), device=dev, seed=SEED,
+        log_dir=str(work / "amos_eval_logs"))
+    log(f"tester: {tester.model_name}, {tester.num_classes} classes, roi "
+        f"{tester._inferer.roi}, sw_batch_size {tester.sw_batch_size}, "
+        f"dtype {tester.dtype}, epoch {tester.epoch}; set-up (write "
+        f"{len(AMOS_EVAL_BODIES)} NIfTI cases, weights, load, preprocess) "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not trees_equal(export_jax_params(tester.module), tree):
+        fail("the parameters loaded through model_path differ from the "
+             "saved ones")
+    tester.infer(torch.from_numpy(
+        tester.dataloader["val"].dataset[0]["image"][..., None]))  # warm-up
+    torch.cuda.synchronize()
+    conv3x3.launches = conv3x3.dgrad_launches = conv3x3_wgrad.launches = 0
+    t0 = time.perf_counter()
+    results = tester.test()
+    seconds = time.perf_counter() - t0
+    counts = {"conv3x3": conv3x3.launches,
+              "conv3x3_dgrad": conv3x3.dgrad_launches,
+              "conv3x3_wgrad": conv3x3_wgrad.launches}
+    batches = [window_batches(tester._inferer, img.shape)
+               for img in results["images"]]
+    log(f"AMOS evaluation: {len(batches)} cases of "
+        f"{[tuple(i.shape) for i in results['images']]} in {seconds:.3f} s; "
+        f"window batches {batches}; conv launches {counts} "
+        f"({counts['conv3x3'] / len(batches):.0f} per case)")
+    for i, split in enumerate(tester.case_seconds):
+        log(f"AMOS case {i} seconds: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in split.items())
+            + f"; total {sum(split.values()):.4f}")
+    d = np.asarray(results["dices"])
+    iou = np.asarray(results["ious"])
+    shapes = [tuple(x.shape) for x in results["images"]]
+    if shapes != AMOS_EVAL_BODIES:
+        fail(f"evaluated volumes {shapes}, preprocessed from bodies "
+             f"{AMOS_EVAL_BODIES}")
+    if d.shape != (len(AMOS_EVAL_BODIES), 15) or iou.shape != d.shape:
+        fail(f"dices {d.shape}, ious {iou.shape}")
+    for name, a in (("dice", d), ("IoU", iou)):
+        if not (np.isfinite(a).all() and (a >= 0).all() and (a <= 1).all()):
+            fail(f"a {name} is not finite or outside [0, 1]: {a}")
+    pkl = tester.log_dir / "results.pkl"
+    if not pkl.exists():
+        fail(f"{pkl} was not written")
+    if not (all(x.dtype == np.float16 for x in results["images"])
+            and all(x.dtype == np.bool_ for x in results["outputs"]
+                    + results["labels"])):
+        fail("results.pkl's images are not fp16 or its masks not bool")
+    if counts != {"conv3x3": AMOS_CONV_PER_BATCH * sum(batches),
+                  "conv3x3_dgrad": 0, "conv3x3_wgrad": 0}:
+        fail(f"conv launches {counts}, predicted {AMOS_CONV_PER_BATCH} x "
+             f"{sum(batches)} forward and no backward")
+    return ({k: {"amos_test": c} for k, c in counts.items()}, results,
+            tester.case_seconds)
+
+
+def phase_metrics(dev: torch.device, results: dict) -> None:
+    """The device metrics on the evaluation's outputs and labels, as card
+    tensors and as their CPU copies."""
+    from diff_unet_tpu_torch.metrics import metrics
+
+    worst = 0.0
+    for out, lab in zip(results["outputs"], results["labels"]):
+        cpu = (torch.from_numpy(out), torch.from_numpy(lab))
+        card = tuple(t.to(dev) for t in cpu)
+        for name in ("validation_dice", "dice_per_class"):
+            a = getattr(metrics, name)(*card).cpu()
+            b = getattr(metrics, name)(*cpu)
+            worst = max(worst, float((a - b).abs().max()))
+        for c in range(out.shape[-1]):
+            for name in ("iou", "dice_coeff"):
+                a = getattr(metrics, name)(card[0][..., c], card[1][..., c])
+                b = getattr(metrics, name)(cpu[0][..., c], cpu[1][..., c])
+                worst = max(worst, abs(float(a) - float(b)))
+    log(f"device metrics, card against CPU on the evaluation's masks: max "
+        f"abs difference {worst:.3e} (tol {METRIC_TOL})")
+    if not worst <= METRIC_TOL:
+        fail(f"device metrics differ between card and CPU by {worst:.3e}")
+
+
+def phase_train_amos_data(dev: torch.device, work: Path,
+                          synthetic_s: float) -> dict:
+    """``Trainer.from_config("cfg/amos/train.yaml", data_path=...)`` at
+    full width on a synthetic NIfTI set (AMOS_DATA_CASES training and
+    validation cases, batch AMOS_DATA_BATCH), AMOS_DATA_EPOCHS epochs with
+    validation and ``epoch_{n}.pt`` every epoch; then a second trainer
+    resumed from ``epoch_1.pt`` must end with the same parameters, bit for
+    bit. Prints the median s/step with the host pipeline (crop and augment,
+    copy, step) against the same step on a batch already on the card and
+    against phase 5d's synthetic batch-10 step, and the peak memory.
+    Returns the straight run's launches."""
+    from diff_unet_tpu_torch.engine.engine import Trainer
+    from diff_unet_tpu_torch.ops.conv3d import conv3x3, conv3x3_wgrad
+
+    t0 = time.perf_counter()
+    data = write_amos_set(work / "amos_train",
+                          [AMOS_BODY] * AMOS_DATA_CASES[0],
+                          [AMOS_BODY] * AMOS_DATA_CASES[1], SEED + 200)
+    kw = dict(data_path=str(data), classes=str(ROOT / "cfg/amos/classes.yaml"),
+              device=dev, seed=SEED, batch_size=AMOS_DATA_BATCH,
+              max_epochs=AMOS_DATA_EPOCHS, val_freq=1, save_freq=1)
+    cfg = ROOT / "cfg/amos/train.yaml"
+    trainer = Trainer.from_config(cfg, log_dir=str(work / "straight"), **kw)
+    torch.cuda.synchronize()
+    log(f"data_path trainer: batch {trainer.batch_size} (the recipe's 10 "
+        f"cut to {AMOS_DATA_BATCH}), {len(trainer.dataloader['train'])} "
+        f"steps an epoch, {len(trainer.dataloader['val'])} validation "
+        f"volumes, {AMOS_DATA_EPOCHS} epochs; set-up (write, load, "
+        f"preprocess, model) {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    conv3x3.launches = conv3x3.dgrad_launches = conv3x3_wgrad.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {"conv3x3": conv3x3.launches,
+              "conv3x3_dgrad": conv3x3.dgrad_launches,
+              "conv3x3_wgrad": conv3x3_wgrad.launches}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    steps = len(trainer.history)
+    val_batches = AMOS_DATA_EPOCHS * sum(
+        window_batches(trainer._inferer, item["image"].shape)
+        for item in trainer.dataloader["val"].dataset._cache)
+    log("data_path train steps: " + "; ".join(
+        f"loss {h['loss']:.5f} grad_norm {h['grad_norm']:.5f} lr "
+        f"{h['lr']:.3e}" for h in trainer.history)
+        + f"; best mean dice {trainer.best_mean_dice:.4f}")
+    log(f"launches during data_path training ({steps} steps, "
+        f"{val_batches} validation window batches) in {seconds:.2f} s: "
+        f"{counts}; peak device memory {peak:.2f} GiB")
+    want = {k: n * steps for k, n in AMOS_TRAIN_PER_STEP.items()}
+    want["conv3x3"] += AMOS_CONV_PER_BATCH * val_batches
+    if counts != want:
+        fail(f"data_path training launches {counts}, predicted {want}")
+    if not all(np.isfinite(h["loss"]) and h["grad_norm"] > 0
+               for h in trainer.history):
+        fail("a data_path train step has a non-finite loss or zero grad")
+    weights = work / "straight" / "weights"
+    for n in range(1, AMOS_DATA_EPOCHS + 1):
+        if not (weights / f"epoch_{n}.pt").exists():
+            fail(f"epoch_{n}.pt was not saved")
+    resumed = Trainer.from_config(cfg, log_dir=str(work / "resumed"),
+                                  model_path=str(weights / "epoch_1"), **kw)
+    start = resumed.start_epoch
+    resumed.train()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(
+        trainer.module.state_dict().values(),
+        resumed.module.state_dict().values()))
+    log(f"resume from epoch_1.pt: start epoch {start}, "
+        f"{len(resumed.history)} steps; parameters after epoch "
+        f"{AMOS_DATA_EPOCHS} {'equal' if same else 'DIFFER'} bit for bit")
+    if not same:
+        fail("the resumed run's parameters differ from the straight run's")
+    # s/step: host pipeline (next crop batch) + copy + step, synchronised,
+    # over more epochs of the loader; then the same step on one batch that
+    # is already on the card
+    loader = trainer.dataloader["train"]
+    host_s, step_s, resident_s = [], [], []
+    for epoch in range(AMOS_DATA_EPOCHS, AMOS_DATA_EPOCHS + 3):
+        loader.set_epoch(epoch)
+        it = iter(loader)
+        while True:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                break
+            t1 = time.perf_counter()
+            image, labels = trainer._to_device(batch["image"],
+                                               batch["label"])
+            trainer.train_step(image, labels, generator=trainer.generator)
+            torch.cuda.synchronize()
+            host_s.append(t1 - t0)
+            step_s.append(time.perf_counter() - t0)
+    for _ in range(len(step_s)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(image, labels, generator=trainer.generator)
+        torch.cuda.synchronize()
+        resident_s.append(time.perf_counter() - t0)
+    log(f"data_path step (batch {AMOS_DATA_BATCH}): median "
+        f"{np.median(step_s):.4f} s/step with the host pipeline (crop and "
+        f"augment median {np.median(host_s):.4f} s) against "
+        f"{np.median(resident_s):.4f} s on a batch resident on the card; "
+        f"phase 5d's synthetic batch-10 step {synthetic_s:.4f} s")
+    return {k: {"amos_train_data": c} for k, c in counts.items()}
 
 
 def main() -> None:
     card, clock_hz = phase_card()
+    # every later phase runs in a temporary directory under build/
+    # (git-ignored): the trainers' logs and phases 7-8's NIfTI sets,
+    # weights and logs land there, and it is removed at the end
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        os.chdir(tmp)
+        try:
+            run_phases(card, clock_hz, Path(tmp))
+        finally:
+            os.chdir(ROOT)
+
+
+def run_phases(card: str, clock_hz: float, work: Path) -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     from diff_unet_tpu_torch.ops.conv3d import conv3x3, conv3x3_wgrad
@@ -1295,8 +1663,17 @@ def main() -> None:
         "btcv_serve": 0, "btcv_train": counts["window_attention"][1]}
     (paths["shift_windows"]["btcv_train"],
      paths["shift_windows_backward"]["btcv_train"]) = counts["shift_windows"]
-    for k, c in phase_train_amos(dev).items():
+    counts, amos_step_s = phase_train_amos(dev)
+    for k, c in counts.items():
         paths[k]["amos_train"] = c
+    phase_edt()
+    launches, results, _ = phase_eval_amos(dev, work)
+    for k, v in launches.items():
+        paths[k].update(v)
+    phase_metrics(dev, results)
+    del results
+    for k, v in phase_train_amos_data(dev, work, amos_step_s).items():
+        paths[k].update(v)
     replaces = {
         "window_attention": ("diff_unet_tpu_torch/csrc/window_attention.cu",
                              "diff_unet_tpu/ops/pallas_attention.py:115"),
@@ -1328,12 +1705,11 @@ def main() -> None:
             "none: the conv's weight gradient, which the JAX package takes "
             "through flax nn.Conv (jax.value_and_grad)"),
     }
-    # launches: this slice's main path (AMOS training) where the kernel
-    # runs there, else the training path it runs on (BTCV), else its own
-    # slice's serving path
+    # launches: the first path of LAUNCH_ORDER on which the kernel ran,
+    # this slice's main path (the AMOS evaluation) first
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
-                    launches=paths[k].get("amos_train", paths[k].get(
-                        "btcv_train", paths[k].get("amos_serve"))),
+                    launches=next((paths[k][p] for p in LAUNCH_ORDER
+                                   if paths[k].get(p)), 0),
                     launches_by_path=paths[k], **report[k])
                for k, (src, rep) in replaces.items()]
     log(card)

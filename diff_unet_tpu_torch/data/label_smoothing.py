@@ -5,12 +5,20 @@ A copy of the numpy functions of ``diff_unet_tpu/data/label_smoothing.py``
 one-hot encoded, per-class centroids are computed, voxel-to-centroid
 distance fields derived, and the label becomes
 ``|onehot - decay(distance) * alpha|`` with decay rational
-``1/(d^order + eps)``, exponential ``x exp(-lambda x)`` or a damped sine.
-The learnable smoothing module is not ported yet.
+``1/(d^order + eps)``, exponential ``x exp(-lambda x)`` or a damped sine;
+and ``LabelSmoothingCacheDataset``, the NIfTI cache dataset whose labels
+are smoothed on the raw label grid. The learnable smoothing module is not
+ported yet.
 """
 from __future__ import annotations
 
+from typing import Dict, Sequence
+
 import numpy as np
+
+from diff_unet_tpu_torch.data import transforms as T
+from diff_unet_tpu_torch.data.dataset import CacheDataset
+from diff_unet_tpu_torch.data.nifti import read_nifti, to_ras
 
 
 def class_centroids(labels: np.ndarray, num_classes: int) -> np.ndarray:
@@ -72,3 +80,42 @@ def smooth_labels(
     else:
         raise NotImplementedError(kind)
     return np.abs(onehot - np.moveaxis(decay, 0, -1) * alpha)
+
+
+class LabelSmoothingCacheDataset(CacheDataset):
+    """CacheDataset whose labels are distance-smoothed float volumes
+    (D, H, W, C): the raw label grid is smoothed at load time, before the
+    window, foreground crop and respacing, and the resampled label keeps
+    its C channels (nearest interpolation)."""
+
+    def __init__(
+        self,
+        data: Sequence[Dict],
+        *,
+        num_classes: int = 14,
+        smoothing_alpha: float = 0.3,
+        smoothing_order: float = 1.0,
+        num_workers: int = 8,
+    ) -> None:
+        def loader(item):
+            img = to_ras(read_nifti(item["image"]))
+            lab = to_ras(read_nifti(item["label"]))
+            smoothed = smooth_labels(
+                np.asarray(lab.data), num_classes, smoothing_alpha,
+                smoothing_order,
+            )
+            image = T.scale_intensity_range(np.asarray(img.data, np.float32))
+            image, smoothed = T.crop_foreground(image, smoothed)
+            image = T.spacing_resample(image, img.spacing, order=1)
+            smoothed = T.spacing_resample(smoothed, list(img.spacing) + [1.0],
+                                          list(T.TARGET_SPACING) + [1.0],
+                                          order=0)
+            return {
+                "image": np.ascontiguousarray(image, np.float32),
+                "label": np.ascontiguousarray(smoothed, np.float32),
+                "filename": item.get("image"),
+                "spacing": np.asarray(T.TARGET_SPACING, np.float32),
+            }
+
+        super().__init__(list(data), mode="train", num_workers=num_workers,
+                         item_loader=loader)

@@ -1,9 +1,10 @@
 """Seeded synthetic data: CT-like volumes for serving and (image, integer
 label map) batches for training.
 
-The repository holds no dataset and the NIfTI pipeline is not ported yet,
-so the training path takes its batches from ``SyntheticSegmentation``: each
-sample is a label map of ``num_labels`` values (background 0 and one
+The repository holds no dataset, so the training path's checks and
+profiles take their batches from ``SyntheticSegmentation`` (the NIfTI
+pipeline, ``data/dataset.py``, serves real sets through ``data_path``):
+each sample is a label map of ``num_labels`` values (background 0 and one
 ellipsoid blob per organ class, every class present, so every class has a
 centroid for label smoothing) and an image whose intensity follows the
 labels plus noise, in [0, 1] like the JAX pipeline's scaled CT.

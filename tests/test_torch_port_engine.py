@@ -3,6 +3,7 @@ the JAX package, the Predictor's window-batching invariance and crop-back,
 the flat config reader, and that the package never imports jax."""
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -14,9 +15,11 @@ import jax.numpy as jnp
 
 from diff_unet_tpu.engine import sliding_window as jsw
 from diff_unet_tpu.utils.config import load_config
+from diff_unet_tpu_torch.engine import checkpoint as ckpt
 from diff_unet_tpu_torch.engine import sliding_window as tsw
 from diff_unet_tpu_torch.engine.engine import Predictor
 from diff_unet_tpu_torch.utils.config import load_flat_yaml
+from diff_unet_tpu_torch.utils.weights import export_jax_params
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -107,18 +110,46 @@ def test_predictor_invariant_to_window_batching_and_crops_back():
                                atol=1e-6)
 
 
-def test_predictor_config_handling():
+def test_predictor_config_handling(tmp_path):
+    """Unknown keys warn; the serving keys that the port once ignored
+    (``use_ema``, ``epoch``, ``save_volumes``, ``continuous``) now act or
+    raise; ``quant_calibrate`` stays ignored while ``quantize`` is off."""
     with pytest.warns(UserWarning, match="quantise"):
         p = Predictor(model_name="diff_swin_unetr", feature_size=12,
                       image_size=32, spatial_size=32, use_amp=False,
-                      device="cpu", quantise=True, data_name="btcv")
+                      device="cpu", quantise=True, data_name="btcv",
+                      quant_calibrate=4)
     assert p.num_classes == 13 and p.dtype is None
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Predictor(model_path="weights/epoch_1", device="cpu")
+    kw = dict(features=(8, 8, 16, 32, 64, 8), image_size=32,
+              spatial_size=32, use_amp=False, device="cpu")
+    with pytest.raises(FileNotFoundError, match="epoch_1"):
+        Predictor(model_path=str(tmp_path / "weights/epoch_1"), **kw)
     with pytest.raises(ValueError, match="pack"):
         Predictor(pack=2, device="cpu")
+    # epoch: the fallback for a checkpoint without one
+    assert Predictor(epoch=7, **kw).epoch == 7
+    ckpt.save_jax_npz(tmp_path / "w.npz",
+                      export_jax_params(Predictor(seed=3, **kw).module))
+    loaded = Predictor(model_path=str(tmp_path / "w"), epoch=7, **kw)
+    assert loaded.epoch == 7
+    # use_ema: the EMA tree, which this checkpoint and random weights lack
+    with pytest.raises(ValueError, match="ema_params"):
+        Predictor(model_path=str(tmp_path / "w"), use_ema=True, **kw)
+    with pytest.raises(ValueError, match="ema_params"):
+        Predictor(use_ema=True, **kw)
+    # continuous serving raises; save_volumes is the Tester's, and the
+    # Predictor built from a test config drops it
+    with pytest.raises(NotImplementedError, match="continuous"):
+        Predictor(continuous=2, **kw)
+    with pytest.warns(UserWarning, match="save_volumes"):
+        Predictor(save_volumes=True, **kw)
+    cfg = ROOT / "cfg/amos/test.yaml"
+    assert load_flat_yaml(cfg)["save_volumes"] is True
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        Predictor.from_config(cfg, model_path=None, **kw)
 
 
 def test_predictor_without_a_card_raises_unless_asked_for_cpu():
@@ -188,3 +219,30 @@ def test_engines_default_to_diff_unet_like_jax():
     p = Predictor(features=(8, 8, 16, 32, 64, 8), image_size=32,
                   spatial_size=32, use_amp=False, device="cpu")
     assert p.model_name == "diff_unet" and isinstance(p.module, DiffUNet)
+
+
+def test_config_overrides_match_jax(tmp_path):
+    """``load_config`` / ``parse_args`` coerce ``key=value`` overrides as
+    the JAX package's do (null, booleans, ints, scientific floats, flow
+    lists, strings)."""
+    from diff_unet_tpu.utils.config import parse_args as jparse_args
+    from diff_unet_tpu_torch.utils.config import engine_kwargs, \
+        load_config as tload_config, parse_args
+
+    cfg = tmp_path / "c.yaml"
+    cfg.write_text("lr: 5e-4\nmodel_name: diff_unet\nscheduler: true\n")
+    overrides = ["lr=1e-3", "max_epochs=10", "features=[4, 4, 8]",
+                 "model_path=null", "use_amp=false", "device=cpu",
+                 "log_dir=run-1"]
+    want = {k: v for k, v in load_config(cfg, overrides).items()
+            if not k.startswith("__")}
+    got = tload_config(cfg, overrides)
+    assert got["__config_path__"] == str(cfg)
+    assert engine_kwargs(got) == want
+    assert parse_args(["--config", str(cfg), *overrides], quiet=True) == \
+        got
+    assert jparse_args(["--config", str(cfg), "lr=2e-3"],
+                       quiet=True).lr == parse_args(
+        ["--config", str(cfg), "lr=2e-3"], quiet=True)["lr"] == 2e-3
+    with pytest.raises(ValueError, match="key=value"):
+        tload_config(cfg, ["lr"])

@@ -195,11 +195,13 @@ def test_train_step_matches_jax_value_and_grad(model):
                                    err_msg=jax.tree_util.keystr(k))
 
 
-def test_trainer_runs_btcv_recipe_on_synthetic_batches():
+def test_trainer_runs_btcv_recipe_on_synthetic_batches(tmp_path,
+                                                      monkeypatch):
     """``Trainer.from_config`` at a small width (feature 6) on the CPU:
     label smoothing over 14 values without background, warmup-cosine lr
-    (0 at the first update), finite losses, and the keys it cannot honour
-    raise."""
+    (0 at the first update), finite losses, validation without a
+    validation set and the keys it cannot honour raise."""
+    monkeypatch.chdir(tmp_path)      # the trainer's logs land in the cwd
     cfg = ROOT / "cfg/btcv/train.yaml"
     kw = dict(device="cpu", feature_size=6, image_size=S, spatial_size=S,
               classes=str(ROOT / "cfg/btcv/classes.yaml"), use_amp=False)
@@ -218,7 +220,7 @@ def test_trainer_runs_btcv_recipe_on_synthetic_batches():
     assert any(not torch.equal(before[k], v)
                for k, v in trainer.module.named_parameters())
     trainer.max_epochs, trainer.val_freq = 2, 2
-    with pytest.raises(NotImplementedError, match="validation"):
+    with pytest.raises(ValueError, match="validation"):
         trainer.train()
     # the same recipe trains DiffUNet (the engines' default model)
     unet = tengine.Trainer.from_config(
@@ -231,7 +233,7 @@ def test_trainer_runs_btcv_recipe_on_synthetic_batches():
         tengine.Trainer.from_config(cfg, train_data=data,
                                     **{**kw, "model_name": "swin_unetr"})
     with pytest.raises(ValueError, match="train_data"):
-        tengine.Trainer.from_config(cfg, **kw)
+        tengine.Trainer.from_config(cfg, **{**kw, "data_path": None})
     seg, crit = trainer.seg, trainer.criterion
     opt, schedule = ttrain.make_optimizer(trainer.module.parameters())
     with pytest.raises(NotImplementedError, match="EMA"):
@@ -242,12 +244,14 @@ def test_trainer_runs_btcv_recipe_on_synthetic_batches():
         ttrain.make_optimizer(trainer.module.parameters(), accum_steps=2)
 
 
-def test_trainer_runs_amos_recipe_on_synthetic_batches():
+def test_trainer_runs_amos_recipe_on_synthetic_batches(tmp_path,
+                                                      monkeypatch):
     """``Trainer.from_config("cfg/amos/train.yaml")`` at a small width on
     the CPU: DiffUNet (the config's model), 15 classes from the 16-entry
     AMOS class table without background, one-hot labels (no smoothing),
     lr 5e-4 with 100 warmup epochs (0 at the first update), mse + bce +
     dice; finite losses, gradients and moved parameters."""
+    monkeypatch.chdir(tmp_path)      # the trainer's logs land in the cwd
     cfg = ROOT / "cfg/amos/train.yaml"
     data = SyntheticSegmentation((S, S, S), num_labels=16, batch_size=2,
                                  batches=2)
