@@ -55,13 +55,19 @@ PyTorch built for CUDA. Phases, each of which must pass:
       train step (each conv times its launches a step, 28 in all); and the
       conv's autograd Function against autograd through the plain version
       at two small shapes;
+   f. the MSD recipe's convs at N 4 in bf16 (the denoiser stem [image, 2
+      classes] -> 64, whose 2-channel part takes the gathered halo, and
+      the last level's convs): forward, dgrad and weight gradient against
+      their plain versions, with kernel and plain times;
 4. small models on the card against the same weights on the CPU's plain
    path, fp32 with TF32 off: a DiffSwinUNETR denoiser step (feature 12,
    32^3), a DiffUNet denoiser step (features (8, 8, 16, 32, 64, 8), 32^3),
    and two train steps of each (the same t and noise): loss, grad norm,
    every gradient, and the parameters after them within 2 lr per step;
    DiffUNet's card step, run twice from the same start, gives the same
-   bits;
+   bits; one DiffUNet train step with all 14 loss names (the boundary
+   loss's distance maps from the host EDT); the plain Swin-UNETR's forward
+   and two train steps;
 5. each slice at full width from the repository's config with seeded
    random weights:
    a. ``cfg/btcv/test.yaml`` (diff_swin_unetr, feature 48, 13 classes,
@@ -87,10 +93,28 @@ PyTorch built for CUDA. Phases, each of which must pass:
       on synthetic batches of 16 label values, with exactly 28 forward,
       26 dgrad and 28 wgrad conv launches a step; losses, grad norms,
       moved parameters, median s/step and peak memory as in c;
+   e. ``cfg/msd/train.yaml`` (diff_unet, 2 classes, mse+bce+dice+focal,
+      batch 4, lr 2e-4): ``MSD_TRAIN_STEPS`` steps with 28 / 26 / 28 conv
+      launches a step, median s/step and peak memory;
+   f. ``cfg/amos/train.yaml`` with ``AMOS_KEYS`` (EMA 0.9999, an update
+      every 2 calls, the loss-aware sampler), batch 10: ``train()`` over
+      ``AMOS_KEYS_CALLS`` calls, then call by call the EMA tree against
+      e * rate + p * (1 - rate) recomputed on the card (bit for bit), the
+      parameters moving on update calls only and the sampler's counts
+      against the t's drawn; s per call against d; then a ``.pt`` whose
+      EMA tree a ``Tester(use_ema=True)`` loads bit for bit and scores
+      phase 7's first case with;
+   g. the plain ``swin_unetr`` baseline at BTCV widths: a ``Trainer``
+      (``cfg/btcv/train.yaml``, batch 1) for ``SWIN_UNETR_STEPS`` steps
+      with one Swin pass a step (8 / 6 / 4 / 4 attention, shift,
+      partition, reverse launches forward and as many backward), then a
+      ``Predictor`` (``cfg/btcv/test.yaml``) on the 96x192x192 CT, one
+      forward per window batch and no DDIM loop;
 6. the exact distance transform under HD95 (``ops/edt.py``, host C++ built
    with g++) against ``scipy.ndimage.distance_transform_edt`` on one
    96x192x192 organ-surface mask, within 1e-6 of the largest distance,
-   with the ms of each;
+   with the ms of each; then the seconds of the boundary loss's signed
+   distance maps for one MSD and one AMOS batch of 96^3 labels;
 7. the evaluation path (the reference's ``test.py``): a synthetic NIfTI
    validation set of 2 AMOS CTs (int16, 15 organ ids, spacing
    (1.5, 1.5, 2.0), preprocessing to 96x192x192 and 88x192x192, thinner
@@ -235,9 +259,32 @@ AMOS_CONV_PER_BATCH = 10 + 18 * 10      # embed + 10 denoiser passes
 AMOS_DATA_CASES = (4, 2)
 AMOS_DATA_BATCH = 2
 AMOS_DATA_EPOCHS = 2
-# the paths whose launches the kernels line reports, in order of choice
-LAUNCH_ORDER = ("amos_test", "amos_train_data", "amos_train", "btcv_train",
-                "btcv_serve", "amos_serve")
+# the MSD recipe (cfg/msd/train.yaml): batch 4, 2 classes without
+# background; the conv checks at N 4 (bf16): the denoiser stem [image, 2
+# classes] and the last level's convs; the same 28 / 26 / 28 conv launches
+# a step as AMOS
+MSD_TRAIN_STEPS = 4
+MSD_CONV_CASES = [
+    ("MSD denoiser stem", [1, 2], 64, 96, False),
+    ("L0 conv_1", [64], 64, 96, True),
+    ("L0 upcat", [64, 64], 64, 96, False),
+]
+# the AMOS recipe with the JAX Trainer's keys: 4 calls of batch 10, an
+# update every second one
+AMOS_KEYS = dict(ema_rate=0.9999, accum_steps=2, t_sampler="loss_aware")
+AMOS_KEYS_CALLS = 4
+# the plain Swin-UNETR baseline at BTCV widths: one Swin pass per train
+# step (forward, backward launches) and per serving window batch
+SWIN_UNETR_STEPS = 8
+SWIN_UNETR_PER_STEP = {"window_attention": (8, 8), "shift_windows": (6, 6),
+                       "window_partition": (4, 4), "window_reverse": (4, 4)}
+SWIN_UNETR_PER_BATCH = {"window_attention": 8, "shift_windows": 6,
+                        "window_partition": 4, "window_reverse": 4}
+# the paths whose launches the kernels line reports, in order of choice:
+# this slice's paths first
+LAUNCH_ORDER = ("msd_train", "amos_train_ema", "swin_unetr_train",
+                "swin_unetr_serve", "amos_test", "amos_train_data",
+                "amos_train", "btcv_train", "btcv_serve", "amos_serve")
 EDT_SHAPE = (96, 192, 192)
 EDT_TOL = 1e-6                          # of the largest distance
 METRIC_TOL = 1e-6
@@ -1328,6 +1375,24 @@ def phase_edt() -> None:
         f"error {err:.3e} over distances up to {float(out.max()):.2f}")
     if not err <= EDT_TOL * float(out.max()):
         fail(f"EDT error {err:.3e} above {EDT_TOL} of the largest distance")
+    # the boundary loss's host cost: the signed distance maps of one batch
+    # of 96^3 one-hot labels, MSD's (4 x 2 classes) and AMOS's (10 x 15)
+    from diff_unet_tpu_torch.data.synthetic import SyntheticSegmentation
+    from diff_unet_tpu_torch.losses.edt import batch_dist_maps
+
+    for name, labels, batch in (("MSD", 3, 4), ("AMOS", 16, 10)):
+        lab = next(iter(SyntheticSegmentation((96, 96, 96), labels, batch,
+                                              1, SEED)))["label"]
+        onehot = np.eye(labels, dtype=np.float32)[lab][..., 1:]
+        t0 = time.perf_counter()
+        dist = batch_dist_maps(onehot)
+        sec = time.perf_counter() - t0
+        log(f"boundary loss distance maps of one {name} batch "
+            f"{onehot.shape} (host, {batch * (labels - 1)} signed maps, two "
+            f"EDTs each): {sec:.3f} s")
+        if dist.shape != onehot.shape or not np.isfinite(dist).all():
+            fail(f"{name} distance maps {dist.shape} are not finite maps of "
+                 f"the labels' shape")
 
 
 def amos_case(seed: int, body_shape):
@@ -1602,7 +1667,459 @@ def phase_train_amos_data(dev: torch.device, work: Path,
     return {k: {"amos_train_data": c} for k, c in counts.items()}
 
 
+def phase_conv_msd(dev: torch.device) -> None:
+    """The conv forward, dgrad and weight gradient of the MSD recipe at N 4
+    in bf16 (MSD_CONV_CASES: the denoiser stem [image, 2 classes] -> 64,
+    whose 2-channel part takes the gathered halo, and the last level's
+    convs) against their plain versions, with kernel and plain times."""
+    from diff_unet_tpu_torch.ops.conv3d import (
+        KERNEL_TOL, STATS_TOL, WGRAD_TOL, conv3x3, conv3x3_dgrad,
+        conv3x3_dgrad_plain, conv3x3_plain, conv3x3_wgrad,
+        conv3x3_wgrad_plain, conv_plan, wgrad_plan)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    dtype = torch.bfloat16
+    for tag, chans, cout, side, pro_on in MSD_CONV_CASES:
+        shape = (CONV_N, side, side, side)
+        cin = sum(chans)
+        parts = [torch.randn((*shape, c), generator=g, device=dev).to(dtype)
+                 for c in chans]
+        w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) \
+            / (27 * cin) ** 0.5
+        b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        gy = torch.randn((*shape, cout), generator=g, device=dev).to(dtype)
+        pro = None
+        if pro_on:
+            pro = tuple(torch.randn((CONV_N, cin), generator=g, device=dev)
+                        * sd + mu for mu, sd in ((1.0, 0.3), (0.0, 0.3),
+                                                 (0.0, 0.2))) + (0.1,)
+        checks = []
+        (got, gst), (want, wst) = (
+            fn(parts, w, b, prologue=pro, with_stats=True)
+            for fn in (conv3x3, conv3x3_plain))
+        checks.append(("forward", (got.float() - want.float()).abs().max()
+                       .item(), KERNEL_TOL[dtype] * max(
+                           1.0, want.float().abs().max().item())))
+        checks.append(("statistics", (gst - wst).abs().max().item(),
+                       STATS_TOL * wst.abs().max().item()))
+        got, want = conv3x3_dgrad(gy, w), conv3x3_dgrad_plain(gy, w)
+        checks.append(("dgrad", (got.float() - want.float()).abs().max()
+                       .item(), KERNEL_TOL[dtype] * max(
+                           1.0, want.float().abs().max().item())))
+        got = conv3x3_wgrad(gy, parts, pro)
+        want = conv3x3_wgrad_plain(gy, parts, pro)
+        checks.append(("wgrad", (got - want).abs().max().item(),
+                       WGRAD_TOL[dtype] * want.abs().max().item()))
+        torch.cuda.synchronize()
+        del got, want, gst, wst
+        times = {
+            "forward": (cuda_ms(lambda: conv3x3(parts, w, b, prologue=pro,
+                                                with_stats=True), 3, 1),
+                        cuda_ms(lambda: conv3x3_plain(
+                            parts, w, b, prologue=pro, with_stats=True), 3,
+                            1)),
+            "dgrad": (cuda_ms(lambda: conv3x3_dgrad(gy, w), 3, 1),
+                      cuda_ms(lambda: conv3x3_dgrad_plain(gy, w), 3, 1)),
+            "wgrad": (cuda_ms(lambda: conv3x3_wgrad(gy, parts, pro), 3, 1),
+                      cuda_ms(lambda: conv3x3_wgrad_plain(gy, parts, pro),
+                              3, 1)),
+        }
+        plan = conv_plan(CONV_N, shape[1:], chans, cout)
+        wplan = wgrad_plan(CONV_N, shape[1:], cin, cout)
+        log(f"MSD conv {tag} bf16 {chans}->{cout} at {CONV_N}x{side}^3 "
+            f"(forward halo {'TMA' if plan.tma else 'gathered'}, wgrad Cin "
+            f"tile {wplan.ci_tile}): " + "; ".join(
+                f"{name} max_abs_err {err:.3e} (tol {tol:.3e})"
+                for name, err, tol in checks) + "; " + "; ".join(
+                f"{name} kernel {k:.4f} ms plain {p:.4f} ms"
+                for name, (k, p) in times.items()))
+        for name, err, tol in checks:
+            if not err <= tol:
+                fail(f"MSD conv {tag}: {name} disagrees with its plain "
+                     "version")
+        del parts, gy
+
+
+def small_step_inputs(s: int, classes: int, n: int = 2):
+    """``n`` train-step inputs of one sample at s^3: image, one-hot labels,
+    t and noise, from the seed."""
+    rng = np.random.default_rng(SEED)
+    return [(rng.random((1, s, s, s, 1), np.float32),
+             np.eye(classes, dtype=np.float32)[
+                 rng.integers(0, classes, (1, s, s, s))],
+             np.array([int(rng.integers(0, 1000))]),
+             rng.standard_normal((1, s, s, s, classes), np.float32))
+            for _ in range(n)]
+
+
+def compare_steps(name: str, cpu: list, card: list) -> None:
+    """Loss, grad norm (relative) and every gradient (of max(its |g| max,
+    0.1 of the model's)) of train steps on the CPU and on the card, within
+    MODEL_TOL."""
+    worst = [0.0, 0.0, 0.0]
+    for (lc, nc, gc), (lg, ng, gg) in zip(cpu, card):
+        worst[0] = max(worst[0], abs(lg - lc) / abs(lc))
+        worst[1] = max(worst[1], abs(ng - nc) / abs(nc))
+        gmax = max(a.abs().max().item() for a in gc)
+        for a, b in zip(gc, gg):
+            scale = max(a.abs().max().item(), 0.1 * gmax)
+            worst[2] = max(worst[2], (b - a).abs().max().item() / scale)
+    log(f"{name} cuda vs cpu: loss rel {worst[0]:.3e}, grad norm rel "
+        f"{worst[1]:.3e}, worst gradient error {worst[2]:.3e} (tol "
+        f"{MODEL_TOL:.0e}); losses {[round(r[0], 6) for r in cpu]}")
+    if not (max(worst) <= MODEL_TOL
+            and all(np.isfinite(r[0]) for r in card)):
+        fail(f"{name} on the card disagrees with the CPU")
+
+
+def phase_small_all_losses(dev: torch.device) -> None:
+    """One small DiffUNet train step (features (8, 8, 16, 32, 64, 8), 32^3,
+    fp32, TF32 off) with all 14 loss names, the boundary loss's distance
+    maps from the host EDT, on the card against the CPU from the same
+    weights, t, noise and maps."""
+    from diff_unet_tpu_torch.api import DiffusionSegmenter
+    from diff_unet_tpu_torch.engine.train import TrainStep, make_optimizer
+    from diff_unet_tpu_torch.losses.edt import batch_dist_maps
+    from diff_unet_tpu_torch.losses.losses import LOSS_NAMES, CompositeLoss
+    from diff_unet_tpu_torch.models.diff_unet import DiffUNet
+    from diff_unet_tpu_torch.utils.weights import init_random
+
+    s, classes = 32, 3
+    image, labels, t, noise = small_step_inputs(s, classes, 1)[0]
+    labels[..., 2] = 0.0                        # an empty class too
+    dist = batch_dist_maps(labels)
+    names = ",".join(LOSS_NAMES)
+    records = []
+    for where in (torch.device("cpu"), dev):
+        model = init_random(DiffUNet(classes, features=(8, 8, 16, 32, 64,
+                                                        8)), SEED).to(where)
+        opt, schedule = make_optimizer(model.parameters(), lr=2e-4)
+        step = TrainStep(DiffusionSegmenter(model, classes),
+                         CompositeLoss(names, classes), opt, schedule)
+        m = step(*(torch.from_numpy(a).to(where)
+                   for a in (image, labels)),
+                 t=torch.from_numpy(t).to(where),
+                 noise=torch.from_numpy(noise).to(where),
+                 dist_maps=torch.from_numpy(dist).to(where))
+        records.append([(m["loss"].item(), m["grad_norm"].item(),
+                         [p.grad.detach().cpu().clone()
+                          for p in model.parameters()])])
+    compare_steps(f"small DiffUNet train step with all {len(LOSS_NAMES)} "
+                  "losses", *records)
+
+
+def phase_small_swin_unetr(dev: torch.device) -> None:
+    """A small plain Swin-UNETR (feature 12, 32^3, fp32, TF32 off) on the
+    card against the CPU from the same weights: the forward of two
+    images, then two train steps (the second from the CPU's parameters on
+    both sides, as for DiffUNet: Adam's first update is lr * sign(g))."""
+    from diff_unet_tpu_torch.api import PlainSegmenter
+    from diff_unet_tpu_torch.engine.train import TrainStep, make_optimizer
+    from diff_unet_tpu_torch.losses.losses import CompositeLoss
+    from diff_unet_tpu_torch.models.swin_unetr import SwinUNETR
+    from diff_unet_tpu_torch.utils.weights import init_random
+
+    s, classes = 32, 3
+    cpu = init_random(SwinUNETR(classes, image_size=(s,) * 3,
+                                feature_size=12), SEED)
+    gpu = SwinUNETR(classes, image_size=(s,) * 3, feature_size=12)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(dev)
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.standard_normal((2, s, s, s, 1), np.float32))
+    with torch.inference_mode():
+        want = cpu(x)
+        got = gpu(x.to(dev)).cpu()
+    err = (got - want).abs().max().item()
+    log(f"small swin_unetr forward (feature 12, {s}^3, fp32, TF32 off) "
+        f"cuda vs cpu: max_abs_err {err:.3e} (tol {MODEL_TOL:.0e}, max|y| "
+        f"{want.abs().max().item():.3f})")
+    if not (torch.isfinite(got).all() and err <= MODEL_TOL):
+        fail("small swin_unetr on the card disagrees with the CPU")
+    models = (cpu, gpu)
+    steps = [TrainStep(PlainSegmenter(m, classes),
+                       CompositeLoss("mse,bce,dice", classes),
+                       *make_optimizer(m.parameters(), lr=2e-4))
+             for m in models]
+    records = ([], [])
+    for k, (image, labels, _, _) in enumerate(small_step_inputs(s, classes)):
+        if k:
+            with torch.no_grad():
+                for a, b in zip(cpu.parameters(), gpu.parameters()):
+                    b.copy_(a)
+        for where, model, step, record in zip((torch.device("cpu"), dev),
+                                              models, steps, records):
+            m = step(torch.from_numpy(image).to(where),
+                     torch.from_numpy(labels).to(where))
+            record.append((m["loss"].item(), m["grad_norm"].item(),
+                           [p.grad.detach().cpu().clone()
+                            for p in model.parameters()]))
+    compare_steps("small swin_unetr train steps", *records)
+
+
+def step_seconds(trainer, calls: int = None) -> list:
+    """Seconds of each train call over the trainer's batches once more,
+    the card synchronised before and after each."""
+    out = []
+    for i, (image, labels) in enumerate(trainer.batches[:calls]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(image, labels, generator=trainer.generator,
+                           dist_maps=trainer.dist_maps_of(i, labels))
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def conv_counts() -> dict:
+    from diff_unet_tpu_torch.ops.conv3d import conv3x3, conv3x3_wgrad
+    return {"conv3x3": conv3x3.launches,
+            "conv3x3_dgrad": conv3x3.dgrad_launches,
+            "conv3x3_wgrad": conv3x3_wgrad.launches}
+
+
+def reset_conv() -> None:
+    from diff_unet_tpu_torch.ops.conv3d import conv3x3, conv3x3_wgrad
+    conv3x3.launches = conv3x3.dgrad_launches = conv3x3_wgrad.launches = 0
+
+
+def check_history(name: str, hist: list, steps: int) -> None:
+    log(f"{name} steps: " + "; ".join(
+        f"loss {h['loss']:.5f} grad_norm {h['grad_norm']:.5f} lr "
+        f"{h['lr']:.3e}" for h in hist))
+    if len(hist) != steps:
+        fail(f"{name}: {len(hist)} steps, not {steps}")
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               and h["grad_norm"] > 0 for h in hist):
+        fail(f"{name}: a step has a non-finite loss or a zero grad norm")
+
+
+def phase_train_msd(dev: torch.device) -> dict:
+    """``Trainer.from_config("cfg/msd/train.yaml")`` at full width
+    (DiffUNet, 2 classes, mse + bce + dice + focal, batch 4 of 96^3, bf16
+    over fp32) on synthetic batches of 3 label values for MSD_TRAIN_STEPS
+    steps: finite losses, moved parameters, exactly AMOS_TRAIN_PER_STEP
+    conv launches a step; then the median synchronised s/step and the
+    peak memory. Returns the launches of ``train()``."""
+    from diff_unet_tpu_torch.data.synthetic import SyntheticSegmentation
+    from diff_unet_tpu_torch.engine.engine import Trainer
+
+    t0 = time.perf_counter()
+    data = SyntheticSegmentation((96, 96, 96), num_labels=3, batch_size=4,
+                                 batches=MSD_TRAIN_STEPS, seed=SEED)
+    trainer = Trainer.from_config(
+        ROOT / "cfg/msd/train.yaml", train_data=data, device=dev,
+        classes=str(ROOT / "cfg/msd/classes.yaml"), seed=SEED,
+        max_epochs=1)
+    torch.cuda.synchronize()
+    log(f"MSD trainer: {trainer.model_name}, {trainer.num_classes} classes, "
+        f"losses {','.join(trainer.criterion.names)}, batch "
+        f"{trainer.batch_size}, dtype {trainer.dtype}, "
+        f"{sum(p.numel() for p in trainer.module.parameters())} parameters; "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    before = [p.detach().clone() for p in trainer.module.parameters()]
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_conv()
+    trainer.train()
+    torch.cuda.synchronize()
+    counts = conv_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    hist = trainer.history
+    moved = sum(int(not torch.equal(a, p))
+                for a, p in zip(before, trainer.module.parameters()))
+    check_history("MSD train", hist, MSD_TRAIN_STEPS)
+    step_s = step_seconds(trainer)
+    log(f"MSD train: conv launches {counts} ({MSD_TRAIN_STEPS} steps); "
+        f"median {np.median(step_s[1:]):.4f} s/step over steps "
+        f"2..{len(step_s)} of a synchronised pass, {step_s}; peak device "
+        f"memory {peak:.2f} GiB; {moved} of {len(before)} parameter "
+        "tensors moved")
+    if hist[0]["lr"] != 0.0 or not moved:
+        fail("the MSD parameters did not move once the lr was above 0")
+    for k, c in counts.items():
+        if c != AMOS_TRAIN_PER_STEP[k] * len(hist):
+            fail(f"{k}: {c} launches in {len(hist)} MSD steps, predicted "
+                 f"{AMOS_TRAIN_PER_STEP[k]} x {len(hist)}")
+    return {k: {"msd_train": c} for k, c in counts.items()}
+
+
+def phase_train_amos_keys(dev: torch.device, work: Path,
+                          plain_s: float) -> dict:
+    """``cfg/amos/train.yaml`` at full width with AMOS_KEYS (EMA 0.9999,
+    an update every 2 calls, the loss-aware sampler), batch 10, for
+    AMOS_KEYS_CALLS calls of ``train()`` (conv launches as phase 5d a
+    call); then call by call, synchronised: the EMA tree equals e * rate +
+    p * (1 - rate) recomputed on the card, bit for bit; the parameters
+    change on update calls only; the sampler's counts rise by one at each
+    distinct t drawn (replayed from the generator's state). Then saves a
+    ``.pt``, loads its EMA tree into a ``Tester`` (use_ema) bit for bit
+    and scores phase 7's first synthetic case. Returns the launches of
+    ``train()``."""
+    from diff_unet_tpu_torch.data.synthetic import SyntheticSegmentation
+    from diff_unet_tpu_torch.diffusion import resample
+    from diff_unet_tpu_torch.engine.engine import Tester, Trainer
+
+    data = SyntheticSegmentation((96, 96, 96), num_labels=16, batch_size=10,
+                                 batches=AMOS_KEYS_CALLS, seed=SEED)
+    trainer = Trainer.from_config(
+        ROOT / "cfg/amos/train.yaml", train_data=data, device=dev,
+        classes=str(ROOT / "cfg/amos/classes.yaml"), seed=SEED,
+        max_epochs=1, log_dir=str(work / "amos_keys"), **AMOS_KEYS)
+    step = trainer.train_step
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_conv()
+    trainer.train()
+    torch.cuda.synchronize()
+    counts = conv_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check_history("AMOS train with the keys", trainer.history,
+                  AMOS_KEYS_CALLS)
+    if step.count != AMOS_KEYS_CALLS // 2:
+        fail(f"{step.count} updates in {AMOS_KEYS_CALLS} calls")
+    for k, c in counts.items():
+        if c != AMOS_TRAIN_PER_STEP[k] * AMOS_KEYS_CALLS:
+            fail(f"{k}: {c} launches in {AMOS_KEYS_CALLS} calls, predicted "
+                 f"{AMOS_TRAIN_PER_STEP[k]} x {AMOS_KEYS_CALLS}")
+    rate = AMOS_KEYS["ema_rate"]
+    call_s, updated = [], []
+    for image, labels in trainer.batches:
+        ema = [e.clone() for e in step.ema]
+        params = [p.detach().clone() for p in step.params]
+        state = step.sampler_state
+        replay = torch.Generator(dev)
+        replay.set_state(trainer.generator.get_state())
+        t, _ = resample.sample_loss_aware(state, replay, labels.shape[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(image, labels, generator=trainer.generator)
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t0)
+        updated.append(m["updated"])
+        params_now = [p.detach() for p in step.params]
+        want = torch._foreach_mul(params_now, 1.0 - rate)
+        torch._foreach_mul_(ema, rate)
+        torch._foreach_add_(ema, want)
+        ema_same = all(torch.equal(a, b) for a, b in zip(ema, step.ema))
+        moved = any(not torch.equal(a, b) for a, b in zip(params, params_now))
+        seen = torch.zeros_like(state.counts)
+        seen[t] = 1
+        want_counts = torch.clamp(state.counts + seen,
+                                  max=state.losses.shape[1])
+        counts_ok = torch.equal(step.sampler_state.counts, want_counts)
+        log(f"AMOS keys call: t {t.tolist()}, updated {m['updated']}, "
+            f"parameters moved {moved}, EMA = e*rate + p*(1-rate) "
+            f"{'bit for bit' if ema_same else 'DIFFERS'}, sampler counts "
+            f"{'as drawn' if counts_ok else 'DIFFER'}")
+        if not (ema_same and counts_ok and moved == m["updated"]):
+            fail("the EMA tree, the parameters or the sampler state do not "
+                 "follow the train calls")
+    log(f"AMOS train with {AMOS_KEYS}: median {np.median(call_s):.4f} s a "
+        f"call over a synchronised pass, {call_s} (updates on calls "
+        f"{[i for i, u in enumerate(updated) if u]}); phase 5d's plain "
+        f"step {plain_s:.4f} s; peak device memory {peak:.2f} GiB")
+    trainer.save_model(work / "amos_keys.pt")
+    data_dir = write_amos_set(work / "amos_ema_eval", [],
+                              AMOS_EVAL_BODIES[:1], SEED + 100)
+    tester = Tester.from_config(
+        ROOT / "cfg/amos/test.yaml", data_path=str(data_dir),
+        model_path=str(work / "amos_keys.pt"), use_ema=True,
+        classes=str(ROOT / "cfg/amos/classes.yaml"), device=dev, seed=SEED,
+        log_dir=str(work / "amos_ema_logs"))
+    same = all(torch.equal(p, e) for p, e in zip(tester.module.parameters(),
+                                                 step.ema))
+    results = tester.test()
+    d = np.asarray(results["dices"])
+    log(f"Tester(use_ema=True) on the .pt: EMA tree loaded "
+        f"{'bit for bit' if same else 'DIFFERENTLY'}; case dices "
+        f"{np.array2string(d, precision=4)}")
+    if not same:
+        fail("the Tester's EMA parameters differ from the trainer's")
+    if d.shape != (1, 15) or not (np.isfinite(d).all() and (d >= 0).all()
+                                  and (d <= 1).all()):
+        fail(f"EMA evaluation dices {d}")
+    return {k: {"amos_train_ema": c} for k, c in counts.items()}
+
+
+def phase_swin_unetr(dev: torch.device, counters: dict) -> dict:
+    """The plain Swin-UNETR baseline at BTCV widths (feature 48, 13
+    classes): ``Trainer.from_config("cfg/btcv/train.yaml",
+    model_name="swin_unetr")`` for SWIN_UNETR_STEPS steps of batch 1 with
+    exactly SWIN_UNETR_PER_STEP Swin launches a step, median s/step and
+    peak memory; then a ``Predictor`` from ``cfg/btcv/test.yaml`` on the
+    96x192x192 synthetic CT with SWIN_UNETR_PER_BATCH launches per window
+    batch and no DDIM loop. Returns the launches of both paths."""
+    from diff_unet_tpu_torch.data.synthetic import SyntheticSegmentation, \
+        synthetic_ct
+    from diff_unet_tpu_torch.engine.engine import Predictor, Trainer
+
+    data = SyntheticSegmentation((96, 96, 96), num_labels=14, batch_size=1,
+                                 batches=SWIN_UNETR_STEPS, seed=SEED)
+    trainer = Trainer.from_config(
+        ROOT / "cfg/btcv/train.yaml", train_data=data, device=dev,
+        classes=str(ROOT / "cfg/btcv/classes.yaml"), seed=SEED,
+        max_epochs=1, model_name="swin_unetr")
+    log(f"swin_unetr trainer: {type(trainer.module).__name__}, "
+        f"{trainer.num_classes} classes, label smoothing "
+        f"{trainer.label_smoothing}, "
+        f"{sum(p.numel() for p in trainer.module.parameters())} parameters")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset(counters)
+    trainer.train()
+    torch.cuda.synchronize()
+    counts = {k: (fn.launches, getattr(fn, "backward_launches", 0))
+              for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check_history("swin_unetr train", trainer.history, SWIN_UNETR_STEPS)
+    step_s = step_seconds(trainer)
+    log(f"swin_unetr train: launches (forward, backward) {counts}; median "
+        f"{np.median(step_s[1:]):.4f} s/step over steps 2..{len(step_s)}, "
+        f"{step_s}; peak device memory {peak:.2f} GiB")
+    for k, (fwd, bwd) in counts.items():
+        want = tuple(n * SWIN_UNETR_STEPS for n in SWIN_UNETR_PER_STEP[k])
+        if (fwd, bwd) != want:
+            fail(f"swin_unetr train {k}: {(fwd, bwd)} launches, predicted "
+                 f"{want}")
+    paths = {k: {"swin_unetr_train": sum(c) if k in (
+        "window_partition", "window_reverse") else c[0]}
+        for k, c in counts.items()}
+    paths["window_attention_backward"] = {
+        "swin_unetr_train": counts["window_attention"][1]}
+    paths["shift_windows_backward"] = {
+        "swin_unetr_train": counts["shift_windows"][1]}
+    del trainer
+    pred = Predictor.from_config(
+        ROOT / "cfg/btcv/test.yaml", model_path=None, model_name="swin_unetr",
+        classes=str(ROOT / "cfg/btcv/classes.yaml"), device=dev, seed=SEED)
+    shape = (96, 192, 192)
+    volume = synthetic_ct(shape, SEED, dev)
+    pred.infer(volume)                        # warm-up
+    torch.cuda.synchronize()
+    reset(counters)
+    t0 = time.perf_counter()
+    logits, binary = pred.serve([volume])[0]
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    batches = window_batches(pred._inferer, shape)
+    serve = {k: fn.launches for k, fn in counters.items()}
+    log(f"swin_unetr serving {shape}: {sec:.3f} s, {batches} window batches "
+        f"(sw {pred.sw_batch_size}), launches {serve} "
+        f"({ {k: c / batches for k, c in serve.items()} } per batch)")
+    if tuple(logits.shape) != (*shape, 13) or not torch.isfinite(
+            logits).all() or not ((binary == 0) | (binary == 1)).all():
+        fail("swin_unetr serving output is not finite, binary, of the "
+             "volume's shape")
+    for k, c in serve.items():
+        if c != SWIN_UNETR_PER_BATCH[k] * batches:
+            fail(f"swin_unetr serving {k}: {c} launches, predicted "
+                 f"{SWIN_UNETR_PER_BATCH[k]} x {batches}")
+    for k, c in serve.items():
+        paths[k]["swin_unetr_serve"] = c
+    return paths
+
+
 def main() -> None:
+    t0 = time.perf_counter()
     card, clock_hz = phase_card()
     # every later phase runs in a temporary directory under build/
     # (git-ignored): the trainers' logs and phases 7-8's NIfTI sets,
@@ -1611,12 +2128,12 @@ def main() -> None:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         os.chdir(tmp)
         try:
-            run_phases(card, clock_hz, Path(tmp))
+            run_phases(card, clock_hz, Path(tmp), t0)
         finally:
             os.chdir(ROOT)
 
 
-def run_phases(card: str, clock_hz: float, work: Path) -> None:
+def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     from diff_unet_tpu_torch.ops.conv3d import conv3x3, conv3x3_wgrad
@@ -1630,12 +2147,15 @@ def run_phases(card: str, clock_hz: float, work: Path) -> None:
     report.update(phase_shift(dev))
     report.update(phase_conv(dev))
     report.update(phase_conv_backward(dev))
+    phase_conv_msd(dev)
     report.update(phase_partition(dev))
     report.update(phase_backward(dev))
     phase_small_model(dev)
     phase_small_diff_unet(dev)
     phase_small_train(dev, "diff_swin_unetr")
     phase_small_train(dev, "diff_unet")
+    phase_small_all_losses(dev)
+    phase_small_swin_unetr(dev)
     swin = {"window_attention": window_attention,
             "shift_windows": shift_windows,
             "window_partition": partition_windows,
@@ -1666,6 +2186,11 @@ def run_phases(card: str, clock_hz: float, work: Path) -> None:
     counts, amos_step_s = phase_train_amos(dev)
     for k, c in counts.items():
         paths[k]["amos_train"] = c
+    for phase in (lambda: phase_train_msd(dev),
+                  lambda: phase_train_amos_keys(dev, work, amos_step_s),
+                  lambda: phase_swin_unetr(dev, swin)):
+        for k, v in phase().items():
+            paths[k].update(v)
     phase_edt()
     launches, results, _ = phase_eval_amos(dev, work)
     for k, v in launches.items():
@@ -1712,6 +2237,7 @@ def run_phases(card: str, clock_hz: float, work: Path) -> None:
                                    if paths[k].get(p)), 0),
                     launches_by_path=paths[k], **report[k])
                for k, (src, rep) in replaces.items()]
+    log(f"all phases: {time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""Diffusion-segmentation API (counterpart of ``DiffusionSegmenter`` in
-``diff_unet_tpu/api.py``): for training, ``q_sample`` and ``denoise``; for
-serving, embed the image once, then run the respaced DDIM loop and return
-the per-step pred_xstart sum as logits."""
+"""Segmentation API (counterpart of ``diff_unet_tpu/api.py``):
+``DiffusionSegmenter`` gives training ``q_sample`` and ``denoise`` and
+serving the respaced DDIM loop (embed the image once, return the per-step
+pred_xstart sum as logits); ``PlainSegmenter`` gives a non-diffusion
+baseline (``swin_unetr``) the same surface, one forward per image."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +14,18 @@ from torch import nn
 
 from diff_unet_tpu_torch.diffusion import gaussian, sampling
 from diff_unet_tpu_torch.diffusion.schedule import Schedule
+
+
+@dataclasses.dataclass(eq=False)
+class PlainSegmenter:
+    """A segmentation module that maps an image to class logits in one
+    forward (no timesteps, no DDIM loop)."""
+
+    module: nn.Module
+    num_classes: int
+
+    def predict(self, image: torch.Tensor) -> torch.Tensor:
+        return self.module(image)
 
 
 @dataclasses.dataclass(eq=False)

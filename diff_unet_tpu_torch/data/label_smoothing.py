@@ -1,4 +1,5 @@
-"""Distance-based label smoothing (numpy, host side).
+"""Distance-based label smoothing: numpy on the host, and a learnable
+module.
 
 A copy of the numpy functions of ``diff_unet_tpu/data/label_smoothing.py``
 (that module cannot be imported without jax): the integer label volume is
@@ -6,15 +7,17 @@ one-hot encoded, per-class centroids are computed, voxel-to-centroid
 distance fields derived, and the label becomes
 ``|onehot - decay(distance) * alpha|`` with decay rational
 ``1/(d^order + eps)``, exponential ``x exp(-lambda x)`` or a damped sine;
-and ``LabelSmoothingCacheDataset``, the NIfTI cache dataset whose labels
-are smoothed on the raw label grid. The learnable smoothing module is not
-ported yet.
+``LabelSmoothingCacheDataset``, the NIfTI cache dataset whose labels are
+smoothed on the raw label grid; and ``LearnableLabelSmoothing``, the
+per-class learnable smoothing module.
 """
 from __future__ import annotations
 
 from typing import Dict, Sequence
 
 import numpy as np
+import torch
+from torch import nn
 
 from diff_unet_tpu_torch.data import transforms as T
 from diff_unet_tpu_torch.data.dataset import CacheDataset
@@ -119,3 +122,21 @@ class LabelSmoothingCacheDataset(CacheDataset):
 
         super().__init__(list(data), mode="train", num_workers=num_workers,
                          item_loader=loader)
+
+
+class LearnableLabelSmoothing(nn.Module):
+    """Per-class learnable (alpha, beta) smoothing of one-hot labels by
+    precomputed distance fields: |labels - alpha / (beta * dist + eps)|
+    over (N, D, H, W, C); ``alpha`` starts at 0.3 and ``beta`` at 1, named
+    as the flax parameters."""
+
+    def __init__(self, num_classes: int, eps: float = 1e-6) -> None:
+        super().__init__()
+        self.eps = eps
+        self.alpha = nn.Parameter(torch.full((num_classes,), 0.3))
+        self.beta = nn.Parameter(torch.ones(num_classes))
+
+    def forward(self, labels: torch.Tensor,
+                distances: torch.Tensor) -> torch.Tensor:
+        smooth = self.alpha / (self.beta * distances + self.eps)
+        return torch.abs(labels - smooth)

@@ -8,8 +8,13 @@ its own).
   (the port's parameter names and layouts), the AdamW state, the update
   count that the lr schedule reads, the train generator's state and its
   device type, and the JAX engine's checkpoint metadata (epoch, loss,
-  noise_ratio, global_step, best_mean_dice, project_name, id). It holds no
-  EMA parameters: the port does not train them yet.
+  noise_ratio, global_step, best_mean_dice, project_name, id); when the
+  run has them, the EMA tree (``ema``: parameter name -> tensor), the
+  loss-aware sampler's ring and counts (``sampler``) and the gradient
+  accumulated since the last update (``accum``: micro-step count and the
+  running mean), so that a resume takes the same steps as a run that was
+  not stopped. ``export_npz`` writes a ``.pt``'s parameters and EMA tree
+  as the ``.npz`` below.
 - **A JAX parameter tree as ``.npz``**: keys ``params/<flax path>`` and,
   optionally, ``ema_params/<flax path>`` (flax paths joined with ``/``),
   and ``__meta__``, the checkpoint's ``.meta.json`` as a JSON string.
@@ -134,11 +139,14 @@ def load_params(module, path, *, use_ema: bool = False) -> Dict:
         load_jax_params(module, params)
         return meta
     ckpt = _load_pt(p, torch)
+    state = dict(ckpt["state_dict"])
     if use_ema:
-        raise ValueError(f"use_ema=True but checkpoint {p} has no "
-                         "ema_params (the port's checkpoints carry none: "
-                         "ema_rate is not ported)")
-    module.load_state_dict(ckpt["state_dict"])
+        if ckpt.get("ema") is None:
+            raise ValueError(f"use_ema=True but checkpoint {p} has no "
+                             "ema_params (was it trained with ema_rate "
+                             "set?)")
+        state.update(ckpt["ema"])
+    module.load_state_dict(state)
     return dict(ckpt["meta"])
 
 
@@ -152,8 +160,9 @@ def _load_pt(p: Path, torch) -> Dict:
 
 def load_training_state(path) -> Dict:
     """The whole ``.pt`` checkpoint for a resume: ``state_dict``,
-    ``optimizer``, ``count``, ``generator``, ``generator_device`` and
-    ``meta``. An ``.npz`` holds parameters only and raises."""
+    ``optimizer``, ``count``, ``generator``, ``generator_device``,
+    ``meta``, and ``ema``, ``sampler`` and ``accum`` (None where the run
+    had none). An ``.npz`` holds parameters only and raises."""
     import torch
 
     p = resolve_model_path(path)
@@ -162,11 +171,35 @@ def load_training_state(path) -> Dict:
             f"resuming training needs the port's .pt checkpoint (parameters,"
             f" AdamW state, schedule count, generator); {p} holds "
             "parameters only")
-    return _load_pt(p, torch)
+    ckpt = _load_pt(p, torch)
+    for key in ("ema", "sampler", "accum"):
+        ckpt.setdefault(key, None)
+    return ckpt
+
+
+def export_npz(pt_path, npz_path, module) -> None:
+    """Write the parameters and EMA tree of the port's ``.pt`` at
+    ``pt_path`` as a JAX tree ``.npz`` (``save_jax_npz``), through
+    ``module`` (the model the checkpoint was saved from), whose
+    parameters it overwrites."""
+    import torch
+
+    from diff_unet_tpu_torch.utils.weights import export_jax_params
+
+    ckpt = _load_pt(resolve_model_path(pt_path), torch)
+    module.load_state_dict(ckpt["state_dict"])
+    params = export_jax_params(module)
+    ema = None
+    if ckpt.get("ema") is not None:
+        module.load_state_dict({**ckpt["state_dict"], **ckpt["ema"]})
+        ema = export_jax_params(module)
+    save_jax_npz(npz_path, params, ema, dict(ckpt["meta"]))
 
 
 def save_checkpoint(path, module, optimizer=None, count: int = 0,
-                    generator=None, meta: Optional[Dict] = None) -> None:
+                    generator=None, meta: Optional[Dict] = None, *,
+                    ema: Optional[Dict] = None, sampler: Optional[Dict] = None,
+                    accum: Optional[Dict] = None) -> None:
     """Write the port's ``.pt`` checkpoint (see the module docstring)
     under a temporary name, then rename it into place."""
     import torch
@@ -182,6 +215,9 @@ def save_checkpoint(path, module, optimizer=None, count: int = 0,
         "generator_device": (None if generator is None
                              else generator.device.type),
         "meta": dict(meta or {}),
+        "ema": ema,
+        "sampler": sampler,
+        "accum": accum,
     }
     fd, tmp = tempfile.mkstemp(suffix=".pt", dir=path.parent)
     os.close(fd)

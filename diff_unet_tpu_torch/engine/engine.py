@@ -4,7 +4,9 @@
 
 ``Predictor`` is built from the keys of a test config (``cfg/amos/test.yaml``
 for ``diff_unet``, ``cfg/btcv/test.yaml`` for ``diff_swin_unetr``, or
-keyword arguments), holds the model with seeded random weights or the
+keyword arguments; ``model_name=swin_unetr`` serves the plain Swin-UNETR
+baseline, one forward per window batch and no DDIM loop), holds the model
+with seeded random weights or the
 weights of ``model_path`` (``engine/checkpoint.py``: the port's ``.pt`` or
 a JAX tree as ``.npz``; ``use_ema`` takes the EMA tree), and serves whole
 volumes: ``infer(volume) -> (logits, binary)`` and ``serve(volumes)``.
@@ -12,8 +14,9 @@ volumes: ``infer(volume) -> (logits, binary)`` and ``serve(volumes)``.
 ``dataset.json``) and scores each case: dice on the device, HD95 and IoU
 per class on the host, the per-class table, the mean dice and
 ``logs/<log_dir>/results.pkl``. ``Trainer`` is built from a train config
-(``cfg/amos/train.yaml``, ``cfg/btcv/train.yaml``) and trains on the NIfTI
-set of ``data_path``, or on ``train_data``, an iterable of batches;
+(``cfg/amos/train.yaml``, ``cfg/btcv/train.yaml``, ``cfg/msd/train.yaml``)
+and trains on the NIfTI set of ``data_path``, or on ``train_data``, an
+iterable of batches;
 ``train()`` runs the epochs with validation every ``val_freq``, the
 best-checkpoint gate, ``epoch_{n}.pt`` every ``save_freq`` and resume from
 ``model_path``. All default to ``diff_unet``, as the JAX engine does. All
@@ -38,7 +41,7 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, \
 import numpy as np
 import torch
 
-from diff_unet_tpu_torch.api import DiffusionSegmenter
+from diff_unet_tpu_torch.api import DiffusionSegmenter, PlainSegmenter
 from diff_unet_tpu_torch.data.dataset import CacheDataset, DataLoader
 from diff_unet_tpu_torch.data.datalist import load_decathlon_datalist
 from diff_unet_tpu_torch.data.label_smoothing import \
@@ -50,12 +53,15 @@ from diff_unet_tpu_torch.engine.sliding_window import (
     make_ddim_window_predictor,
 )
 from diff_unet_tpu_torch.engine.train import TrainStep, make_optimizer
+from diff_unet_tpu_torch.losses.edt import batch_dist_maps
 from diff_unet_tpu_torch.losses.losses import CompositeLoss
 from diff_unet_tpu_torch.metrics.metrics import hausdorff_distance_95, \
     jaccard, validation_dice
-from diff_unet_tpu_torch.models.model_hub import create_model
+from diff_unet_tpu_torch.models.model_hub import ModelType, create_model, \
+    get_model_type
 from diff_unet_tpu_torch.utils.config import get_class_names, load_flat_yaml
 from diff_unet_tpu_torch.utils.logging import MetricLogger, ProgressMeter
+from diff_unet_tpu_torch.utils.pretrained import load_pretrained_encoder
 from diff_unet_tpu_torch.utils.weights import init_random
 
 # Config keys of the JAX engine that concern logging services, the TPU
@@ -172,9 +178,14 @@ class Engine:
             self.epoch = meta.get("epoch", epoch or 0)
             print(f"Checkpoint loaded from {model_path}")
         self.module.to(self.device)
-        self.seg = DiffusionSegmenter(
-            module=self.module, num_classes=self.num_classes,
-            timesteps=timesteps, sample_steps=sample_steps)
+        self.model_type = get_model_type(model_name)
+        if self.model_type == ModelType.DIFFUSION:
+            self.seg = DiffusionSegmenter(
+                module=self.module, num_classes=self.num_classes,
+                timesteps=timesteps, sample_steps=sample_steps)
+        else:
+            self.seg = PlainSegmenter(module=self.module,
+                                      num_classes=self.num_classes)
         self._inferer = SlidingWindowInferer(
             roi=(spatial_size, image_size, image_size),
             sw_batch_size=sw_batch_size, overlap=self.overlap, mode=sw_mode)
@@ -241,7 +252,8 @@ class Engine:
 
         The volume is zero-padded to its window-grid bucket and the result
         cropped back; window starts come from the real shape (edge windows
-        clamped flush with the real volume)."""
+        clamped flush with the real volume). Each window batch runs the
+        DDIM loop, or one forward of a plain model."""
         volume = volume.to(self.device, torch.float32)
         vshape = tuple(volume.shape[:3])
         bucket = bucket_shape(vshape, self._inferer.roi, self.overlap)
@@ -252,7 +264,11 @@ class Engine:
         if any(pads):
             volume = torch.nn.functional.pad(
                 volume, (0, 0, 0, pads[2], 0, pads[1], 0, pads[0]))
-        predictor = make_ddim_window_predictor(self.seg, self.seed)
+        if self.model_type == ModelType.DIFFUSION:
+            predictor = make_ddim_window_predictor(self.seg, self.seed)
+        else:
+            def predictor(windows, starts):
+                return self.seg.predict(windows)
         logits = self._inferer(predictor, volume,
                                out_channels=self.num_classes, groups=groups)
         binary = (torch.sigmoid(logits) > 0.5).float()
@@ -401,8 +417,10 @@ class Tester(Engine):
 
 
 class Trainer(Engine):
-    """Training engine for ``diff_unet`` (``cfg/amos/train.yaml``) and
-    ``diff_swin_unetr`` (``cfg/btcv/train.yaml``).
+    """Training engine for ``diff_unet`` (``cfg/amos/train.yaml``,
+    ``cfg/msd/train.yaml``), ``diff_swin_unetr`` (``cfg/btcv/train.yaml``)
+    and the plain ``swin_unetr`` baseline (one forward per step, no
+    q_sample).
 
     Data: the training and validation lists of ``data_path``'s
     ``dataset.json`` (``set_dataloader``; labels converted per batch on the
@@ -412,19 +430,28 @@ class Trainer(Engine):
     validation set (``data_path`` is then unused). Labels are
     distance-smoothed over ``num_classes + 1`` values and lose the
     background channel unless ``include_background`` (``label_smoothing``),
-    or are one-hot encoded over the class ids.
+    or are one-hot encoded over the class ids. Where ``losses`` lists
+    ``boundary``, each batch's signed distance maps are computed on the
+    host (``losses/edt.py``, the exact C++ EDT).
 
-    ``train()`` runs epochs of one AdamW step per batch and stops with the
+    The train step (``engine/train.py:TrainStep``) takes the JAX Trainer's
+    keys: ``ema_rate`` (an EMA tree updated after every call),
+    ``accum_steps`` (an AdamW update every k calls on the mean of their
+    gradients) and ``t_sampler`` (``uniform`` or ``loss_aware``).
+    ``pretrained_path`` grafts a MONAI ``encoder.pt`` or ``swinvit.pt``
+    (``utils/pretrained.py``) unless ``model_path`` resumes.
+
+    ``train()`` runs epochs of one train call per batch and stops with the
     previous step's loss when it is not finite; after each epoch it saves
     ``logs/<log_dir>/weights/epoch_{n}.pt`` every ``save_freq`` epochs,
     then validates every ``val_freq`` epochs (mean ``validation_dice`` over
     the validation volumes; a new best above 0.5 is saved as
     ``best_{dice:.4f}.pt``). SIGTERM or SIGUSR1 saves ``preempt.pt`` after
     the current step and returns. ``model_path`` resumes from a ``.pt``:
-    parameters, AdamW state, schedule count, generator and metadata, from
-    the saved epoch on, so a resumed run takes the same steps as one that
-    was not stopped. ``history`` holds one record per step: loss, grad norm
-    and lr."""
+    parameters, AdamW state, schedule count, generator, EMA tree, sampler
+    state, accumulated gradient and metadata, from the saved epoch on, so
+    a resumed run takes the same steps as one that was not stopped.
+    ``history`` holds one record per step: loss, grad norm and lr."""
 
     _phases = (("train", "training"), ("val", "validation"))
 
@@ -439,17 +466,14 @@ class Trainer(Engine):
                  t_sampler: str = "uniform", model_name: str = "diff_unet",
                  model_path: Optional[str] = None, log_dir: str = "logs",
                  **kwargs) -> None:
-        if model_name not in ("diff_unet", "diff_swin_unetr"):
+        if model_name not in ("diff_unet", "diff_swin_unetr", "swin_unetr"):
             raise NotImplementedError(
                 f"training {model_name} is not ported yet (ROADMAP.md); "
-                "diff_unet and diff_swin_unetr are")
+                "diff_unet, diff_swin_unetr and swin_unetr are")
         if train_data is None and kwargs.get("data_path") is None:
             raise ValueError("Trainer needs data_path (a directory holding "
                              "a Decathlon dataset.json) or train_data (an "
                              "iterable of batches)")
-        if pretrained_path is not None:
-            raise NotImplementedError("pretrained encoder loading is not "
-                                      "ported yet (ROADMAP.md)")
         super().__init__(model_name=model_name, log_dir=log_dir, **kwargs)
         self.module.train()
         self.max_epochs = max_epochs
@@ -460,8 +484,13 @@ class Trainer(Engine):
                                        loss_combine)
         self.log_dir = Path("logs") / log_dir
         self.weights_path = self.log_dir / "weights"
+        # the signed distance maps of each train_data batch, for boundary
+        self.batch_dist_maps: Optional[List[torch.Tensor]] = None
         if train_data is not None:
             self.batches = [self._prepare(b) for b in train_data]
+            if self.criterion.needs_dist_maps:
+                self.batch_dist_maps = [self._dist_maps(lab)
+                                        for _, lab in self.batches]
             steps_per_epoch = len(self.batches)
         else:
             self.batches = None
@@ -472,11 +501,10 @@ class Trainer(Engine):
             weight_decay=float(weight_decay),
             scheduler="warmup_cosine" if scheduler else None,
             warmup_epochs=warmup_epochs, max_epochs=max_epochs,
-            steps_per_epoch=max(steps_per_epoch, 1),
-            accum_steps=accum_steps)
-        self.train_step = TrainStep(self.seg, self.criterion, optimizer,
-                                    schedule, ema_rate=ema_rate,
-                                    t_sampler=t_sampler)
+            steps_per_epoch=max(steps_per_epoch, 1))
+        self.train_step = TrainStep(
+            self.seg, self.criterion, optimizer, schedule,
+            ema_rate=ema_rate, t_sampler=t_sampler, accum_steps=accum_steps)
         self.generator = torch.Generator(self.device).manual_seed(
             self.seed + 1)
         self.start_epoch = 0
@@ -488,6 +516,11 @@ class Trainer(Engine):
         self.history: List[Dict[str, float]] = []
         if model_path is not None:
             self.load_checkpoint(model_path)
+        elif pretrained_path is not None:
+            load_pretrained_encoder(pretrained_path, self.module,
+                                    self.model_name)
+            self.train_step.reset_ema()
+            print(f"Load pretrained weights from {pretrained_path}")
 
     @classmethod
     def from_config(cls, path, train_data=None, **overrides) -> "Trainer":
@@ -521,8 +554,18 @@ class Trainer(Engine):
         label = torch.from_numpy(np.ascontiguousarray(label)).to(self.device)
         return image, self.convert_labels(label)
 
+    def _dist_maps(self, labels: torch.Tensor) -> torch.Tensor:
+        """The signed distance maps of channel labels (B, D, H, W, C),
+        computed on the host, on the labels' device."""
+        return torch.from_numpy(batch_dist_maps(labels.cpu().numpy())).to(
+            labels.device)
+
     # ---- checkpoints ----
+    def _param_names(self) -> List[str]:
+        return [n for n, _ in self.module.named_parameters()]
+
     def save_model(self, path) -> None:
+        step = self.train_step
         meta = {
             "epoch": self.epoch + 1,
             "loss": float(self.loss),
@@ -532,21 +575,23 @@ class Trainer(Engine):
             "project_name": self.project_name,
             "id": self.run_id,
         }
-        ckpt_lib.save_checkpoint(path, self.module,
-                                 self.train_step.optimizer,
-                                 self.train_step.count, self.generator,
-                                 meta)
+        ckpt_lib.save_checkpoint(
+            path, self.module, step.optimizer, step.count, self.generator,
+            meta, **step.extra_state(self._param_names()))
         print(f"model is saved in {path}")
 
     def load_checkpoint(self, model_path) -> None:
         """Resume from the port's ``.pt``: parameters, AdamW state,
-        schedule count, generator (when saved from the same device type)
-        and metadata; training goes on at the saved epoch."""
+        schedule count, generator (when saved from the same device type),
+        EMA tree, sampler state, accumulated gradient and metadata;
+        training goes on at the saved epoch."""
         state = ckpt_lib.load_training_state(model_path)
+        step = self.train_step
         self.module.load_state_dict(state["state_dict"])
         if state["optimizer"] is not None:
-            self.train_step.optimizer.load_state_dict(state["optimizer"])
-        self.train_step.count = state["count"]
+            step.optimizer.load_state_dict(state["optimizer"])
+        step.count = state["count"]
+        step.load_extra_state(state, self._param_names())
         if state["generator"] is not None:
             if state["generator_device"] == self.device.type:
                 self.generator.set_state(state["generator"])
@@ -608,10 +653,11 @@ class Trainer(Engine):
         # one step late, as in the JAX engine
         losses: List[float] = []
         prev = None
-        for image, labels in batches:
+        for i, (image, labels) in enumerate(batches):
             self.global_step += 1
             metrics = self.train_step(image, labels,
-                                      generator=self.generator)
+                                      generator=self.generator,
+                                      dist_maps=self.dist_maps_of(i, labels))
             if prev is not None:
                 losses.append(self._record(prev))
                 meter.update(loss=losses[-1])
@@ -625,6 +671,16 @@ class Trainer(Engine):
                         step=self.global_step)
         if (epoch + 1) % self.save_freq == 0:
             self.save_model(self.weights_path / f"epoch_{epoch + 1}.pt")
+
+    def dist_maps_of(self, i: int, labels: torch.Tensor
+                     ) -> Optional[torch.Tensor]:
+        """The distance maps of batch ``i`` where ``boundary`` needs them:
+        precomputed for ``train_data``, computed now for loader batches."""
+        if not self.criterion.needs_dist_maps:
+            return None
+        if self.batch_dist_maps is not None:
+            return self.batch_dist_maps[i]
+        return self._dist_maps(labels)
 
     def _record(self, metrics: Dict[str, Any]) -> float:
         loss = float(metrics["loss"])

@@ -1,8 +1,9 @@
-"""Model factory (counterpart of ``create_model`` in
-``diff_unet_tpu/models/model_hub.py``). ``diff_unet`` and
-``diff_swin_unetr`` are ported so far."""
+"""Model factory and model types (counterpart of
+``diff_unet_tpu/models/model_hub.py``). ``diff_unet``, ``diff_swin_unetr``
+and the plain ``swin_unetr`` baseline are ported so far."""
 from __future__ import annotations
 
+import enum
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -15,6 +16,24 @@ MODEL_NAMES = (
     "swin_unetr",
     "attention_unet",
 )
+
+
+class ModelType(enum.Enum):
+    DIFFUSION = "diffusion"
+    SWIN_UNETR = "swin_unetr"
+    ATTENTION_UNET = "attention_unet"
+
+
+def get_model_type(model_name: str) -> ModelType:
+    """Diffusion models train on q_sample and serve by DDIM; the others
+    map an image to logits in one forward."""
+    if model_name not in MODEL_NAMES:
+        raise ValueError(f"Invalid model type: {model_name}")
+    if "diff" in model_name:
+        return ModelType.DIFFUSION
+    if model_name == "swin_unetr":
+        return ModelType.SWIN_UNETR
+    return ModelType.ATTENTION_UNET
 
 
 def parse_image_size(image_size: int, spatial_size: int
@@ -37,6 +56,12 @@ def create_model(model_name: str, *, in_channels: int = 1,
     if model_name == "diff_swin_unetr":
         from diff_unet_tpu_torch.models.swin_unetr import DiffSwinUNETR
         return DiffSwinUNETR(
+            out_channels=out_channels, in_channels=in_channels,
+            image_size=parse_image_size(image_size, spatial_size),
+            feature_size=feature_size, dtype=dtype)
+    if model_name == "swin_unetr":
+        from diff_unet_tpu_torch.models.swin_unetr import SwinUNETR
+        return SwinUNETR(
             out_channels=out_channels, in_channels=in_channels,
             image_size=parse_image_size(image_size, spatial_size),
             feature_size=feature_size, dtype=dtype)

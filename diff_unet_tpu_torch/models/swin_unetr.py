@@ -1,6 +1,7 @@
-"""Diffusion Swin-UNETR: image encoder, time-conditioned denoiser, and the
-two together (counterpart of ``diff_unet_tpu/models/swin_unetr.py``,
-unpacked execution only).
+"""Swin-UNETR models (counterpart of ``diff_unet_tpu/models/swin_unetr.py``,
+unpacked execution only): the diffusion model's image encoder,
+time-conditioned denoiser and the two together (``DiffSwinUNETR``), and the
+plain segmentation baseline (``SwinUNETR``).
 
 Channel-last (NDHWC) throughout; LeakyReLU slope 0.01 in the UNETR
 residual blocks; submodule names follow the flax scopes.
@@ -182,3 +183,50 @@ class DiffSwinUNETR(nn.Module):
 
     def denoise_with_embeddings(self, x, t, embeddings, image):
         return self.model(x, t, embeddings, image)
+
+
+class SwinUNETR(nn.Module):
+    """The plain (non-diffusion) Swin-UNETR segmentation baseline: the
+    denoiser's topology without timestep conditioning, conditioning
+    embeddings or reverse attention; image (N, D, H, W, Cin) -> logits
+    (N, D, H, W, out_channels)."""
+
+    def __init__(self, out_channels: int, in_channels: int = 1,
+                 image_size: Tuple[int, int, int] = (96, 96, 96),
+                 feature_size: int = 48,
+                 depths: Tuple[int, ...] = (2, 2, 2, 2),
+                 num_heads: Tuple[int, ...] = (3, 6, 12, 24),
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        for m in image_size:
+            if m % 32:
+                raise ValueError("image size must be divisible by 2^5 for "
+                                 f"the Swin pyramid, got {image_size}")
+        fs = feature_size
+        self.swinViT = SwinTransformer(in_channels, fs, depths=depths,
+                                       num_heads=num_heads, dtype=dtype)
+        self.encoder1 = UnetrBasicBlock(in_channels, fs, False, dtype=dtype)
+        self.encoder2 = UnetrBasicBlock(fs, fs, False, dtype=dtype)
+        self.encoder3 = UnetrBasicBlock(2 * fs, 2 * fs, False, dtype=dtype)
+        self.encoder4 = UnetrBasicBlock(4 * fs, 4 * fs, False, dtype=dtype)
+        self.encoder10 = UnetrBasicBlock(16 * fs, 16 * fs, False,
+                                         dtype=dtype)
+        self.decoder5 = UnetrUpBlock(16 * fs, 8 * fs, False, dtype=dtype)
+        self.decoder4 = UnetrUpBlock(8 * fs, 4 * fs, False, dtype=dtype)
+        self.decoder3 = UnetrUpBlock(4 * fs, 2 * fs, False, dtype=dtype)
+        self.decoder2 = UnetrUpBlock(2 * fs, fs, False, dtype=dtype)
+        self.decoder1 = UnetrUpBlock(fs, fs, False, dtype=dtype)
+        self.out = Conv(fs, out_channels, 1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        hidden = self.swinViT(x)
+        enc0 = self.encoder1(x)
+        enc1 = self.encoder2(hidden[0])
+        enc2 = self.encoder3(hidden[1])
+        enc3 = self.encoder4(hidden[2])
+        dec4 = self.encoder10(hidden[4])
+        dec3 = self.decoder5(dec4, hidden[3])
+        dec2 = self.decoder4(dec3, enc3)
+        dec1 = self.decoder3(dec2, enc2)
+        dec0 = self.decoder2(dec1, enc1)
+        return self.out(self.decoder1(dec0, enc0))

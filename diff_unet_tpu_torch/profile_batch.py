@@ -3,19 +3,25 @@ train step of its training path, on the card.
 
     python -m diff_unet_tpu_torch.profile_batch amos [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch btcv [--out FILE]
+    python -m diff_unet_tpu_torch.profile_batch swin_unetr [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch btcv_train [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch amos_train [--out FILE]
+    python -m diff_unet_tpu_torch.profile_batch msd_train [--out FILE]
+    python -m diff_unet_tpu_torch.profile_batch swin_unetr_train [--out FILE]
 
-``btcv_train`` and ``amos_train`` build the ``Trainer`` of
-``cfg/btcv/train.yaml`` (batch 1, 14 label values) or
-``cfg/amos/train.yaml`` (batch 10, 16 label values) on synthetic batches
+The ``_train`` modes build the ``Trainer`` of ``cfg/btcv/train.yaml``
+(batch 1, 14 label values), ``cfg/amos/train.yaml`` (batch 10, 16 label
+values), ``cfg/msd/train.yaml`` (batch 4, 3 label values) or the BTCV
+config with ``model_name=swin_unetr`` on synthetic batches
 (``data/synthetic.py``) and profile its train step (q_sample, denoise,
-loss, backward, AdamW) the same way.
+loss, backward, AdamW; the plain model: forward, loss, backward, AdamW)
+the same way.
 
-Builds the ``Predictor`` of ``cfg/<data>/test.yaml`` with seeded random
-weights and runs what it runs for each window batch: the image embedding
-and the DDIM loop over ``sw_batch_size`` windows of the ROI (stitching
-excluded). After two warm-up batches it times three batches without the
+The others build the ``Predictor`` of ``cfg/<data>/test.yaml`` (``swin_unetr``:
+the BTCV config with that model) with seeded random weights and run what
+it runs for each window batch: the image embedding and the DDIM loop over
+``sw_batch_size`` windows of the ROI, or the plain model's one forward
+(stitching excluded). After two warm-up batches it times three batches without the
 profiler (host clock ended by ``torch.cuda.synchronize()``), then traces one
 with ``torch.profiler`` (CPU and CUDA activities). It prints the card, the
 un-profiled seconds per batch, the traced batch's summed device time and
@@ -50,19 +56,34 @@ def _device_us(evt, self_only: bool) -> float:
     raise AttributeError("profiler event has no device time")
 
 
+# the config and model of each mode's name
+_CONFIGS = {"btcv": ("btcv", {}), "amos": ("amos", {}), "msd": ("msd", {}),
+            "swin_unetr": ("btcv", {"model_name": "swin_unetr"})}
+
+
 def _window_batch(dev: torch.device, data: str):
     """The Predictor of ``cfg/<data>/test.yaml`` and one window batch of
     its serving path."""
+    from diff_unet_tpu_torch.api import PlainSegmenter
     from diff_unet_tpu_torch.engine.engine import Predictor
 
+    cfg, extra = _CONFIGS[data]
     pred = Predictor.from_config(
-        ROOT / f"cfg/{data}/test.yaml", model_path=None,
-        classes=str(ROOT / f"cfg/{data}/classes.yaml"), device=dev, seed=0)
+        ROOT / f"cfg/{cfg}/test.yaml", model_path=None,
+        classes=str(ROOT / f"cfg/{cfg}/classes.yaml"), device=dev, seed=0,
+        **extra)
     sw, roi = pred.sw_batch_size, pred._inferer.roi
     g = torch.Generator(device=dev).manual_seed(0)
     windows = torch.rand((sw, *roi, 1), generator=g, device=dev)
     noise = torch.randn((sw, *roi, pred.num_classes), generator=g,
                         device=dev)
+
+    if isinstance(pred.seg, PlainSegmenter):
+        def batch():
+            with torch.inference_mode():
+                return pred.seg.predict(windows)
+
+        return pred, batch, f"one window batch of {sw} x {roi} (a forward)"
 
     def batch():
         with torch.inference_mode():
@@ -74,7 +95,8 @@ def _window_batch(dev: torch.device, data: str):
 
 # labels of the synthetic batches (the classes table's entries) and batch
 # size of each train config
-_TRAIN = {"btcv": (14, 1), "amos": (16, 10)}
+_TRAIN = {"btcv": (14, 1), "amos": (16, 10), "msd": (3, 4),
+          "swin_unetr": (14, 1)}
 
 
 def _train_step(dev: torch.device, data: str):
@@ -84,11 +106,13 @@ def _train_step(dev: torch.device, data: str):
     from diff_unet_tpu_torch.engine.engine import Trainer
 
     labels, batch = _TRAIN[data]
+    cfg, extra = _CONFIGS[data]
     trainer = Trainer.from_config(
-        ROOT / f"cfg/{data}/train.yaml", device=dev, seed=0, max_epochs=1,
-        classes=str(ROOT / f"cfg/{data}/classes.yaml"),
+        ROOT / f"cfg/{cfg}/train.yaml", device=dev, seed=0, max_epochs=1,
+        classes=str(ROOT / f"cfg/{cfg}/classes.yaml"),
         train_data=SyntheticSegmentation((96, 96, 96), num_labels=labels,
-                                         batch_size=batch, batches=1))
+                                         batch_size=batch, batches=1),
+        **extra)
     image, labels = trainer.batches[0]
 
     def step():
@@ -102,8 +126,8 @@ def _train_step(dev: torch.device, data: str):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("data", choices=("amos", "btcv", "btcv_train",
-                                     "amos_train"))
+    ap.add_argument("data", choices=(
+        "amos", "btcv", "swin_unetr", *(f"{k}_train" for k in _TRAIN)))
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()

@@ -273,6 +273,9 @@ CONV_KERNEL_CASES = [
     ([16, 16, 32, 16], None, True, (1, 8, 8, 8), 64),
     ([1], None, True, (4, 16, 16, 16), 64),
     ([1, 15], None, True, (4, 16, 16, 16), 64),
+    # the MSD denoiser stem: image and 2 classes (4-byte bf16 rows)
+    ([1, 2], None, True, (4, 16, 16, 16), 64),
+    ([1, 2], None, True, (2, 13, 11, 21), 64),
     ([256, 256], None, True, (2, 12, 12, 12), 256),
     # fp32 tiles of 64 voxels that span samples: 8 and 27 voxels a sample
     ([8], "const", True, (10, 2, 2, 2), 16),
@@ -411,6 +414,8 @@ CONV_GRAD_CASES = [
     ([8, 16, 5, 3], 24, (1, 9, 10, 22), True),
     ([1, 15], 64, (2, 13, 11, 21), False),
     ([20], 5, (1, 5, 7, 11), True),
+    ([1, 2], 64, (4, 16, 16, 16), False),        # the MSD denoiser stem
+    ([1, 2], 64, (2, 13, 11, 21), False),
 ]
 
 
@@ -559,3 +564,22 @@ def test_diff_unet_train_step_is_reproducible(dev, dtype):
                     + [p.detach().clone() for p in model.parameters()])
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_loss_aware_update_on_the_card_matches_the_cpu(dev):
+    """The sampler's ring update with repeated timesteps gives the CPU's
+    bits on the card (every duplicate writes its last sample's row)."""
+    from diff_unet_tpu_torch.diffusion import resample
+
+    g = torch.Generator().manual_seed(0)
+    states = [resample.init_loss_aware(50, 4, torch.device("cpu")),
+              resample.init_loss_aware(50, 4, dev)]
+    for _ in range(30):
+        t = torch.randint(0, 50, (10,), generator=g)
+        t[3] = t[7] = t[1]
+        losses = torch.rand(10, generator=g)
+        states = [resample.update_loss_aware(states[0], t, losses),
+                  resample.update_loss_aware(states[1], t.to(dev),
+                                             losses.to(dev))]
+    assert torch.equal(states[1].losses.cpu(), states[0].losses)
+    assert torch.equal(states[1].counts.cpu(), states[0].counts)
