@@ -67,7 +67,9 @@ PyTorch built for CUDA. Phases, each of which must pass:
    DiffUNet's card step, run twice from the same start, gives the same
    bits; one DiffUNet train step with all 14 loss names (the boundary
    loss's distance maps from the host EDT); the plain Swin-UNETR's forward
-   and two train steps;
+   and two train steps; SmoothDiffUNet (features (8, 8, 16, 32, 64, 8),
+   16x32x32 windows) embed and denoise in fp32 and bf16, and two train
+   steps as DiffUNet's, its card step run twice for the same bits;
 5. each slice at full width from the repository's config with seeded
    random weights:
    a. ``cfg/btcv/test.yaml`` (diff_swin_unetr, feature 48, 13 classes,
@@ -110,6 +112,15 @@ PyTorch built for CUDA. Phases, each of which must pass:
       partition, reverse launches forward and as many backward), then a
       ``Predictor`` (``cfg/btcv/test.yaml``) on the 96x192x192 CT, one
       forward per window batch and no DDIM loop;
+   h. ``cfg/amos/test.yaml`` with ``model_name=smooth_diff_unet`` (the
+      smoothing encoder and the layer-norm denoiser at the AMOS widths):
+      a ``Predictor`` serves the 96x192x192 CT, exactly 190 conv launches
+      per window batch (570 in all) and no dgrad or wgrad;
+   i. ``cfg/amos/train.yaml`` with ``model_name=smooth_diff_unet``, batch
+      10, as d: 28 / 26 / 28 conv launches a step, every smoothing weight
+      moved, median s/step and peak memory beside d's; then one 64 -> 64
+      TwoConv at 10 x 96^3, forward and forward + backward, with the
+      instance-norm chain and with the layer-norm chain;
 6. the exact distance transform under HD95 (``ops/edt.py``, host C++ built
    with g++) against ``scipy.ndimage.distance_transform_edt`` on one
    96x192x192 organ-surface mask, within 1e-6 of the largest distance,
@@ -137,9 +148,9 @@ PyTorch built for CUDA. Phases, each of which must pass:
 Serving outputs are checked for shape, finiteness and a binary mask. Each
 path is driven with its kernels' launch counters set to 0 just before it
 and read just after; the kernels line reports each kernel's launches on
-the first path of ``LAUNCH_ORDER`` it ran on (the AMOS evaluation first)
-and all of them under ``launches_by_path``. Phases 2-8 run in a
-temporary directory under ``build/``, where the trainers' logs and phases
+the first path of ``LAUNCH_ORDER`` it ran on (the AMOS SmoothDiffUNet
+training first) and all of them under ``launches_by_path``. Phases 2-8
+run in a temporary directory under ``build/``, where the trainers' logs and phases
 7-8's data, weights and logs are written. It prints one
 JSON line with the kernels (times, error, launches, and the least time the
 card could take, from this run's shapes and the H100 SXM peaks), then,
@@ -164,6 +175,12 @@ SEED = 0
 ROOT = Path(__file__).resolve().parent
 ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 MODEL_TOL = 1e-3
+# a small bf16 model on the card against the CPU's bf16 plain path, as a
+# fraction of max |y|: both round at the same points, but a sum taken in
+# another order can round a bf16 value the other way (2^-9 relative), and
+# such flips pass through ~30 convs and norms; the worst is the deepest
+# encoder level, an instance norm over 1x2x2 voxels (3.6e-2 on an H100)
+SMOOTH_BF16_TOL = 5e-2
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate, and the operation
 # rate of each type on the unit that the kernels use
 HBM_BYTES_PER_S = 3.35e12
@@ -282,7 +299,8 @@ SWIN_UNETR_PER_BATCH = {"window_attention": 8, "shift_windows": 6,
                         "window_partition": 4, "window_reverse": 4}
 # the paths whose launches the kernels line reports, in order of choice:
 # this slice's paths first
-LAUNCH_ORDER = ("msd_train", "amos_train_ema", "swin_unetr_train",
+LAUNCH_ORDER = ("amos_smooth_train", "amos_smooth_serve", "msd_train",
+                "amos_train_ema", "swin_unetr_train",
                 "swin_unetr_serve", "amos_test", "amos_train_data",
                 "amos_train", "btcv_train", "btcv_serve", "amos_serve")
 EDT_SHAPE = (96, 192, 192)
@@ -1034,16 +1052,61 @@ def phase_small_diff_unet(dev: torch.device) -> None:
         fail("small DiffUNet on the card disagrees with the CPU")
 
 
+def phase_small_smooth(dev: torch.device) -> None:
+    """SmoothDiffUNet (features (8, 8, 16, 32, 64, 8), 16x32x32 windows)
+    on the card against the same weights on the CPU's plain path: embed
+    and denoise in fp32 (TF32 off, within MODEL_TOL) and in bf16 (the
+    plain versions round where the kernels do and sum in another order:
+    within SMOOTH_BF16_TOL of max |y|)."""
+    from diff_unet_tpu_torch.models.smooth_diff_unet import SmoothDiffUNet
+    from diff_unet_tpu_torch.utils.weights import init_random
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d, hw, classes, fea = 16, 32, 3, (8, 8, 16, 32, 64, 8)
+    rng = np.random.default_rng(SEED)
+    image = torch.from_numpy(rng.standard_normal((2, d, hw, hw, 1),
+                                                 np.float32))
+    x = torch.from_numpy(rng.standard_normal((2, d, hw, hw, classes),
+                                             np.float32))
+    t = torch.tensor([5, 250])
+    for dtype, tol in ((None, MODEL_TOL),
+                       (torch.bfloat16, SMOOTH_BF16_TOL)):
+        cpu = init_random(SmoothDiffUNet(classes, image_size=hw,
+                                         spatial_size=d, features=fea,
+                                         dtype=dtype), SEED).eval()
+        gpu = SmoothDiffUNet(classes, image_size=hw, spatial_size=d,
+                             features=fea, dtype=dtype)
+        gpu.load_state_dict(cpu.state_dict())
+        gpu = gpu.to(dev).eval()
+        with torch.inference_mode():
+            want = [*cpu.embed(image), cpu.denoise(image, x, t)]
+            got = [*gpu.embed(image.to(dev)),
+                   gpu.denoise(image.to(dev), x.to(dev), t.to(dev))]
+        errs = [(g.cpu().float() - w.float()).abs().max().item()
+                / w.float().abs().max().item() for g, w in zip(got, want)]
+        name = "fp32, TF32 off" if dtype is None else "bf16"
+        log(f"small SmoothDiffUNet (features {fea}, {d}x{hw}x{hw}, {name}) "
+            f"cuda vs cpu, error / max|y| of the 5 encoder levels and the "
+            f"logits: {[f'{e:.2e}' for e in errs]} (tol {tol:.0e})")
+        if not (all(torch.isfinite(g).all() for g in got)
+                and max(errs) <= tol):
+            fail(f"small SmoothDiffUNet ({name}) on the card disagrees with "
+                 "the CPU")
+
+
 def phase_small_train(dev: torch.device, model_name: str) -> None:
     """Two train steps of a small model on the card and on the CPU from the
-    same weights, t and noise (fp32, TF32 off): DiffSwinUNETR (feature 12)
-    or DiffUNet (features (8, 8, 16, 32, 64, 8), every conv forward and
-    backward on the conv kernels). DiffUNet's second step starts from the
+    same weights, t and noise (fp32, TF32 off): DiffSwinUNETR (feature 12),
+    DiffUNet or SmoothDiffUNet (features (8, 8, 16, 32, 64, 8), every conv
+    forward and backward on the conv kernels; SmoothDiffUNet on 16x32x32:
+    the layer-norm denoiser's bias-only convs, the smoothing weights'
+    gradients). DiffUNet's (and SmoothDiffUNet's) second step starts from the
     CPU's parameters on both sides: Adam's first update is lr * sign(g)
     even where g is rounding noise (conv biases before an instance norm,
     other near-zero gradients), and its 2^3 instance norms amplify such
     sign flips into gradient differences of up to ~1e-2 at the next step,
-    which would measure the flips, not the backward. DiffUNet's card step
+    which would measure the flips, not the backward. Their card step
     is also run a second time from the same start and must give the same
     bits: no float atomics on its path (the conv statistics and split
     sums are added in a fixed order), so a LeakyReLU input within rounding
@@ -1054,22 +1117,28 @@ def phase_small_train(dev: torch.device, model_name: str) -> None:
     from diff_unet_tpu_torch.models.model_hub import create_model
     from diff_unet_tpu_torch.utils.weights import init_random
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     s, classes, lr = 32, 3, 2e-4
-    kw = (dict(features=(8, 8, 16, 32, 64, 8)) if model_name == "diff_unet"
+    conv = model_name in ("diff_unet", "smooth_diff_unet")
+    kw = (dict(features=(8, 8, 16, 32, 64, 8)) if conv
           else dict(feature_size=12))
+    # SmoothDiffUNet on 16x32x32 windows: its smoothing weights take D
+    # from spatial_size, H and W from image_size
+    shape = (s // 2, s, s) if model_name == "smooth_diff_unet" else (s,) * 3
     rng = np.random.default_rng(SEED)
-    steps = [(rng.random((1, s, s, s, 1), np.float32),
+    steps = [(rng.random((1, *shape, 1), np.float32),
               np.eye(classes, dtype=np.float32)[
-                  rng.integers(0, classes, (1, s, s, s))],
+                  rng.integers(0, classes, (1, *shape))],
               np.array([int(rng.integers(0, 1000))]),
-              rng.standard_normal((1, s, s, s, classes), np.float32))
+              rng.standard_normal((1, *shape, classes), np.float32))
              for _ in range(2)]
-    resync = model_name == "diff_unet"
+    resync = conv
 
     def trainer(where):
         model = init_random(create_model(
-            model_name, out_channels=classes, image_size=s, spatial_size=s,
-            **kw), SEED).to(where)
+            model_name, out_channels=classes, image_size=s,
+            spatial_size=shape[0], **kw), SEED).to(where)
         opt, schedule = make_optimizer(model.parameters(), lr=lr,
                                        weight_decay=1e-4)
         return model, TrainStep(DiffusionSegmenter(model, classes),
@@ -1100,7 +1169,7 @@ def phase_small_train(dev: torch.device, model_name: str) -> None:
             record.append(run(model, step, where, *batch))
     cpu, card = records
     reproducible = True
-    if model_name == "diff_unet":
+    if conv:
         again = run(*trainer(dev), dev, *steps[0])
         reproducible = again[0] == card[0][0] and all(
             torch.equal(a, b) for a, b in zip(again[2], card[0][2]))
@@ -1128,7 +1197,7 @@ def phase_small_train(dev: torch.device, model_name: str) -> None:
              for a, b in zip(cpu_params, card_params)]
     i = int(np.argmax(perrs))
     gmax = max(a.abs().max().item() for a in cpu[-1][2])
-    log(f"small {model_name} train steps ({kw}, {s}^3, fp32, TF32 off) "
+    log(f"small {model_name} train steps ({kw}, {shape}, fp32, TF32 off) "
         f"cuda vs cpu: loss rel {worst[0]:.3e}, grad norm rel "
         f"{worst[1]:.3e} (tol "
         f"{MODEL_TOL:.0e}); worst gradient error {worst[2]:.3e} of max(|g| "
@@ -1146,25 +1215,28 @@ def phase_small_train(dev: torch.device, model_name: str) -> None:
 
 
 def phase_serve(dev: torch.device, data: str, counters: dict,
-                per_batch: dict) -> dict:
-    """Serve the three synthetic volumes with a Predictor built from
-    ``cfg/<data>/test.yaml``; ``counters`` maps kernel names to their
-    wrappers, whose counts are set to 0 just before and read just after;
-    each must equal ``per_batch[name]`` times the window batches."""
+                per_batch: dict, path: str = None,
+                shapes=((96, 192, 192), (80, 160, 176), (96, 96, 96)),
+                **overrides) -> dict:
+    """Serve the synthetic volumes of ``shapes`` (after a warm-up on a 96^3
+    one) with a Predictor built from ``cfg/<data>/test.yaml`` and
+    ``overrides``; ``counters`` maps kernel names to their wrappers, whose
+    counts are set to 0 just before and read just after; each must equal
+    ``per_batch[name]`` times the window batches. The launches are
+    returned under ``path`` (default ``<data>_serve``)."""
     from diff_unet_tpu_torch.data.synthetic import synthetic_ct
     from diff_unet_tpu_torch.engine.engine import Predictor
 
     pred = Predictor.from_config(
         ROOT / f"cfg/{data}/test.yaml", model_path=None,
         classes=str(ROOT / f"cfg/{data}/classes.yaml"), device=dev,
-        seed=SEED)
+        seed=SEED, **overrides)
     log(f"predictor: {pred.model_name}, {pred.num_classes} classes, roi "
         f"{pred._inferer.roi}, sw_batch_size {pred.sw_batch_size}, overlap "
         f"{pred.overlap}, dtype {pred.dtype}, "
         f"{sum(p.numel() for p in pred.module.parameters())} parameters")
-    shapes = [(96, 192, 192), (80, 160, 176), (96, 96, 96)]
     volumes = [synthetic_ct(s, SEED + i, dev) for i, s in enumerate(shapes)]
-    pred.infer(volumes[2])                 # warm-up: cuDNN plans, tables
+    pred.infer(synthetic_ct((96, 96, 96), SEED + 9, dev))  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
 
@@ -1199,14 +1271,14 @@ def phase_serve(dev: torch.device, data: str, counters: dict,
             fail("binary output is not {0, 1}")
     log(f"peak device memory while serving: "
         f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
-    log(f"launches during {data} serving ({batches} window batches): "
-        f"{counts}")
+    path = path or f"{data}_serve"
+    log(f"launches during {path} ({batches} window batches): {counts}")
     for k, c in counts.items():
         if c != per_batch[k] * batches or backward[k]:
             fail(f"kernel {k}: {c} launches ({backward[k]} in a backward), "
                  f"predicted {per_batch[k]} x {batches} = "
                  f"{per_batch[k] * batches}")
-    return {k: {f"{data}_serve": c} for k, c in counts.items()}
+    return {k: {path: c} for k, c in counts.items()}
 
 
 def phase_train(dev: torch.device, counters: dict) -> dict:
@@ -1273,14 +1345,17 @@ def phase_train(dev: torch.device, counters: dict) -> dict:
     return counts
 
 
-def phase_train_amos(dev: torch.device) -> dict:
+def phase_train_amos(dev: torch.device,
+                     model_name: str = "diff_unet") -> dict:
     """``Trainer.from_config("cfg/amos/train.yaml")`` at full width
-    (DiffUNet, features (64, 64, 128, 256, 512, 64), 15 classes) on
-    synthetic batches of 10 patches of 96^3 with 16 label values, for
-    ``AMOS_TRAIN_STEPS`` steps: finite losses, grad norms above 0, moved
-    parameters, and exactly AMOS_TRAIN_PER_STEP conv launches a step
+    (DiffUNet, or with ``model_name`` SmoothDiffUNet; features (64, 64,
+    128, 256, 512, 64), 15 classes) on synthetic batches of 10 patches of
+    96^3 with 16 label values, for ``AMOS_TRAIN_STEPS`` steps: finite
+    losses, grad norms above 0, moved parameters (every smoothing weight
+    among them), and exactly AMOS_TRAIN_PER_STEP conv launches a step
     (forward, dgrad, wgrad); then the median synchronised s/step and the
-    peak device memory. Returns the launches of ``train()``."""
+    peak device memory. Returns the launches of ``train()``, the median
+    s/step and the peak memory in GiB."""
     from diff_unet_tpu_torch.data.synthetic import SyntheticSegmentation
     from diff_unet_tpu_torch.engine.engine import Trainer
     from diff_unet_tpu_torch.ops.conv3d import conv3x3, conv3x3_wgrad, \
@@ -1292,12 +1367,16 @@ def phase_train_amos(dev: torch.device) -> dict:
     trainer = Trainer.from_config(
         ROOT / "cfg/amos/train.yaml", train_data=data, device=dev,
         classes=str(ROOT / "cfg/amos/classes.yaml"), seed=SEED,
-        max_epochs=1)
+        max_epochs=1, model_name=model_name)
     torch.cuda.synchronize()
+    names = [n for n, _ in trainer.module.named_parameters()]
+    smooth = sum(p.numel() for n, p in trainer.module.named_parameters()
+                 if ".smooth_" in n)
     log(f"trainer: {trainer.model_name}, {trainer.num_classes} classes, "
         f"patch {trainer._inferer.roi}, batch {trainer.batch_size}, dtype "
         f"{trainer.dtype}, label smoothing {trainer.label_smoothing}, "
-        f"{sum(p.numel() for p in trainer.module.parameters())} parameters; "
+        f"{sum(p.numel() for p in trainer.module.parameters())} parameters"
+        f"{f' ({smooth} smoothing weights)' if smooth else ''}; "
         f"set-up (data, model) {time.perf_counter() - t0:.1f} s")
     before = [p.detach().clone() for p in trainer.module.parameters()]
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1311,13 +1390,14 @@ def phase_train_amos(dev: torch.device) -> dict:
     packs = packed_weight.packs - packs
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     hist = trainer.history
-    moved = sum(int(not torch.equal(a, p))
-                for a, p in zip(before, trainer.module.parameters()))
-    log("AMOS train steps: " + "; ".join(
+    still = [n for n, a, p in zip(names, before, trainer.module.parameters())
+             if torch.equal(a, p)]
+    moved = len(names) - len(still)
+    log(f"AMOS {model_name} train steps: " + "; ".join(
         f"loss {h['loss']:.5f} grad_norm {h['grad_norm']:.5f} lr "
         f"{h['lr']:.3e}" for h in hist))
-    log(f"launches during AMOS training ({len(hist)} steps): {counts}; "
-        f"weight packs {packs}")
+    log(f"launches during AMOS {model_name} training ({len(hist)} steps): "
+        f"{counts}; weight packs {packs}")
     step_s = []
     for image, labels in trainer.batches:
         torch.cuda.synchronize()
@@ -1325,11 +1405,13 @@ def phase_train_amos(dev: torch.device) -> dict:
         trainer.train_step(image, labels, generator=trainer.generator)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    log(f"AMOS train: median {np.median(step_s[1:]):.4f} s/step over steps "
-        f"2..{len(step_s)} of a synchronised pass, {step_s}; peak device "
-        f"memory {peak:.2f} GiB over the {len(hist)} steps of train() "
-        f"(no activation checkpointing); {moved} of {len(before)} parameter "
-        "tensors moved")
+    log(f"AMOS {model_name} train: median {np.median(step_s[1:]):.4f} "
+        f"s/step over steps 2..{len(step_s)} of a synchronised pass, "
+        f"{step_s}; peak device memory {peak:.2f} GiB over the {len(hist)} "
+        f"steps of train() (no activation checkpointing); {moved} of "
+        f"{len(before)} parameter tensors moved")
+    if any(".smooth_" in n for n in still):
+        fail(f"smoothing weights did not move: {still}")
     if len(hist) != AMOS_TRAIN_STEPS:
         fail(f"the AMOS trainer took {len(hist)} steps, not "
              f"{AMOS_TRAIN_STEPS}")
@@ -1342,7 +1424,49 @@ def phase_train_amos(dev: torch.device) -> dict:
         if c != AMOS_TRAIN_PER_STEP[k] * len(hist):
             fail(f"{k}: {c} launches in {len(hist)} AMOS train steps, "
                  f"predicted {AMOS_TRAIN_PER_STEP[k]} x {len(hist)}")
-    return counts, float(np.median(step_s[1:]))
+    return counts, float(np.median(step_s[1:])), peak
+
+
+def phase_twoconv_norms(dev: torch.device) -> None:
+    """One 64 -> 64 TwoConv (with the timestep FiLM) at 10 x 96^3 in bf16
+    over fp32 parameters, forward and forward + backward (the input's and
+    every parameter's gradient), CUDA-event ms: the instance-norm chain
+    (statistics in the conv kernel, the first norm as the second conv's
+    prologue) against the layer-norm chain (bias-only convs, the per-voxel
+    norm, LeakyReLU and FiLM add in tensor code)."""
+    from diff_unet_tpu_torch.ops.blocks import TEMB_FEATURES, TwoConv
+    from diff_unet_tpu_torch.utils.weights import init_random
+
+    n, side, c = 10, 96, 64
+    g = torch.Generator(dev).manual_seed(SEED)
+    x = torch.randn((n, side, side, side, c), generator=g, device=dev
+                    ).to(torch.bfloat16).requires_grad_()
+    temb = torch.randn((n, TEMB_FEATURES), generator=g, device=dev)
+    dy = torch.randn(x.shape, generator=g, device=dev).to(torch.bfloat16)
+    times = {}
+    for norm in ("instance", "layer"):
+        block = init_random(TwoConv(c, c, norm=norm, dtype=torch.bfloat16),
+                            SEED).to(dev)
+        leaves = [x, *block.parameters()]
+
+        def forward():
+            with torch.no_grad():
+                return block([x], temb)
+
+        def both():
+            return torch.autograd.grad(block([x], temb), leaves, dy)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times[norm] = (cuda_ms(forward, reps=5, warmup=2),
+                       cuda_ms(both, reps=5, warmup=2),
+                       torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        del block, leaves
+    (fi, bi, mi), (fl, bl, ml) = times["instance"], times["layer"]
+    log(f"TwoConv 64->64 at {n}x{side}^3, bf16: forward instance {fi:.3f} "
+        f"ms / layer {fl:.3f} ms ({fl / fi:.2f}x); forward + backward "
+        f"instance {bi:.3f} ms / layer {bl:.3f} ms ({bl / bi:.2f}x); peak "
+        f"memory {mi:.2f} / {ml:.2f} GiB")
 
 
 def phase_edt() -> None:
@@ -2152,8 +2276,10 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
     report.update(phase_backward(dev))
     phase_small_model(dev)
     phase_small_diff_unet(dev)
+    phase_small_smooth(dev)
     phase_small_train(dev, "diff_swin_unetr")
     phase_small_train(dev, "diff_unet")
+    phase_small_train(dev, "smooth_diff_unet")
     phase_small_all_losses(dev)
     phase_small_swin_unetr(dev)
     swin = {"window_attention": window_attention,
@@ -2172,6 +2298,16 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
                              "conv3x3_wgrad": 0}).items():
         paths[k].update(v)
     paths["conv3x3_dgrad"]["amos_serve"] = 0
+    # SmoothDiffUNet: the same 190 convs per window batch (its layer-norm
+    # denoiser's convs bias-only) on one 96x192x192 volume
+    for k, v in phase_serve(dev, "amos", {"conv3x3": conv3x3,
+                                          "conv3x3_wgrad": conv3x3_wgrad},
+                            {"conv3x3": 10 + 18 * 10, "conv3x3_wgrad": 0},
+                            path="amos_smooth_serve",
+                            shapes=((96, 192, 192),),
+                            model_name="smooth_diff_unet").items():
+        paths[k].update(v)
+    paths["conv3x3_dgrad"]["amos_smooth_serve"] = 0
     paths["shift_windows_backward"]["btcv_serve"] = 0
     counts = phase_train(dev, swin)
     # the partition kernel runs forward and in the reverse's backward, and
@@ -2183,9 +2319,18 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
         "btcv_serve": 0, "btcv_train": counts["window_attention"][1]}
     (paths["shift_windows"]["btcv_train"],
      paths["shift_windows_backward"]["btcv_train"]) = counts["shift_windows"]
-    counts, amos_step_s = phase_train_amos(dev)
+    counts, amos_step_s, amos_peak = phase_train_amos(dev)
     for k, c in counts.items():
         paths[k]["amos_train"] = c
+    counts, smooth_step_s, smooth_peak = phase_train_amos(
+        dev, "smooth_diff_unet")
+    for k, c in counts.items():
+        paths[k]["amos_smooth_train"] = c
+    log(f"AMOS train step, smooth_diff_unet against diff_unet: "
+        f"{smooth_step_s:.4f} / {amos_step_s:.4f} s "
+        f"({smooth_step_s / amos_step_s:.2f}x), peak memory "
+        f"{smooth_peak:.2f} / {amos_peak:.2f} GiB")
+    phase_twoconv_norms(dev)
     for phase in (lambda: phase_train_msd(dev),
                   lambda: phase_train_amos_keys(dev, work, amos_step_s),
                   lambda: phase_swin_unetr(dev, swin)):
@@ -2231,7 +2376,8 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
             "through flax nn.Conv (jax.value_and_grad)"),
     }
     # launches: the first path of LAUNCH_ORDER on which the kernel ran,
-    # this slice's main path (the AMOS evaluation) first
+    # this slice's paths (the AMOS SmoothDiffUNet training and serving)
+    # first
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=next((paths[k][p] for p in LAUNCH_ORDER
                                    if paths[k].get(p)), 0),

@@ -1,9 +1,10 @@
 """BasicUNet image encoder and time-conditioned denoiser (counterpart of
 ``diff_unet_tpu/models/basic_unet.py``, unpacked execution only).
 
-Channel-last (NDHWC); LeakyReLU slope 0.1; instance norm; default features
-(64, 64, 128, 256, 512, 64). Every 3x3x3 conv runs in ``TwoConv``'s fused
-chain (``ops/conv3d.py``). Submodule names follow the flax scopes.
+Channel-last (NDHWC); LeakyReLU slope 0.1; instance norm (the denoiser
+also layer norm, ``norm="layer"``); default features (64, 64, 128, 256,
+512, 64). Every 3x3x3 conv runs on the conv kernel through ``TwoConv``
+(``ops/conv3d.py``). Submodule names follow the flax scopes.
 """
 from __future__ import annotations
 
@@ -44,15 +45,16 @@ class BasicUNetDenoiser(nn.Module):
     """Time-conditioned UNet over [image, x_t] with the encoder's feature
     maps added at each level, four UpCat stages and a 1x1 conv to the class
     logits. ``in_channels`` is the channel count of the [image, x_t]
-    concat (or of x_t alone)."""
+    concat (or of x_t alone); ``norm`` is every TwoConv's, "instance" or
+    "layer"."""
 
     def __init__(self, out_channels: int, in_channels: int,
                  features: Sequence[int] = DEFAULT_FEATURES,
-                 negative_slope: float = 0.1,
+                 negative_slope: float = 0.1, norm: str = "instance",
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         fea = tuple(features)
-        kw = dict(negative_slope=negative_slope, dtype=dtype)
+        kw = dict(negative_slope=negative_slope, norm=norm, dtype=dtype)
         self.temb = TimestepEmbedder(dtype=dtype)
         self.conv_0 = TwoConv(in_channels, fea[0], **kw)
         for i in range(1, 5):

@@ -1,6 +1,7 @@
 """Model factory and model types (counterpart of
-``diff_unet_tpu/models/model_hub.py``). ``diff_unet``, ``diff_swin_unetr``
-and the plain ``swin_unetr`` baseline are ported so far."""
+``diff_unet_tpu/models/model_hub.py``). ``diff_unet``,
+``smooth_diff_unet``, ``diff_swin_unetr`` and the plain ``swin_unetr``
+baseline are ported so far."""
 from __future__ import annotations
 
 import enum
@@ -46,13 +47,21 @@ def create_model(model_name: str, *, in_channels: int = 1,
                  spatial_size: int = 96, feature_size: int = 48,
                  features: Optional[Sequence[int]] = None,
                  dtype: Optional[torch.dtype] = None):
-    """Build a model module by name. ``features`` sets DiffUNet's six
-    level widths (default (64, 64, 128, 256, 512, 64))."""
+    """Build a model module by name. ``features`` sets the six level
+    widths of DiffUNet and SmoothDiffUNet (default (64, 64, 128, 256, 512,
+    64)); SmoothDiffUNet's smoothing weights take the (spatial_size,
+    image_size, image_size) window's shape."""
+    kw = {"features": tuple(features)} if features else {}
     if model_name == "diff_unet":
         from diff_unet_tpu_torch.models.diff_unet import DiffUNet
-        kw = {"features": tuple(features)} if features else {}
         return DiffUNet(out_channels=out_channels, in_channels=in_channels,
                         dtype=dtype, **kw)
+    if model_name == "smooth_diff_unet":
+        from diff_unet_tpu_torch.models.smooth_diff_unet import \
+            SmoothDiffUNet
+        return SmoothDiffUNet(out_channels=out_channels,
+                              in_channels=in_channels, image_size=image_size,
+                              spatial_size=spatial_size, dtype=dtype, **kw)
     if model_name == "diff_swin_unetr":
         from diff_unet_tpu_torch.models.swin_unetr import DiffSwinUNETR
         return DiffSwinUNETR(

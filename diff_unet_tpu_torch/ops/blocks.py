@@ -2,9 +2,10 @@
 
 Counterparts of ``flax.linen`` ``Dense``/``Conv``/``ConvTranspose``/
 ``LayerNorm`` and of ``diff_unet_tpu/ops/blocks.py`` (``swish``,
-``timestep_embedding``, ``TimestepEmbedder``, ``InstanceNorm``, and the
+``timestep_embedding``, ``TimestepEmbedder``, ``InstanceNorm``, flax's
+default ``nn.LayerNorm`` over channels (``ChannelLayerNorm``), and the
 DiffUNet blocks ``ConvNormAct``, ``TwoConv``, ``Down``, ``UpCat`` with
-instance norm and LeakyReLU). Parameters
+instance or layer norm and LeakyReLU). Parameters
 are float32; ``dtype`` is the compute dtype (bf16 under ``use_amp``), to
 which inputs and weights are cast at each call, as flax does. ``None``
 computes in the promoted dtype of input and weights.
@@ -12,17 +13,20 @@ computes in the promoted dtype of input and weights.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from diff_unet_tpu_torch.ops.conv3d import conv3x3, norm_affine_from_stats
+from diff_unet_tpu_torch.ops.conv3d import _acc_dtype, conv3x3, \
+    norm_affine_from_stats
 
 TEMB_DIM = 128
 TEMB_FEATURES = 512
 EPS = 1e-5              # LayerNorm and InstanceNorm epsilon
+LN_EPS = 1e-6           # ChannelLayerNorm: flax nn.LayerNorm's default
+NORMS = ("instance", "layer")
 
 
 def _compute_dtype(dtype: Optional[torch.dtype], x: torch.Tensor,
@@ -189,44 +193,154 @@ class InstanceNorm(nn.Module):
         return (x * a + b).to(self.dtype or x.dtype)
 
 
+class _LayerNormAct(torch.autograd.Function):
+    """``layer_norm_act``'s forward with a backward that recomputes the
+    normalised values from x and the saved per-voxel (mean, 1/std): only
+    those two float32 values a voxel are kept beside x, which the conv
+    before it saves anyway."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, const, slope):
+        mean, rstd = _ln_stats(x)
+        z = _ln_tail(x, mean, rstd, gamma, beta, const, slope)
+        ctx.slope = slope
+        ctx.const_dtype = None if const is None else const.dtype
+        ctx.save_for_backward(x, gamma, beta, mean, rstd)
+        return z
+
+    @staticmethod
+    def backward(ctx, dz):
+        x, gamma, beta, mean, rstd = ctx.saved_tensors
+        slope = ctx.slope
+        acc = _acc_dtype(x.dtype)
+        needs = ctx.needs_input_grad
+        dz = dz.to(acc)
+        dconst = dz.sum((1, 2, 3)) if needs[3] else None
+        xhat = (x.to(acc) - mean) * rstd
+        dy = dz
+        if slope is not None:
+            # y >= 0 takes the identity, as jax.nn.leaky_relu does
+            y = _ln_tail(x, mean, rstd, gamma, beta, None, None)
+            dy = torch.where(y >= 0, dz, dz * slope)
+        dgamma = (dy * xhat).sum((0, 1, 2, 3)) if needs[1] else None
+        dbeta = dy.sum((0, 1, 2, 3)) if needs[2] else None
+        dx = None
+        if needs[0]:
+            dxhat = dy * gamma.to(acc)
+            dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                         - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+            dx = dx.to(x.dtype)
+        return (dx, None if dgamma is None else dgamma.to(gamma.dtype),
+                None if dbeta is None else dbeta.to(beta.dtype),
+                None if dconst is None else dconst.to(ctx.const_dtype), None)
+
+
+def _ln_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-voxel mean and 1/sqrt(var + 1e-6) over the channels, with
+    flax's one-pass variance E[x^2] - E[x]^2 clamped at 0, in float32
+    (float64 for float64 x)."""
+    xf = x.to(_acc_dtype(x.dtype))
+    mean = xf.mean(-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean,
+                      min=0.0)
+    return mean, torch.rsqrt(var + LN_EPS)
+
+
+def _ln_tail(x, mean, rstd, gamma, beta, const, slope):
+    """The normalised, scaled and shifted x (flax's order: (x - mean) *
+    (rstd * gamma) + beta, in float32) rounded to x's dtype, then the
+    LeakyReLU and the add of ``const`` (N, C) in that dtype."""
+    acc = _acc_dtype(x.dtype)
+    y = ((x.to(acc) - mean) * (rstd * gamma.to(acc)) + beta.to(acc)
+         ).to(x.dtype)
+    if slope is not None:
+        y = F.leaky_relu(y, slope)
+    if const is not None:
+        y = y + const.to(x.dtype)[:, None, None, None, :]
+    return y
+
+
+def layer_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   slope: Optional[float] = None,
+                   const: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """flax ``nn.LayerNorm()`` over the channels of NDHWC x (epsilon 1e-6,
+    the one-pass variance E[x^2] - E[x]^2 clamped at 0, float32 statistics;
+    float64 stays float64), then LeakyReLU(``slope``) and + ``const``
+    (N, C), with the JAX package's rounding points: the norm's output is
+    rounded to x's dtype, the activation and the add run in it."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, gamma, beta,
+                                                          const)):
+        return _LayerNormAct.apply(x, gamma, beta, const, slope)
+    return _ln_tail(x, *_ln_stats(x), gamma, beta, const, slope)
+
+
+class ChannelLayerNorm(nn.Module):
+    """flax ``nn.LayerNorm()`` at its defaults over the last dim of NDHWC:
+    epsilon 1e-6 and the one-pass variance (``layer_norm_act``). The Swin
+    ``LayerNorm`` above (epsilon 1e-5, two-pass) is another function."""
+
+    def __init__(self, features: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm_act(x, self.weight, self.bias).to(
+            self.dtype or x.dtype)
+
+
 class ConvNormAct(nn.Module):
-    """Conv3D(k3, same, bias) -> InstanceNorm -> LeakyReLU, unfused (MONAI
-    'NDA' order). ``TwoConv`` runs these parameters through the fused conv
-    kernel; this composition is the reference it is held against."""
+    """Conv3D(k3, same, bias) -> norm -> LeakyReLU, unfused (MONAI 'NDA'
+    order); ``norm`` is "instance" (``InstanceNorm``) or "layer"
+    (``ChannelLayerNorm``), both in scope ``norm``. ``TwoConv`` runs these
+    parameters through the conv kernel; this composition is the reference
+    it is held against."""
 
     def __init__(self, in_features: int, features: int,
-                 negative_slope: float = 0.1,
+                 negative_slope: float = 0.1, norm: str = "instance",
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
+        if norm not in NORMS:
+            raise NotImplementedError(f"norm {norm!r} (ported: {NORMS})")
         self.negative_slope = negative_slope
         self.conv = Conv(in_features, features, 3, dtype=dtype)
-        self.norm = InstanceNorm(features, dtype=dtype)
+        self.norm = (InstanceNorm if norm == "instance"
+                     else ChannelLayerNorm)(features, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.leaky_relu(self.norm(self.conv(x)), self.negative_slope)
 
 
 class TwoConv(nn.Module):
-    """conv_0 -> IN -> LeakyReLU [-> + temb_proj(swish(temb))] -> conv_1 ->
-    IN -> LeakyReLU, executed as the fused chain of the JAX package's
+    """conv_0 -> norm -> LeakyReLU [-> + temb_proj(swish(temb))] -> conv_1
+    -> norm -> LeakyReLU. ``parts`` is the input as a list of tensors whose
+    channel concat is the conv input (the UpCat skip and upsampled maps;
+    the denoiser's image and x_t).
+
+    With instance norm it is the fused chain of the JAX package's
     ``PallasFusedTwoConv``: each conv returns its f32 (sum, sum of squares)
     per (sample, channel); the first norm, activation and FiLM add run as
-    the second conv's input prologue; the second norm and activation are one
-    multiply-add and a LeakyReLU. ``parts`` is the input as a list of
-    tensors whose channel concat is the conv input (the UpCat skip and
-    upsampled maps; the denoiser's image and x_t)."""
+    the second conv's input prologue; the second norm and activation are
+    one multiply-add and a LeakyReLU. A layer norm takes its statistics per
+    voxel over the channels, which neither the kernel's statistics nor its
+    per-(sample, channel) prologue can give: each conv runs with its bias
+    only, and ``layer_norm_act`` takes the norm, the activation and the
+    FiLM add in tensor code, rounded where the JAX package rounds."""
 
     def __init__(self, in_features: int, features: int, use_temb: bool = True,
-                 negative_slope: float = 0.1,
+                 negative_slope: float = 0.1, norm: str = "instance",
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
         self.negative_slope = negative_slope
+        self.norm = norm
         self.conv_0 = ConvNormAct(in_features, features, negative_slope,
-                                  dtype=dtype)
+                                  norm, dtype=dtype)
         self.temb_proj = (Dense(TEMB_FEATURES, features, dtype=dtype)
                           if use_temb else None)
-        self.conv_1 = ConvNormAct(features, features, negative_slope,
+        self.conv_1 = ConvNormAct(features, features, negative_slope, norm,
                                   dtype=dtype)
 
     def forward(self, parts: Union[torch.Tensor, List[torch.Tensor]],
@@ -237,16 +351,23 @@ class TwoConv(nn.Module):
         slope = self.negative_slope
         dt = _compute_dtype(self.dtype, parts[0], c0.conv.weight)
         parts = [p.to(dt).contiguous() for p in parts]
+        film = None
+        if self.temb_proj is not None and temb is not None:
+            film = self.temb_proj(swish(temb))
+        if self.norm == "layer":
+            y0 = conv3x3(parts, c0.conv.weight, c0.conv.bias)
+            u = layer_norm_act(y0, c0.norm.weight, c0.norm.bias, slope, film)
+            y1 = conv3x3([u], c1.conv.weight, c1.conv.bias)
+            return layer_norm_act(y1, c1.norm.weight, c1.norm.bias, slope)
         count = math.prod(parts[0].shape[1:4])
         y0, st0 = conv3x3(parts, c0.conv.weight, c0.conv.bias,
                           with_stats=True)
         a0, b0 = norm_affine_from_stats(st0, c0.norm.weight, c0.norm.bias,
                                         count)
-        film = None
-        if self.temb_proj is not None and temb is not None:
-            film = self.temb_proj(swish(temb)).float()
         y1, st1 = conv3x3([y0], c1.conv.weight, c1.conv.bias,
-                          prologue=(a0, b0, film, slope), with_stats=True)
+                          prologue=(a0, b0, None if film is None
+                                    else film.float(), slope),
+                          with_stats=True)
         a1, b1 = norm_affine_from_stats(st1, c1.norm.weight, c1.norm.bias,
                                         count)
         y = (y1 * a1.to(dt)[:, None, None, None]
@@ -258,11 +379,11 @@ class Down(nn.Module):
     """2x max-pool, then TwoConv (scope ``convs``)."""
 
     def __init__(self, in_features: int, features: int, use_temb: bool = True,
-                 negative_slope: float = 0.1,
+                 negative_slope: float = 0.1, norm: str = "instance",
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.convs = TwoConv(in_features, features, use_temb, negative_slope,
-                             dtype=dtype)
+                             norm, dtype=dtype)
 
     def forward(self, x: torch.Tensor,
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -277,12 +398,12 @@ class UpCat(nn.Module):
 
     def __init__(self, in_features: int, skip_features: int,
                  up_features: int, features: int, use_temb: bool = True,
-                 negative_slope: float = 0.1,
+                 negative_slope: float = 0.1, norm: str = "instance",
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.upsample = ConvTranspose(in_features, up_features, dtype=dtype)
         self.convs = TwoConv(skip_features + up_features, features, use_temb,
-                             negative_slope, dtype=dtype)
+                             negative_slope, norm, dtype=dtype)
 
     def forward(self, x: torch.Tensor, x_skip: torch.Tensor,
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:

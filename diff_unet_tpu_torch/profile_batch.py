@@ -8,17 +8,21 @@ train step of its training path, on the card.
     python -m diff_unet_tpu_torch.profile_batch amos_train [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch msd_train [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch swin_unetr_train [--out FILE]
+    python -m diff_unet_tpu_torch.profile_batch smooth_serve [--out FILE]
+    python -m diff_unet_tpu_torch.profile_batch smooth_train [--out FILE]
 
 The ``_train`` modes build the ``Trainer`` of ``cfg/btcv/train.yaml``
 (batch 1, 14 label values), ``cfg/amos/train.yaml`` (batch 10, 16 label
-values), ``cfg/msd/train.yaml`` (batch 4, 3 label values) or the BTCV
+values; ``smooth_train``: with ``model_name=smooth_diff_unet``),
+``cfg/msd/train.yaml`` (batch 4, 3 label values) or the BTCV
 config with ``model_name=swin_unetr`` on synthetic batches
 (``data/synthetic.py``) and profile its train step (q_sample, denoise,
 loss, backward, AdamW; the plain model: forward, loss, backward, AdamW)
 the same way.
 
 The others build the ``Predictor`` of ``cfg/<data>/test.yaml`` (``swin_unetr``:
-the BTCV config with that model) with seeded random weights and run what
+the BTCV config with that model; ``smooth_serve``: the AMOS config with
+``smooth_diff_unet``) with seeded random weights and run what
 it runs for each window batch: the image embedding and the DDIM loop over
 ``sw_batch_size`` windows of the ROI, or the plain model's one forward
 (stitching excluded). After two warm-up batches it times three batches without the
@@ -28,7 +32,8 @@ un-profiled seconds per batch, the traced batch's summed device time and
 the device's busy share (device time over un-profiled wall time), and the
 top device kernels by summed device time; ``--out`` gets the whole
 ``key_averages`` table (CPU operators and kernels). For a model built from
-``TwoConv`` blocks (DiffUNet) it also counts the 3x3x3 conv operations of
+``TwoConv`` blocks (DiffUNet, SmoothDiffUNet) it also counts the 3x3x3
+conv operations of
 a batch (forward hooks on the blocks' outputs) and sets them beside the
 conv kernel's device time and the bf16 peak. Needs a CUDA card; it fails
 without one.
@@ -58,7 +63,8 @@ def _device_us(evt, self_only: bool) -> float:
 
 # the config and model of each mode's name
 _CONFIGS = {"btcv": ("btcv", {}), "amos": ("amos", {}), "msd": ("msd", {}),
-            "swin_unetr": ("btcv", {"model_name": "swin_unetr"})}
+            "swin_unetr": ("btcv", {"model_name": "swin_unetr"}),
+            "smooth": ("amos", {"model_name": "smooth_diff_unet"})}
 
 
 def _window_batch(dev: torch.device, data: str):
@@ -96,7 +102,7 @@ def _window_batch(dev: torch.device, data: str):
 # labels of the synthetic batches (the classes table's entries) and batch
 # size of each train config
 _TRAIN = {"btcv": (14, 1), "amos": (16, 10), "msd": (3, 4),
-          "swin_unetr": (14, 1)}
+          "swin_unetr": (14, 1), "smooth": (16, 10)}
 
 
 def _train_step(dev: torch.device, data: str):
@@ -127,7 +133,8 @@ def _train_step(dev: torch.device, data: str):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("data", choices=(
-        "amos", "btcv", "swin_unetr", *(f"{k}_train" for k in _TRAIN)))
+        "amos", "btcv", "swin_unetr", "smooth_serve",
+        *(f"{k}_train" for k in _TRAIN)))
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
@@ -147,7 +154,8 @@ def main() -> None:
     if train:
         pred, batch, what = _train_step(dev, args.data[:-len("_train")])
     else:
-        pred, batch, what = _window_batch(dev, args.data)
+        pred, batch, what = _window_batch(dev, args.data.removesuffix(
+            "_serve"))
 
     conv_flops = [0.0]
     stems = ("embed_model.conv_0", "model.conv_0")   # inputs need no grad

@@ -12,7 +12,8 @@ Port submodules carry the flax scope names, so a flax path
   spatially flipped (flax applies the kernel as a plain conv over the
   dilated input; PyTorch's is the gradient of a conv)
 - LayerNorm / InstanceNorm scale      -> weight
-- relative_position_bias_table        -> as is
+- relative_position_bias_table, SmoothLayer weights (D, H, W, C),
+  FFParser weight_real / weight_imag  -> as is
 """
 from __future__ import annotations
 
@@ -23,18 +24,28 @@ import numpy as np
 import torch
 from torch import nn
 
-from diff_unet_tpu_torch.ops.blocks import Conv, ConvTranspose, Dense, \
-    InstanceNorm, LayerNorm
+from diff_unet_tpu_torch.models.smooth_diff_unet import FFParser, \
+    SmoothLayer
+from diff_unet_tpu_torch.ops.blocks import ChannelLayerNorm, Conv, \
+    ConvTranspose, Dense, InstanceNorm, LayerNorm
 from diff_unet_tpu_torch.ops.swin import WindowAttention
+
+NORM_MODULES = (LayerNorm, ChannelLayerNorm, InstanceNorm)
+# parameters whose flax name and layout are the port's
+AS_IS = {WindowAttention: ("relative_position_bias_table",),
+         SmoothLayer: ("weights",), FFParser: ("weight_real", "weight_imag")}
 
 
 def init_random(module: nn.Module, seed: int) -> nn.Module:
-    """Re-draw every kernel and bias table from a generator seeded with
-    ``seed`` (flax initialisers: lecun-normal kernels, zero biases,
-    truncated-normal(0.02) bias tables; norm scales 1, biases 0)."""
+    """Re-draw every kernel, bias table and smoothing or spectral weight
+    from a generator seeded with ``seed`` (flax initialisers: lecun-normal
+    kernels, zero biases, truncated-normal(0.02) bias tables; the JAX
+    package's 0.5 * N(0, 1) smoothing and N(0, 0.02) spectral weights;
+    norm scales 1, biases 0)."""
     g = torch.Generator().manual_seed(seed)
     for m in module.modules():
-        if isinstance(m, (Dense, Conv, ConvTranspose, WindowAttention)):
+        if isinstance(m, (Dense, Conv, ConvTranspose, WindowAttention,
+                          SmoothLayer, FFParser)):
             m.reset_parameters(g)
     return module
 
@@ -59,13 +70,13 @@ def _convert(mod: nn.Module, leaf: str, a: np.ndarray
     elif isinstance(mod, ConvTranspose):
         if leaf == "kernel":
             return "weight", a[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
-    elif isinstance(mod, (LayerNorm, InstanceNorm)):
+    elif isinstance(mod, NORM_MODULES):
         if leaf == "scale":
             return "weight", a
-    elif isinstance(mod, WindowAttention):
-        if leaf == "relative_position_bias_table":
+    elif isinstance(mod, tuple(AS_IS)):
+        if leaf in AS_IS[type(mod)]:
             return leaf, a
-        raise KeyError(f"unexpected WindowAttention parameter {leaf!r}")
+        raise KeyError(f"unexpected {type(mod).__name__} parameter {leaf!r}")
     if leaf == "bias":
         return "bias", a
     raise KeyError(f"no conversion for {type(mod).__name__}.{leaf}")
@@ -115,9 +126,9 @@ def _export(mod: nn.Module, leaf: str, a: np.ndarray
             return "kernel", a.transpose(2, 3, 4, 1, 0)
         if isinstance(mod, ConvTranspose):
             return "kernel", a.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1]
-        if isinstance(mod, (LayerNorm, InstanceNorm)):
+        if isinstance(mod, NORM_MODULES):
             return "scale", a
-    if leaf in ("bias", "relative_position_bias_table"):
+    if leaf == "bias" or leaf in AS_IS.get(type(mod), ()):
         return leaf, a
     raise KeyError(f"no conversion for {type(mod).__name__}.{leaf}")
 

@@ -15,6 +15,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from diff_unet_tpu.ops import pallas_attention as jpa
 from diff_unet_tpu_torch.ops import window_attention as twa
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 
 def _inputs(bw, n, h, dh, nw, with_ids, seed):

@@ -25,6 +25,7 @@ from diff_unet_tpu_torch.engine.engine import Predictor
 from diff_unet_tpu_torch.models.model_hub import create_model
 from diff_unet_tpu_torch.utils.weights import export_jax_params, \
     init_random
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 FEATURES = (4, 4, 8, 16, 32, 4)
 S, C = 16, 2

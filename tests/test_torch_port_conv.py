@@ -48,6 +48,7 @@ from diff_unet_tpu_torch.ops.conv3d import (
 )
 from diff_unet_tpu_torch.utils.weights import load_jax_params
 from tests.test_torch_port_swin import random_flax_params
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 TIGHT = dict(rtol=2e-5, atol=2e-5)
 FUSED = dict(rtol=5e-4, atol=5e-4)

@@ -30,6 +30,7 @@ from diff_unet_tpu_torch.ops.conv3d import (
     wgrad_stage_bytes,
 )
 from tests.test_torch_port_conv import AMOS_CONVS, SMALL_CONVS
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 EXACT = 1e-10
 
@@ -68,6 +69,12 @@ CASES = {
     "no stats": (2, (4, 4, 5), [4], 3, True, True, 0.2, False, True),
     "stem part of 1 channel": (2, (6, 5, 4), [1, 3], 8, False, False, None,
                                True, False),
+    # the layer-norm TwoConv's convs: bias only, g = dy
+    "bias only": (2, (4, 5, 6), [3, 4], 5, False, False, None, False, True),
+    # per-channel gamma / beta broadcast to (N, Cin) with a const, no
+    # statistics, no activation
+    "broadcast prologue": (2, (4, 5, 4), [6], 4, "broadcast", True, None,
+                           False, True),
 }
 
 
@@ -80,10 +87,15 @@ def test_function_gradients_match_autograd_through_plain(name):
     parts, w, b, pro = _case(len(name), n, dims, chans, cout, pro_on, const)
     for p in parts:
         p.requires_grad_(parts_grad)
+    rows = [v for v in (pro or ())[:3] if v is not None]
+    if pro_on == "broadcast":
+        # leaves of one row each, broadcast over the samples
+        rows = [v[0].detach().requires_grad_() for v in rows]
+        pro = (*[v.expand(n, -1) for v in rows], pro[3])
     rng = np.random.default_rng(1)
     cot_y = torch.from_numpy(rng.standard_normal((n, *dims, cout)))
     cot_s = torch.from_numpy(rng.standard_normal((n, 2, cout)))
-    inputs = [w, b] + [v for v in (pro or ())[:3] if v is not None]
+    inputs = [w, b] + rows
     inputs += [p for p in parts if p.requires_grad]
     kw = dict(prologue=pro, negative_slope=slope, with_stats=stats)
 

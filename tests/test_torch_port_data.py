@@ -21,6 +21,7 @@ from diff_unet_tpu_torch.data import nifti as tnifti
 from diff_unet_tpu_torch.data import transforms as tT
 from diff_unet_tpu_torch.data.datalist import \
     load_decathlon_datalist as tdatalist
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 # (shape, voxel spacing, axis flips) of the synthetic cases: one already at
 # the target spacing, two resampled, one stored left-right and

@@ -1,8 +1,8 @@
 """PyTorch port, DiffUNet end to end against the JAX package (features
 (8, 8, 16, 32, 64, 8), 3 classes, at 32^3 and at 32x32x22, where the
 UpCat stages replicate-pad): encoder, ``denoise`` and the DDIM-10
-``ddim_sample`` with injected noise; the model factory and the Predictor
-on the CPU.
+``ddim_sample`` with injected noise; the model factory, and the
+Predictor on the CPU (features (4, 4, 8, 16, 32, 4), 16^3 ROI).
 
 The port runs in fp32 and is held at 1e-4 (1e-3 for the DDIM-10 sum); the
 JAX side runs in float64 on the same (float32-valued) inputs and
@@ -29,6 +29,7 @@ from diff_unet_tpu_torch.models.model_hub import create_model
 from diff_unet_tpu_torch.utils.weights import init_random, load_jax_params
 from tests.test_torch_port_models import jax_f64
 from tests.test_torch_port_swin import random_flax_params
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FEATURES = (8, 8, 16, 32, 64, 8)
@@ -119,8 +120,8 @@ def test_create_model_diff_unet_features_and_seeded_init():
 
 
 def _predictor(sw_batch_size):
-    return Predictor(model_name="diff_unet", features=FEATURES,
-                     image_size=32, spatial_size=32, sample_steps=2,
+    return Predictor(model_name="diff_unet", features=(4, 4, 8, 16, 32, 4),
+                     image_size=16, spatial_size=16, sample_steps=2,
                      classes=str(ROOT / "cfg/amos/classes.yaml"),
                      sw_batch_size=sw_batch_size, use_amp=False, seed=5,
                      device="cpu")
@@ -131,12 +132,12 @@ def test_predictor_invariant_to_window_batching_and_crops_back():
     on window starts); a non-grid volume (one axis below the ROI) comes
     back at its own shape and equals the un-bucketed sliding window."""
     vol = torch.from_numpy(np.random.default_rng(1).random(
-        (40, 36, 20, 1)).astype(np.float32))
+        (20, 18, 10, 1)).astype(np.float32))
     p1, p4 = _predictor(1), _predictor(4)
     assert p4.num_classes == 15
     l1, b1 = p1.infer(vol)
     l4, b4 = p4.serve([vol])[0]
-    assert l1.shape == b1.shape == (40, 36, 20, 15)
+    assert l1.shape == b1.shape == (20, 18, 10, 15)
     assert torch.isfinite(l1).all()
     assert set(torch.unique(b4).tolist()) <= {0.0, 1.0}
     # 1e-4: the CPU's conv kernels round differently at batch 1 and 4

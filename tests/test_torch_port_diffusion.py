@@ -12,6 +12,7 @@ from diff_unet_tpu.diffusion import schedule as jsch
 from diff_unet_tpu_torch.diffusion import gaussian as tg
 from diff_unet_tpu_torch.diffusion import sampling as ts
 from diff_unet_tpu_torch.diffusion import schedule as tsch
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 TABLES = ("betas", "alphas_cumprod", "alphas_cumprod_prev",
           "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod",

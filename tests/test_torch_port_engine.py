@@ -20,6 +20,7 @@ from diff_unet_tpu_torch.engine import sliding_window as tsw
 from diff_unet_tpu_torch.engine.engine import Predictor
 from diff_unet_tpu_torch.utils.config import load_flat_yaml
 from diff_unet_tpu_torch.utils.weights import export_jax_params
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -80,12 +81,15 @@ def test_window_seed_depends_only_on_seed_and_start():
     assert all(0 <= v < 2 ** 63 for v in seeds)
 
 
+# the smallest DiffUNet: the properties below are the engine's, not a
+# model's
+TINY = dict(model_name="diff_unet", features=(4, 4, 8, 16, 32, 4),
+            image_size=16, spatial_size=16, use_amp=False, device="cpu")
+
+
 def _predictor(sw_batch_size):
-    return Predictor(model_name="diff_swin_unetr", feature_size=12,
-                     image_size=32, spatial_size=32, sample_steps=2,
-                     classes=str(ROOT / "cfg/btcv/classes.yaml"),
-                     sw_batch_size=sw_batch_size, use_amp=False, seed=5,
-                     device="cpu")
+    return Predictor(sample_steps=2, sw_batch_size=sw_batch_size, seed=5,
+                     classes=str(ROOT / "cfg/btcv/classes.yaml"), **TINY)
 
 
 def test_predictor_invariant_to_window_batching_and_crops_back():
@@ -93,11 +97,11 @@ def test_predictor_invariant_to_window_batching_and_crops_back():
     on window starts); a non-grid volume (one axis below the ROI) comes
     back at its own shape and equals the un-bucketed sliding window."""
     vol = torch.from_numpy(np.random.default_rng(1).random(
-        (40, 36, 20, 1)).astype(np.float32))
+        (20, 18, 10, 1)).astype(np.float32))
     p1, p2 = _predictor(1), _predictor(2)
     l1, b1 = p1.infer(vol)
     l2, b2 = p2.serve([vol])[0]
-    assert l1.shape == b1.shape == (40, 36, 20, 13)
+    assert l1.shape == b1.shape == (20, 18, 10, 13)
     assert torch.isfinite(l1).all()
     assert set(torch.unique(b2).tolist()) <= {0.0, 1.0}
     # 1e-4: the CPU's conv kernels round differently at batch 1 and 2
@@ -115,15 +119,13 @@ def test_predictor_config_handling(tmp_path):
     (``use_ema``, ``epoch``, ``save_volumes``, ``continuous``) now act or
     raise; ``quant_calibrate`` stays ignored while ``quantize`` is off."""
     with pytest.warns(UserWarning, match="quantise"):
-        p = Predictor(model_name="diff_swin_unetr", feature_size=12,
-                      image_size=32, spatial_size=32, use_amp=False,
-                      device="cpu", quantise=True, data_name="btcv",
-                      quant_calibrate=4)
+        p = Predictor(quantise=True, data_name="btcv", quant_calibrate=4,
+                      **TINY)
     assert p.num_classes == 13 and p.dtype is None
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
-    kw = dict(features=(8, 8, 16, 32, 64, 8), image_size=32,
-              spatial_size=32, use_amp=False, device="cpu")
+    kw = dict(TINY)
+    del kw["model_name"]
     with pytest.raises(FileNotFoundError, match="epoch_1"):
         Predictor(model_path=str(tmp_path / "weights/epoch_1"), **kw)
     with pytest.raises(ValueError, match="pack"):

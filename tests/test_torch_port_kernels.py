@@ -17,6 +17,7 @@ from diff_unet_tpu_torch.ops import swin as tsw
 from diff_unet_tpu_torch.ops import window_attention as twa
 from diff_unet_tpu_torch.ops import window_partition as twp
 from diff_unet_tpu_torch.ops import window_shift as tws
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("dims,ws,ss", [

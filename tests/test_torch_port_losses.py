@@ -19,6 +19,7 @@ from diff_unet_tpu.losses import edt as jedt
 from diff_unet_tpu.losses import losses as jl
 from diff_unet_tpu_torch.losses import edt as tedt
 from diff_unet_tpu_torch.losses import losses as tl
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 SHAPE = (2, 8, 8, 8)
 F32_NAMES = ("hausdorff_er",)

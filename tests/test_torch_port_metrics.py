@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from diff_unet_tpu.metrics import metrics as jm
 from diff_unet_tpu_torch.metrics import metrics as tm
 from diff_unet_tpu_torch.ops import edt
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 SHAPE = (14, 12, 10)
 

@@ -23,6 +23,7 @@ from diff_unet_tpu_torch.models.model_hub import create_model
 from diff_unet_tpu_torch.models.swin_unetr import DiffSwinUNETR as TModel
 from diff_unet_tpu_torch.utils.weights import init_random, load_jax_params
 from tests.test_torch_port_swin import random_flax_params
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 S, C, FS = 32, 3, 12
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -135,7 +136,7 @@ def test_create_model_and_seeded_init():
         assert torch.equal(a, b), k
     assert isinstance(m1, TModel)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("smooth_diff_unet", out_channels=2)
+        create_model("attention_diff_unet", out_channels=2)
     with pytest.raises(ValueError):
         create_model("nope", out_channels=2)
     with pytest.raises(ValueError, match="2\\^5"):

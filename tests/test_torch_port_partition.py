@@ -19,6 +19,7 @@ from diff_unet_tpu.ops import swin as jsw
 from diff_unet_tpu_torch.ops import window_partition as twp
 from diff_unet_tpu_torch.ops.window_attention import window_attention
 from diff_unet_tpu_torch.ops.window_shift import shift_windows
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 # (B, D, H, W, C, window): the four Swin stages of a 96^3 ROI with narrow C
 # (48^3 pads to 49^3, 24^3 to 28^3, 12^3 to 14^3, 6^3 clamps the window to

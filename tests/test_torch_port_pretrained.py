@@ -31,6 +31,7 @@ from diff_unet_tpu_torch.utils.weights import export_jax_params, \
     load_jax_params
 from tests.test_pretrained_and_smoothing import _fake_encoder_state_dict
 from tests.test_torch_port_swin import random_flax_params
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FEATURES = (4, 4, 8, 16, 32, 4)

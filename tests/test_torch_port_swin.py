@@ -1,7 +1,12 @@
 """PyTorch port, Swin modules against the JAX package (fp32, 1e-4): the
 same flax parameters (random, from numpy) are carried into the port by
 ``utils.weights.load_jax_params``; the JAX side runs both its standard and
-its transposed window-resident block layout."""
+its transposed window-resident block layout.
+
+``torch_threads`` (imported by every CPU test file of the port) sizes
+torch's intra-op thread pool to the test process's share of the cores."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +18,19 @@ from diff_unet_tpu_torch.ops import swin as tsw
 from diff_unet_tpu_torch.utils.weights import load_jax_params
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads():
+    """Torch's intra-op threads for one test module: the cores over the
+    pytest-xdist workers that run side by side (each would otherwise start
+    a thread for every core, and their spinning pools contend for them);
+    all cores without xdist. Restored after the module."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    before = torch.get_num_threads()
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // workers))
+    yield
+    torch.set_num_threads(before)
 
 
 def random_flax_params(module, *args, seed=0):

@@ -3,7 +3,7 @@ the CPU: the forward of ``SwinUNETR`` (feature 8, heads (1, 2, 2, 4),
 32^3; the port in float32, whose norms keep float32 statistics) against
 the flax module in float64, within 1e-6 of the largest output; the model
 types and
-``create_model``; and at 32^3 (feature 12, the recipe's heads) a
+``create_model``; and at 32^3 (feature 6, the recipe's heads) a
 ``Trainer`` built from
 ``cfg/btcv/train.yaml`` with ``model_name=swin_unetr`` (the plain branch:
 one forward a step, no q_sample) and a ``Predictor`` from
@@ -25,6 +25,7 @@ from diff_unet_tpu_torch.models.swin_unetr import SwinUNETR
 from diff_unet_tpu_torch.utils.weights import load_jax_params
 from tests.test_torch_port_models import jax_f64
 from tests.test_torch_port_swin import random_flax_params
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 S, FS, HEADS = 32, 8, (1, 2, 2, 4)
@@ -61,7 +62,7 @@ def test_model_types_match_jax(name):
 
 def test_swin_unetr_trains_and_serves_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    kw = dict(model_name="swin_unetr", device="cpu", feature_size=12,
+    kw = dict(model_name="swin_unetr", device="cpu", feature_size=6,
               image_size=S, spatial_size=S, use_amp=False,
               classes=str(ROOT / "cfg/btcv/classes.yaml"))
     data = SyntheticSegmentation((S,) * 3, num_labels=14, batches=2)

@@ -31,6 +31,7 @@ from diff_unet_tpu_torch.utils.vis import render_results
 from diff_unet_tpu_torch.utils.weights import export_jax_params, \
     init_random
 from tests.test_torch_port_data import write_nifti_set
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FEATURES = (4, 4, 8, 16, 32, 4)
@@ -135,7 +136,9 @@ def test_tester_config_keys(workspace, tmp_path, monkeypatch):
 
 
 def _run(module, args, cwd):
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # the child's torch threads: this process's share of the cores
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               OMP_NUM_THREADS=str(torch.get_num_threads()))
     out = subprocess.run(
         [sys.executable, "-m", module, "--config",
          str(ROOT / "cfg/amos/test.yaml"), *args], cwd=cwd, env=env,

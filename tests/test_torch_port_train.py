@@ -1,10 +1,11 @@
 """PyTorch port, the training path against the JAX package: the losses
 (1e-6), label smoothing and label conversion (exact), the warmup-cosine
 schedule (1e-7), two AdamW updates against ``optax.adamw`` (1e-6), one
-train step of DiffSwinUNETR (feature 12, 32^3) and of DiffUNet (features
+train step of DiffSwinUNETR (feature 12, 32^3), of DiffUNet (features
 (8, 8, 16, 32, 64, 8), 32^3, every conv through the conv's autograd
-Function) against ``jax.value_and_grad`` in float64 with injected t and
-noise (loss and gradients 1e-4), and the Trainers built from
+Function) and of SmoothDiffUNet (features (4, 4, 8, 16, 32, 4), 16x32x32)
+against ``jax.value_and_grad`` in float64 with injected t and noise (loss
+and gradients 1e-4), and the Trainers built from
 ``cfg/btcv/train.yaml`` and ``cfg/amos/train.yaml`` on synthetic
 batches."""
 from pathlib import Path
@@ -24,6 +25,7 @@ from diff_unet_tpu.engine import engine as jengine
 from diff_unet_tpu.engine import train as jtrain
 from diff_unet_tpu.losses.losses import CompositeLoss as JLoss
 from diff_unet_tpu.models.diff_unet import DiffUNet as JDiffUNet
+from diff_unet_tpu.models.smooth_diff_unet import SmoothDiffUNet as JSmooth
 from diff_unet_tpu.models.swin_unetr import DiffSwinUNETR as JModel
 from diff_unet_tpu_torch.api import DiffusionSegmenter as TSeg
 from diff_unet_tpu_torch.data import label_smoothing as tls
@@ -33,11 +35,14 @@ from diff_unet_tpu_torch.engine import engine as tengine
 from diff_unet_tpu_torch.engine import train as ttrain
 from diff_unet_tpu_torch.losses.losses import CompositeLoss as TLoss
 from diff_unet_tpu_torch.models.diff_unet import DiffUNet as TDiffUNet
+from diff_unet_tpu_torch.models.smooth_diff_unet import \
+    SmoothDiffUNet as TSmooth
 from diff_unet_tpu_torch.models.swin_unetr import DiffSwinUNETR as TModel
 from diff_unet_tpu_torch.utils.weights import export_jax_params, \
     load_jax_params
 from tests.test_torch_port_models import jax_f64
 from tests.test_torch_port_swin import random_flax_params
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 S, C, FS = 32, 3, 12
@@ -45,13 +50,22 @@ FEATURES = (8, 8, 16, 32, 64, 8)
 
 
 def _models(name):
-    """The JAX module and a constructor of the port's module, small
-    widths."""
+    """The JAX module, a constructor of the port's module, small widths,
+    and the patch shape: 32^3, and 16x32x32 for SmoothDiffUNet (whose
+    smoothing weights take D from ``spatial_size``, H and W from
+    ``image_size``)."""
     if name == "diff_unet":
         return (JDiffUNet(out_channels=C, features=FEATURES),
-                lambda: TDiffUNet(C, features=FEATURES))
+                lambda: TDiffUNet(C, features=FEATURES), (S,) * 3)
+    if name == "smooth_diff_unet":
+        fea, d = (4, 4, 8, 16, 32, 4), S // 2
+        return (JSmooth(out_channels=C, image_size=S, spatial_size=d,
+                        features=fea),
+                lambda: TSmooth(C, image_size=S, spatial_size=d,
+                                features=fea), (d, S, S))
     return (JModel(out_channels=C, image_size=(S,) * 3, feature_size=FS),
-            lambda: TModel(C, image_size=(S,) * 3, feature_size=FS))
+            lambda: TModel(C, image_size=(S,) * 3, feature_size=FS),
+            (S,) * 3)
 
 
 @pytest.mark.parametrize("losses", ["mse", "bce", "dice", "mse,bce,dice"])
@@ -134,7 +148,8 @@ def test_two_adamw_updates_match_optax(scheduler):
                                    rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("model", ["diff_swin_unetr", "diff_unet"])
+@pytest.mark.parametrize("model", ["diff_swin_unetr", "diff_unet",
+                                   "smooth_diff_unet"])
 def test_train_step_matches_jax_value_and_grad(model):
     """fp32 port against float64 JAX: the same params, t and noise; the
     loss at 1e-4, each gradient at 1e-4 of the model's largest gradient
@@ -147,13 +162,15 @@ def test_train_step_matches_jax_value_and_grad(model):
     the prologue's adjoints), the JAX ones through flax ``nn.Conv``; its
     port side runs in float64, which the Function's plain backward keeps:
     the model's 2^3 instance norms amplify float32 rounding to the size of
-    the tolerance itself."""
+    the tolerance itself. SmoothDiffUNet runs in float64 too: its
+    denoiser's layer norms through the port's own Function, its smoothing
+    weights through autograd."""
+    jm, build, shape = _models(model)
     rng = np.random.default_rng(0)
-    image = rng.random((1, S, S, S, 1)).astype(np.float32)
-    labels = np.eye(C, dtype=np.float32)[rng.integers(0, C, (1, S, S, S))]
+    image = rng.random((1, *shape, 1)).astype(np.float32)
+    labels = np.eye(C, dtype=np.float32)[rng.integers(0, C, (1, *shape))]
     noise = rng.standard_normal(labels.shape).astype(np.float32)
     t = np.array([417], np.int32)
-    jm, build = _models(model)
     params = random_flax_params(jm, image, labels, t, seed=1)
     crit = JLoss("mse,bce,dice", C, "sum", fold=1)
     sched = JSeg(module=jm, num_classes=C).train_schedule
@@ -167,7 +184,7 @@ def test_train_step_matches_jax_value_and_grad(model):
                                     image, labels, t, noise)
 
     lr = 2e-4
-    dtype = torch.float64 if model == "diff_unet" else torch.float32
+    dtype = torch.float32 if model == "diff_swin_unetr" else torch.float64
     tm = load_jax_params(build(), params).to(dtype)
     opt, schedule = ttrain.make_optimizer(tm.parameters(), lr=lr,
                                           weight_decay=1e-4)
@@ -227,18 +244,23 @@ def test_trainer_runs_btcv_recipe_on_synthetic_batches(tmp_path,
     trainer.max_epochs, trainer.val_freq = 2, 2
     with pytest.raises(ValueError, match="validation"):
         trainer.train()
-    # the same recipe trains DiffUNet (the engines' default model)
+    # the same recipe trains DiffUNet (the engines' default model; its
+    # smallest widths on 16^3)
     unet = tengine.Trainer.from_config(
-        cfg, train_data=data, max_epochs=1,
-        **{**kw, "model_name": "diff_unet", "features": FEATURES})
+        cfg, max_epochs=1, train_data=SyntheticSegmentation(
+            (16,) * 3, num_labels=14, batches=2),
+        **{**kw, "model_name": "diff_unet", "features": (4, 4, 8, 16, 32, 4),
+           "image_size": 16, "spatial_size": 16})
     assert isinstance(unet.module, TDiffUNet)
     unet.train()
     assert len(unet.history) == 2 and np.isfinite(unet.history[-1]["loss"])
-    # the families still to port raise (swin_unetr trains:
-    # tests/test_torch_port_swin_unetr.py)
-    with pytest.raises(NotImplementedError, match="smooth_diff_unet"):
+    # the family still to port raises (swin_unetr trains:
+    # tests/test_torch_port_swin_unetr.py; smooth_diff_unet:
+    # tests/test_torch_port_smooth.py)
+    with pytest.raises(NotImplementedError, match="attention_diff_unet"):
         tengine.Trainer.from_config(
-            cfg, train_data=data, **{**kw, "model_name": "smooth_diff_unet"})
+            cfg, train_data=data,
+            **{**kw, "model_name": "attention_diff_unet"})
     with pytest.raises(ValueError, match="train_data"):
         tengine.Trainer.from_config(cfg, **{**kw, "data_path": None})
     # the JAX Trainer's keys (tests/test_torch_port_train_extras.py)

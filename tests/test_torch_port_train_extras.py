@@ -45,6 +45,7 @@ from diff_unet_tpu_torch.utils.weights import export_jax_params, \
     load_jax_params
 from tests.test_torch_port_data import write_nifti_set
 from tests.test_torch_port_swin import random_flax_params
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 S, C, B = 16, 2, 2
@@ -349,7 +350,9 @@ def test_trainer_keys_resume_bit_for_bit_and_tester_use_ema(
 
 
 def test_msd_entry_point_trains_on_the_cpu(msd_set, tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # the child's torch threads: this process's share of the cores
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               OMP_NUM_THREADS=str(torch.get_num_threads()))
     out = subprocess.run(
         [sys.executable, "-m", "diff_unet_tpu_torch.train", "--config",
          str(ROOT / "cfg/msd/train.yaml"), f"data_path={msd_set}",

@@ -15,6 +15,7 @@ from diff_unet_tpu_torch.data.synthetic import SyntheticSegmentation
 from diff_unet_tpu_torch.engine import checkpoint as ckpt_lib
 from diff_unet_tpu_torch.engine.engine import Trainer
 from tests.test_torch_port_data import write_nifti_set
+from tests.test_torch_port_swin import torch_threads  # noqa: F401
 
 FEATURES = (4, 4, 8, 16, 32, 4)
 COMMON = dict(model_name="diff_unet", image_size=16, spatial_size=16,
