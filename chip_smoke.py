@@ -59,6 +59,11 @@ PyTorch built for CUDA. Phases, each of which must pass:
       classes] -> 64, whose 2-channel part takes the gathered halo, and
       the last level's convs): forward, dgrad and weight gradient against
       their plain versions, with kernel and plain times;
+   g. AttentionDiffUNet's Cout-32 convs at 96^3 in bf16 (the denoiser
+      head [image, 15 classes], a ConvBNReLU2's conv_1 with its
+      per-channel ReLU prologue, a gated stage's two-part conv_0): the
+      forward at N 4 and 10, the dgrad and weight gradient at N 10,
+      against their plain versions, with kernel, cuDNN and bound times;
 4. small models on the card against the same weights on the CPU's plain
    path, fp32 with TF32 off: a DiffSwinUNETR denoiser step (feature 12,
    32^3), a DiffUNet denoiser step (features (8, 8, 16, 32, 64, 8), 32^3),
@@ -70,6 +75,9 @@ PyTorch built for CUDA. Phases, each of which must pass:
    and two train steps; SmoothDiffUNet (features (8, 8, 16, 32, 64, 8),
    16x32x32 windows) embed and denoise in fp32 and bf16, and two train
    steps as DiffUNet's, its card step run twice for the same bits;
+   AttentionDiffUNet (features (8, 16, 32, 64, 128), 32^3, a batch of 2
+   different samples) the same, its train-step gradients within
+   ATT_GRAD_TOL of the model's largest;
 5. each slice at full width from the repository's config with seeded
    random weights:
    a. ``cfg/btcv/test.yaml`` (diff_swin_unetr, feature 48, 13 classes,
@@ -121,6 +129,16 @@ PyTorch built for CUDA. Phases, each of which must pass:
       moved, median s/step and peak memory beside d's; then one 64 -> 64
       TwoConv at 10 x 96^3, forward and forward + backward, with the
       instance-norm chain and with the layer-norm chain;
+   j. ``cfg/amos/test.yaml`` with ``model_name=attention_diff_unet``
+      (features (32, 64, 128, 256, 512)): a ``Predictor`` serves the
+      96x192x192 CT, exactly 310 conv launches per window batch (930 in
+      all) and no dgrad or wgrad;
+   k. ``cfg/amos/train.yaml`` with ``model_name=attention_diff_unet``,
+      batch 10, as d: 40 / 38 / 40 conv launches a step, every parameter
+      tensor moved, median s/step and peak memory beside d's; then one
+      32 -> 32 ConvBNReLU2 at 10 x 96^3 (the kernel chain against the
+      plain chain, its batch norm against a float64 two-pass one, times
+      against cuDNN's conv, batch norm and ReLU);
 6. the exact distance transform under HD95 (``ops/edt.py``, host C++ built
    with g++) against ``scipy.ndimage.distance_transform_edt`` on one
    96x192x192 organ-surface mask, within 1e-6 of the largest distance,
@@ -148,7 +166,7 @@ PyTorch built for CUDA. Phases, each of which must pass:
 Serving outputs are checked for shape, finiteness and a binary mask. Each
 path is driven with its kernels' launch counters set to 0 just before it
 and read just after; the kernels line reports each kernel's launches on
-the first path of ``LAUNCH_ORDER`` it ran on (the AMOS SmoothDiffUNet
+the first path of ``LAUNCH_ORDER`` it ran on (the AMOS AttentionDiffUNet
 training first) and all of them under ``launches_by_path``. Phases 2-8
 run in a temporary directory under ``build/``, where the trainers' logs and phases
 7-8's data, weights and logs are written. It prints one
@@ -181,6 +199,18 @@ MODEL_TOL = 1e-3
 # such flips pass through ~30 convs and norms; the worst is the deepest
 # encoder level, an instance norm over 1x2x2 voxels (3.6e-2 on an H100)
 SMOOTH_BF16_TOL = 5e-2
+# the small UNet families of phase 4: (D, H, W) of the window, widths
+SMALL_UNETS = {"smooth_diff_unet": ((16, 32, 32), (8, 8, 16, 32, 64, 8)),
+               "attention_diff_unet": ((32, 32, 32), (8, 16, 32, 64, 128))}
+# AttentionDiffUNet's train steps, card against CPU: every gradient within
+# this fraction of the model's largest. A conv's weight gradient before a
+# batch norm sums g times inputs of large mean (ReLU outputs, the image)
+# where g sums to 0 over the batch, so float32 rounding of g moves it by
+# 6.1e-4 of the model's largest gradient between float32 and float64 on
+# the CPU at SMALL_UNETS' shapes, and card and CPU by 4.1e-3 on an H100
+# (the kernels' float32 sums in tile order, the one-pass statistics'
+# adjoint g + dsum + 2 y dsumsq)
+ATT_GRAD_TOL = 1e-2
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate, and the operation
 # rate of each type on the unit that the kernels use
 HBM_BYTES_PER_S = 3.35e12
@@ -286,6 +316,24 @@ MSD_CONV_CASES = [
     ("L0 conv_1", [64], 64, 96, True),
     ("L0 upcat", [64, 64], 64, 96, False),
 ]
+# AttentionDiffUNet (features (32, 64, 128, 256, 512)) at the AMOS recipe:
+# 10 convs in the encoder and 30 in the denoiser (10 ConvBNReLU2 convs,
+# and in each of the 4 gated stages an UpConv, a ConvBNReLU2 and a
+# TwoConv); per train step the dgrad of all but the two stems
+ATT_CONV_PER_BATCH = 10 + 30 * 10      # embed + 10 denoiser passes
+ATT_TRAIN_PER_STEP = {"conv3x3": 40, "conv3x3_dgrad": 38,
+                      "conv3x3_wgrad": 40}
+# its Cout-32 convs at 96^3 (7 of the denoiser's 30, 53% of its conv
+# operations): (tag, part channels, broadcast ReLU prologue); forward at
+# the serving and training batches, the backward at the training batch
+ATT_COUT32_CASES = [("denoiser head", [1, 15], False),
+                    ("ConvBNReLU2 conv_1", [32], True),
+                    ("gated stage conv_0", [32, 32], False)]
+ATT_COUT32_N = (4, 10)
+# one 32 -> 32 ConvBNReLU2 at the training batch, kernel chain against the
+# plain chain, as a fraction of max |plain|: two convs, each within
+# KERNEL_TOL (2^-6) of the other's, with a batch norm between
+BN_CHAIN_TOL = 2.0 ** -5
 # the AMOS recipe with the JAX Trainer's keys: 4 calls of batch 10, an
 # update every second one
 AMOS_KEYS = dict(ema_rate=0.9999, accum_steps=2, t_sampler="loss_aware")
@@ -299,7 +347,8 @@ SWIN_UNETR_PER_BATCH = {"window_attention": 8, "shift_windows": 6,
                         "window_partition": 4, "window_reverse": 4}
 # the paths whose launches the kernels line reports, in order of choice:
 # this slice's paths first
-LAUNCH_ORDER = ("amos_smooth_train", "amos_smooth_serve", "msd_train",
+LAUNCH_ORDER = ("amos_attention_train", "amos_attention_serve",
+                "amos_smooth_train", "amos_smooth_serve", "msd_train",
                 "amos_train_ema", "swin_unetr_train",
                 "swin_unetr_serve", "amos_test", "amos_train_data",
                 "amos_train", "btcv_train", "btcv_serve", "amos_serve")
@@ -1052,31 +1101,35 @@ def phase_small_diff_unet(dev: torch.device) -> None:
         fail("small DiffUNet on the card disagrees with the CPU")
 
 
-def phase_small_smooth(dev: torch.device) -> None:
-    """SmoothDiffUNet (features (8, 8, 16, 32, 64, 8), 16x32x32 windows)
-    on the card against the same weights on the CPU's plain path: embed
-    and denoise in fp32 (TF32 off, within MODEL_TOL) and in bf16 (the
-    plain versions round where the kernels do and sum in another order:
-    within SMOOTH_BF16_TOL of max |y|)."""
-    from diff_unet_tpu_torch.models.smooth_diff_unet import SmoothDiffUNet
+def phase_small_unet(dev: torch.device, model_name: str) -> None:
+    """A small SmoothDiffUNet or AttentionDiffUNet (``SMALL_UNETS``: widths
+    and window) on the card against the same weights on the CPU's plain
+    path, a batch of 2 different samples: embed and denoise in fp32 (TF32
+    off, within MODEL_TOL) and in bf16 (the plain versions round where the
+    kernels do and sum in another order: within SMOOTH_BF16_TOL of max
+    |y|)."""
+    from diff_unet_tpu_torch.models.model_hub import create_model
     from diff_unet_tpu_torch.utils.weights import init_random
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    d, hw, classes, fea = 16, 32, 3, (8, 8, 16, 32, 64, 8)
+    (d, hw, _), fea = SMALL_UNETS[model_name]
+    classes = 3
     rng = np.random.default_rng(SEED)
     image = torch.from_numpy(rng.standard_normal((2, d, hw, hw, 1),
                                                  np.float32))
     x = torch.from_numpy(rng.standard_normal((2, d, hw, hw, classes),
                                              np.float32))
     t = torch.tensor([5, 250])
+
+    def build(dtype):
+        return create_model(model_name, out_channels=classes, image_size=hw,
+                            spatial_size=d, features=fea, dtype=dtype)
+
     for dtype, tol in ((None, MODEL_TOL),
                        (torch.bfloat16, SMOOTH_BF16_TOL)):
-        cpu = init_random(SmoothDiffUNet(classes, image_size=hw,
-                                         spatial_size=d, features=fea,
-                                         dtype=dtype), SEED).eval()
-        gpu = SmoothDiffUNet(classes, image_size=hw, spatial_size=d,
-                             features=fea, dtype=dtype)
+        cpu = init_random(build(dtype), SEED).eval()
+        gpu = build(dtype)
         gpu.load_state_dict(cpu.state_dict())
         gpu = gpu.to(dev).eval()
         with torch.inference_mode():
@@ -1086,22 +1139,26 @@ def phase_small_smooth(dev: torch.device) -> None:
         errs = [(g.cpu().float() - w.float()).abs().max().item()
                 / w.float().abs().max().item() for g, w in zip(got, want)]
         name = "fp32, TF32 off" if dtype is None else "bf16"
-        log(f"small SmoothDiffUNet (features {fea}, {d}x{hw}x{hw}, {name}) "
-            f"cuda vs cpu, error / max|y| of the 5 encoder levels and the "
-            f"logits: {[f'{e:.2e}' for e in errs]} (tol {tol:.0e})")
+        log(f"small {model_name} (features {fea}, {d}x{hw}x{hw}, {name}) "
+            f"cuda vs cpu, error / max|y| of the {len(got) - 1} encoder "
+            f"levels and the logits: {[f'{e:.2e}' for e in errs]} (tol "
+            f"{tol:.0e})")
         if not (all(torch.isfinite(g).all() for g in got)
                 and max(errs) <= tol):
-            fail(f"small SmoothDiffUNet ({name}) on the card disagrees with "
+            fail(f"small {model_name} ({name}) on the card disagrees with "
                  "the CPU")
 
 
 def phase_small_train(dev: torch.device, model_name: str) -> None:
     """Two train steps of a small model on the card and on the CPU from the
     same weights, t and noise (fp32, TF32 off): DiffSwinUNETR (feature 12),
-    DiffUNet or SmoothDiffUNet (features (8, 8, 16, 32, 64, 8), every conv
-    forward and backward on the conv kernels; SmoothDiffUNet on 16x32x32:
-    the layer-norm denoiser's bias-only convs, the smoothing weights'
-    gradients). DiffUNet's (and SmoothDiffUNet's) second step starts from the
+    DiffUNet, SmoothDiffUNet or AttentionDiffUNet (every conv forward and
+    backward on the conv kernels; DiffUNet at features (8, 8, 16, 32, 64,
+    8), the other two at SMALL_UNETS': SmoothDiffUNet's layer-norm
+    denoiser's bias-only convs and its smoothing weights' gradients;
+    AttentionDiffUNet on a batch of 2, its batch-norm chains, judged on
+    the model's largest gradient within ATT_GRAD_TOL). The conv models'
+    second step starts from the
     CPU's parameters on both sides: Adam's first update is lr * sign(g)
     even where g is rounding noise (conv biases before an instance norm,
     other near-zero gradients), and its 2^3 instance norms amplify such
@@ -1120,24 +1177,28 @@ def phase_small_train(dev: torch.device, model_name: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     s, classes, lr = 32, 3, 2e-4
-    conv = model_name in ("diff_unet", "smooth_diff_unet")
+    conv = model_name in ("diff_unet", *SMALL_UNETS)
     kw = (dict(features=(8, 8, 16, 32, 64, 8)) if conv
           else dict(feature_size=12))
-    # SmoothDiffUNet on 16x32x32 windows: its smoothing weights take D
-    # from spatial_size, H and W from image_size
-    shape = (s // 2, s, s) if model_name == "smooth_diff_unet" else (s,) * 3
+    shape = (s,) * 3
+    if model_name in SMALL_UNETS:
+        # SmoothDiffUNet's smoothing weights take D from spatial_size, H
+        # and W from image_size
+        shape, kw["features"] = SMALL_UNETS[model_name]
+    # batch statistics need 2 different samples
+    n = 2 if model_name == "attention_diff_unet" else 1
     rng = np.random.default_rng(SEED)
-    steps = [(rng.random((1, *shape, 1), np.float32),
+    steps = [(rng.random((n, *shape, 1), np.float32),
               np.eye(classes, dtype=np.float32)[
-                  rng.integers(0, classes, (1, *shape))],
-              np.array([int(rng.integers(0, 1000))]),
-              rng.standard_normal((1, *shape, classes), np.float32))
+                  rng.integers(0, classes, (n, *shape))],
+              np.array([int(rng.integers(0, 1000)) for _ in range(n)]),
+              rng.standard_normal((n, *shape, classes), np.float32))
              for _ in range(2)]
     resync = conv
 
     def trainer(where):
         model = init_random(create_model(
-            model_name, out_channels=classes, image_size=s,
+            model_name, out_channels=classes, image_size=shape[1],
             spatial_size=shape[0], **kw), SEED).to(where)
         opt, schedule = make_optimizer(model.parameters(), lr=lr,
                                        weight_decay=1e-4)
@@ -1178,21 +1239,28 @@ def phase_small_train(dev: torch.device, model_name: str) -> None:
             "loss and gradients, bit for bit")
     cpu_params, card_params = ([p.detach().cpu() for p in m.parameters()]
                                for m in models)
+    # AttentionDiffUNet's gradients on the model's largest (ATT_GRAD_TOL)
+    batch_norm = model_name == "attention_diff_unet"
+    grad_tol = ATT_GRAD_TOL if batch_norm else MODEL_TOL
     worst = [0.0, 0.0, 0.0]            # loss / grad norm rel, grad vs tol
+    names = [n for n, _ in models[0].named_parameters()]
+    worst_grad = ""
     for (lc, nc, gc), (lg, ng, gg) in zip(cpu, card):
         worst[0] = max(worst[0], abs(lg - lc) / abs(lc))
         worst[1] = max(worst[1], abs(ng - nc) / abs(nc))
         gmax = max(a.abs().max().item() for a in gc)
-        for a, b in zip(gc, gg):
+        for name, a, b in zip(names, gc, gg):
             # a tensor whose exact gradient is ~0 (a conv bias before an
             # instance norm) is judged on the model's gradient scale
-            scale = max(a.abs().max().item(), 0.1 * gmax)
-            worst[2] = max(worst[2], (b - a).abs().max().item() / scale)
+            scale = (gmax if batch_norm
+                     else max(a.abs().max().item(), 0.1 * gmax))
+            err = (b - a).abs().max().item() / scale
+            if err > worst[2]:
+                worst[2], worst_grad = err, name
     # Adam moves a weight by about lr wherever |g| >> eps, whatever |g|, so
     # a gradient at rounding noise (a conv bias before an instance norm)
     # may take the other sign on the card: 2 lr per step apart at most
     ptol = 2 * lr * (1 if resync else len(steps))
-    names = [n for n, _ in models[0].named_parameters()]
     perrs = [(a - b).abs().max().item()
              for a, b in zip(cpu_params, card_params)]
     i = int(np.argmax(perrs))
@@ -1200,15 +1268,17 @@ def phase_small_train(dev: torch.device, model_name: str) -> None:
     log(f"small {model_name} train steps ({kw}, {shape}, fp32, TF32 off) "
         f"cuda vs cpu: loss rel {worst[0]:.3e}, grad norm rel "
         f"{worst[1]:.3e} (tol "
-        f"{MODEL_TOL:.0e}); worst gradient error {worst[2]:.3e} of max(|g| "
-        f"max, 0.1 model max) (tol {MODEL_TOL:.0e}); parameters after "
+        f"{MODEL_TOL:.0e}); worst gradient error {worst[2]:.3e} of "
+        f"{'the model max' if batch_norm else 'max(|g| max, 0.1 model max)'}"
+        f" (tol {grad_tol:.0e}), {worst_grad}; parameters after "
         f"{len(steps)} steps"
         f"{' (the second from the same ones)' if resync else ''} "
         f"{perrs[i]:.3e} (tol {ptol:.0e}), worst "
         f"{names[i]} whose last |g| max is "
         f"{cpu[-1][2][i].abs().max().item() / gmax:.1e} of the model's; "
         f"losses {[round(r[0], 6) for r in cpu]}")
-    if not (max(worst) <= MODEL_TOL and perrs[i] <= ptol and reproducible
+    if not (max(worst[:2]) <= MODEL_TOL and worst[2] <= grad_tol
+            and perrs[i] <= ptol and reproducible
             and all(np.isfinite(r[0]) for r in card)):
         fail(f"small {model_name} train steps on the card disagree with "
              "the CPU")
@@ -1345,17 +1415,18 @@ def phase_train(dev: torch.device, counters: dict) -> dict:
     return counts
 
 
-def phase_train_amos(dev: torch.device,
-                     model_name: str = "diff_unet") -> dict:
+def phase_train_amos(dev: torch.device, model_name: str = "diff_unet",
+                     per_step: dict = AMOS_TRAIN_PER_STEP) -> dict:
     """``Trainer.from_config("cfg/amos/train.yaml")`` at full width
-    (DiffUNet, or with ``model_name`` SmoothDiffUNet; features (64, 64,
-    128, 256, 512, 64), 15 classes) on synthetic batches of 10 patches of
-    96^3 with 16 label values, for ``AMOS_TRAIN_STEPS`` steps: finite
-    losses, grad norms above 0, moved parameters (every smoothing weight
-    among them), and exactly AMOS_TRAIN_PER_STEP conv launches a step
-    (forward, dgrad, wgrad); then the median synchronised s/step and the
-    peak device memory. Returns the launches of ``train()``, the median
-    s/step and the peak memory in GiB."""
+    (DiffUNet, or with ``model_name`` SmoothDiffUNet, features (64, 64,
+    128, 256, 512, 64), or AttentionDiffUNet, features (32, 64, 128, 256,
+    512); 15 classes) on synthetic batches of 10 patches of 96^3 with 16
+    label values, for ``AMOS_TRAIN_STEPS`` steps: finite losses, grad
+    norms above 0, moved parameters (every smoothing weight among them;
+    every AttentionDiffUNet parameter), and exactly ``per_step`` conv
+    launches a step (forward, dgrad, wgrad); then the median synchronised
+    s/step and the peak device memory. Returns the launches of
+    ``train()``, the median s/step and the peak memory in GiB."""
     from diff_unet_tpu_torch.data.synthetic import SyntheticSegmentation
     from diff_unet_tpu_torch.engine.engine import Trainer
     from diff_unet_tpu_torch.ops.conv3d import conv3x3, conv3x3_wgrad, \
@@ -1412,6 +1483,8 @@ def phase_train_amos(dev: torch.device,
         f"{len(before)} parameter tensors moved")
     if any(".smooth_" in n for n in still):
         fail(f"smoothing weights did not move: {still}")
+    if model_name == "attention_diff_unet" and still:
+        fail(f"AttentionDiffUNet parameters did not move: {still}")
     if len(hist) != AMOS_TRAIN_STEPS:
         fail(f"the AMOS trainer took {len(hist)} steps, not "
              f"{AMOS_TRAIN_STEPS}")
@@ -1421,9 +1494,9 @@ def phase_train_amos(dev: torch.device,
     if hist[0]["lr"] != 0.0 or not moved:
         fail("the AMOS parameters did not move once the lr was above 0")
     for k, c in counts.items():
-        if c != AMOS_TRAIN_PER_STEP[k] * len(hist):
+        if c != per_step[k] * len(hist):
             fail(f"{k}: {c} launches in {len(hist)} AMOS train steps, "
-                 f"predicted {AMOS_TRAIN_PER_STEP[k]} x {len(hist)}")
+                 f"predicted {per_step[k]} x {len(hist)}")
     return counts, float(np.median(step_s[1:])), peak
 
 
@@ -1467,6 +1540,229 @@ def phase_twoconv_norms(dev: torch.device) -> None:
         f"ms / layer {fl:.3f} ms ({fl / fi:.2f}x); forward + backward "
         f"instance {bi:.3f} ms / layer {bl:.3f} ms ({bl / bi:.2f}x); peak "
         f"memory {mi:.2f} / {ml:.2f} GiB")
+
+
+def phase_cout32(dev: torch.device) -> None:
+    """AttentionDiffUNet's Cout-32 convs at 96^3 (ATT_COUT32_CASES), bf16:
+    the forward kernel against its plain version at N 4 and 10 (with the
+    statistics), and at N 10 the dgrad (not at the stem) and the weight
+    gradient against theirs, each with the kernel, cuDNN and bound times
+    as phases 3b and 3e give them."""
+    from diff_unet_tpu_torch.ops.conv3d import (
+        KERNEL_TOL, STATS_TOL, WGRAD_TOL, conv3x3, conv3x3_dgrad,
+        conv3x3_dgrad_plain, conv3x3_plain, conv3x3_wgrad,
+        conv3x3_wgrad_plain)
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    dt, cout, side = torch.bfloat16, 32, 96
+    for tag, chans, pro_on in ATT_COUT32_CASES:
+        for n in ATT_COUT32_N:
+            shape = (n, side, side, side)
+            cin = sum(chans)
+            parts = [torch.randn((*shape, c), generator=g, device=dev)
+                     .to(dt) for c in chans]
+            w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) \
+                / (27 * cin) ** 0.5
+            b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+            pro = None
+            if pro_on:
+                pro = (1.0 + 0.3 * torch.randn((1, cin), generator=g,
+                                               device=dev).expand(n, -1),
+                       0.3 * torch.randn((1, cin), generator=g,
+                                         device=dev).expand(n, -1),
+                       None, 0.0)
+            kw = dict(prologue=pro, with_stats=True)
+            (got, gst), (want, wst) = (conv3x3(parts, w, b, **kw),
+                                       conv3x3_plain(parts, w, b, **kw))
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = KERNEL_TOL[dt] * max(1.0, want.float().abs().max().item())
+            st_err = (gst - wst).abs().max().item()
+            st_tol = STATS_TOL * wst.abs().max().item()
+            del want, wst
+            ms = cuda_ms(lambda: conv3x3(parts, w, b, **kw), 3, 1)
+            x_cl = torch.cat(parts, dim=-1).permute(0, 4, 1, 2, 3)
+            w_cl = w.to(dt).contiguous(memory_format=torch.channels_last_3d)
+            b_l = b.to(dt)
+
+            def library():
+                torch.var_mean(torch.nn.functional.conv3d(
+                    x_cl, w_cl, b_l, padding=1), dim=(2, 3, 4))
+
+            library_ms = cuda_ms(library, 3, 1)
+            flops = 2.0 * got.numel() * 27 * cin
+            bnd = bound(nbytes(*parts, got, gst, b)
+                        + w.numel() * got.element_size(), flops, dt)
+            name = f"Cout-32 {tag} bf16 {chans}->{cout} at {n}x{side}^3"
+            log(f"conv3x3 {name}: max_abs_err {err:.3e} (tol {tol:.3e}) "
+                f"stats err {st_err:.3e} (tol {st_tol:.3e}) kernel "
+                f"{ms:.4f} ms library {library_ms:.4f} ms bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+                f"{bnd['bound_ms'] / ms:.1%} of it), kernel "
+                f"{flops / ms / 1e9:.1f} TFLOP/s")
+            if not (err <= tol and st_err <= st_tol
+                    and torch.isfinite(got).all()):
+                fail(f"conv3x3 {name} disagrees with its plain version")
+            if n != max(ATT_COUT32_N):
+                del parts, got, gst, x_cl
+                continue
+            gy = torch.randn(got.shape, generator=g, device=dev).to(dt)
+            g_cl = gy.permute(0, 4, 1, 2, 3)
+            del got, gst
+            if tag != "denoiser head":
+                got = conv3x3_dgrad(gy, w)
+                want = conv3x3_dgrad_plain(gy, w)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                tol = KERNEL_TOL[dt] * max(
+                    1.0, want.float().abs().max().item())
+                del want
+                ms = cuda_ms(lambda: conv3x3_dgrad(gy, w), 3, 1)
+                library_ms = conv_backward_library_ms(
+                    x_cl, w_cl, g_cl, [True, False, False], 3)
+                bnd = bound(nbytes(gy, got)
+                            + w.numel() * got.element_size(), flops, dt)
+                log(f"conv3x3_dgrad {name}: max_abs_err {err:.3e} (tol "
+                    f"{tol:.3e}) kernel {ms:.4f} ms library "
+                    f"{library_ms:.4f} ms bound {bnd['bound_ms']:.4f} ms "
+                    f"({bnd['bound_by']}, {bnd['bound_ms'] / ms:.1%} of "
+                    f"it), kernel {flops / ms / 1e9:.1f} TFLOP/s")
+                if not (err <= tol and torch.isfinite(got).all()):
+                    fail(f"conv3x3_dgrad {name} disagrees with its plain "
+                         "version")
+                del got
+            got = conv3x3_wgrad(gy, parts, pro)
+            want = conv3x3_wgrad_plain(gy, parts, pro)
+            torch.cuda.synchronize()
+            ref = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            del want
+            ms = cuda_ms(lambda: conv3x3_wgrad(gy, parts, pro), 3, 1)
+            library_ms = conv_backward_library_ms(
+                x_cl, w_cl, g_cl, [False, True, False], 3)
+            bnd = bound(nbytes(gy, *parts, got), flops, dt)
+            log(f"conv3x3_wgrad {name}: max_abs_err {err:.3e} of "
+                f"max|plain| {ref:.3e} (tol {WGRAD_TOL[dt]:.0e} of it) "
+                f"kernel {ms:.4f} ms library {library_ms:.4f} ms bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+                f"{bnd['bound_ms'] / ms:.1%} of it), kernel "
+                f"{flops / ms / 1e9:.1f} TFLOP/s, "
+                f"{ms / library_ms:.2f}x the library")
+            if not (err <= WGRAD_TOL[dt] * ref and torch.isfinite(got).all()):
+                fail(f"conv3x3_wgrad {name} disagrees with its plain version")
+            del parts, gy, got, x_cl, g_cl
+
+
+def phase_bn_chain(dev: torch.device) -> None:
+    """One 32 -> 32 ``ConvBNReLU2`` at 10 x 96^3 in bf16 over fp32
+    parameters, its conv_0 bias set to 10 so that the conv output's mean
+    is ~10x its spread (where a one-pass variance loses digits): the
+    block's output equals its chain run by hand on the conv kernel (bit
+    for bit) and that chain on the plain version within BN_CHAIN_TOL of
+    max |plain|; the first norm from the kernel's statistics (one pass,
+    the samples added in float64, of the unrounded output) against a
+    float64 two-pass norm of the rounded output; CUDA-event ms of the
+    forward (kernel, plain and library chains: cuDNN conv, batch norm
+    and ReLU, twice) and of forward + backward (block and library); peak
+    memory."""
+    import torch.nn.functional as F
+
+    from diff_unet_tpu_torch.models.attention_diff_unet import ConvBNReLU2
+    from diff_unet_tpu_torch.ops.blocks import scale_shift_relu
+    from diff_unet_tpu_torch.ops.conv3d import (
+        batch_affine_from_stats, conv3x3, conv3x3_plain)
+    from diff_unet_tpu_torch.utils.weights import init_random
+
+    n, side, c = 10, 96, 32
+    count = side ** 3
+    block = init_random(ConvBNReLU2(c, c, dtype=torch.bfloat16), SEED)
+    with torch.no_grad():
+        block.conv_0.bias.fill_(10.0)
+    block = block.to(dev)
+    g = torch.Generator(dev).manual_seed(SEED + 8)
+    x = torch.randn((n, side, side, side, c), generator=g, device=dev
+                    ).to(torch.bfloat16)
+    c0, n0, c1, n1 = block.conv_0, block.norm_0, block.conv_1, block.norm_1
+
+    def chain(conv):
+        y0, st0 = conv([x], c0.weight, c0.bias, with_stats=True)
+        a0, b0 = batch_affine_from_stats(st0, n0.weight, n0.bias, count)
+        y1, st1 = conv([y0], c1.weight, c1.bias, prologue=(
+            a0.expand(n, -1), b0.expand(n, -1), None, 0.0), with_stats=True)
+        a1, b1 = batch_affine_from_stats(st1, n1.weight, n1.bias, count)
+        return scale_shift_relu(y1, a1, b1), y0, a0, b0
+
+    with torch.no_grad():
+        out = block([x])
+        got, y0, a0, b0 = chain(conv3x3)
+        want = chain(conv3x3_plain)[0]
+        torch.cuda.synchronize()
+        same = torch.equal(out, got)
+        ref = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        del out, want
+        # the first norm: float64 two-pass statistics of the rounded y0
+        yd = y0.double()
+        mean = yd.mean(dim=(0, 1, 2, 3))
+        var = torch.square(yd - mean).mean(dim=(0, 1, 2, 3))
+        a_ref = torch.rsqrt(var + 1e-5) * n0.weight.double()
+        b_ref = n0.bias.double() - mean * a_ref
+        z_ref = yd * a_ref + b_ref
+        norm_err = ((yd * a0.double() + b0.double() - z_ref).abs().max()
+                    / z_ref.abs().max()).item()
+        spread = (mean.abs() / var.sqrt()).min().item()
+        del yd, z_ref, y0, got
+    w0 = c0.weight.to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last_3d)
+    w1 = c1.weight.to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last_3d)
+
+    def library(h):
+        """cuDNN's conv, batch norm and ReLU on the channels-last view."""
+        for w, conv, norm in ((w0, c0, n0), (w1, c1, n1)):
+            h = F.conv3d(h, w, conv.bias.to(torch.bfloat16), padding=1)
+            h = F.relu(F.batch_norm(h, None, None, norm.weight, norm.bias,
+                                    training=True))
+        return h
+
+    def forward(fn):
+        def run():
+            with torch.no_grad():
+                fn()
+        return run
+
+    leaves = list(block.parameters())
+    xg = x.clone().requires_grad_()
+    dy = torch.randn(x.shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def block_both():
+        torch.autograd.grad(block([xg]), [xg, *leaves], dy)
+
+    def library_both():
+        torch.autograd.grad(library(xg.permute(0, 4, 1, 2, 3)),
+                            [xg, *leaves], dy.permute(0, 4, 1, 2, 3))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = [cuda_ms(forward(lambda: block([x])), 5, 2),
+             cuda_ms(forward(lambda: chain(conv3x3_plain)), 3, 1),
+             cuda_ms(forward(lambda: library(x.permute(0, 4, 1, 2, 3))), 5,
+                     2),
+             cuda_ms(block_both, 5, 2), cuda_ms(library_both, 5, 2)]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    log(f"ConvBNReLU2 32->32 at {n}x{side}^3, bf16, conv_0 output mean / "
+        f"spread >= {spread:.1f}: block = its kernel chain bit for bit "
+        f"{same}; kernel chain vs plain chain max_abs_err {err:.3e} (tol "
+        f"{BN_CHAIN_TOL * ref:.3e}); first norm from the kernel's one-pass "
+        f"sums vs a float64 two-pass of the rounded output: "
+        f"{norm_err:.3e} of max |z|; forward kernel {times[0]:.3f} ms "
+        f"plain {times[1]:.3f} ms library {times[2]:.3f} ms; forward + "
+        f"backward block {times[3]:.3f} ms library {times[4]:.3f} ms; peak "
+        f"memory {peak:.2f} GiB")
+    if not (same and err <= BN_CHAIN_TOL * ref):
+        fail("the batch-norm ConvBNReLU2 on the kernel disagrees with its "
+             "plain chain")
 
 
 def phase_edt() -> None:
@@ -2272,14 +2568,17 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
     report.update(phase_conv(dev))
     report.update(phase_conv_backward(dev))
     phase_conv_msd(dev)
+    phase_cout32(dev)
     report.update(phase_partition(dev))
     report.update(phase_backward(dev))
     phase_small_model(dev)
     phase_small_diff_unet(dev)
-    phase_small_smooth(dev)
+    phase_small_unet(dev, "smooth_diff_unet")
+    phase_small_unet(dev, "attention_diff_unet")
     phase_small_train(dev, "diff_swin_unetr")
     phase_small_train(dev, "diff_unet")
     phase_small_train(dev, "smooth_diff_unet")
+    phase_small_train(dev, "attention_diff_unet")
     phase_small_all_losses(dev)
     phase_small_swin_unetr(dev)
     swin = {"window_attention": window_attention,
@@ -2308,6 +2607,16 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
                             model_name="smooth_diff_unet").items():
         paths[k].update(v)
     paths["conv3x3_dgrad"]["amos_smooth_serve"] = 0
+    # AttentionDiffUNet: 10 + 30 * 10 convs per window batch
+    for k, v in phase_serve(dev, "amos", {"conv3x3": conv3x3,
+                                          "conv3x3_wgrad": conv3x3_wgrad},
+                            {"conv3x3": ATT_CONV_PER_BATCH,
+                             "conv3x3_wgrad": 0},
+                            path="amos_attention_serve",
+                            shapes=((96, 192, 192),),
+                            model_name="attention_diff_unet").items():
+        paths[k].update(v)
+    paths["conv3x3_dgrad"]["amos_attention_serve"] = 0
     paths["shift_windows_backward"]["btcv_serve"] = 0
     counts = phase_train(dev, swin)
     # the partition kernel runs forward and in the reverse's backward, and
@@ -2331,6 +2640,15 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
         f"({smooth_step_s / amos_step_s:.2f}x), peak memory "
         f"{smooth_peak:.2f} / {amos_peak:.2f} GiB")
     phase_twoconv_norms(dev)
+    counts, att_step_s, att_peak = phase_train_amos(
+        dev, "attention_diff_unet", ATT_TRAIN_PER_STEP)
+    for k, c in counts.items():
+        paths[k]["amos_attention_train"] = c
+    log(f"AMOS train step, attention_diff_unet against diff_unet: "
+        f"{att_step_s:.4f} / {amos_step_s:.4f} s "
+        f"({att_step_s / amos_step_s:.2f}x), peak memory "
+        f"{att_peak:.2f} / {amos_peak:.2f} GiB")
+    phase_bn_chain(dev)
     for phase in (lambda: phase_train_msd(dev),
                   lambda: phase_train_amos_keys(dev, work, amos_step_s),
                   lambda: phase_swin_unetr(dev, swin)):
@@ -2376,7 +2694,7 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
             "through flax nn.Conv (jax.value_and_grad)"),
     }
     # launches: the first path of LAUNCH_ORDER on which the kernel ran,
-    # this slice's paths (the AMOS SmoothDiffUNet training and serving)
+    # this slice's paths (the AMOS AttentionDiffUNet training and serving)
     # first
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=next((paths[k][p] for p in LAUNCH_ORDER

@@ -3,10 +3,11 @@
 ``diff_unet_tpu/engine/engine.py``).
 
 ``Predictor`` is built from the keys of a test config (``cfg/amos/test.yaml``
-for ``diff_unet`` and, with ``model_name=smooth_diff_unet``, the smoothing
-family; ``cfg/btcv/test.yaml`` for ``diff_swin_unetr``, or keyword
-arguments; ``model_name=swin_unetr`` serves the plain Swin-UNETR
-baseline, one forward per window batch and no DDIM loop), holds the model
+for ``diff_unet`` and, with ``model_name=smooth_diff_unet`` or
+``attention_diff_unet``, the other two UNet families;
+``cfg/btcv/test.yaml`` for ``diff_swin_unetr``, or keyword arguments;
+``model_name=swin_unetr`` serves the plain Swin-UNETR baseline, one
+forward per window batch and no DDIM loop), holds the model
 with seeded random weights or the
 weights of ``model_path`` (``engine/checkpoint.py``: the port's ``.pt`` or
 a JAX tree as ``.npz``; ``use_ema`` takes the EMA tree), and serves whole
@@ -76,9 +77,6 @@ _IGNORED_KEYS = frozenset((
 ))
 # keys of the shared test configs that only the Tester reads
 TESTER_KEYS = ("save_volumes",)
-# the models the Trainer trains (attention_diff_unet is not ported yet)
-TRAINABLE = ("diff_unet", "smooth_diff_unet", "diff_swin_unetr",
-             "swin_unetr")
 
 
 def convert_labels(labels: torch.Tensor, class_ids: Sequence[int]
@@ -421,10 +419,11 @@ class Tester(Engine):
 
 
 class Trainer(Engine):
-    """Training engine for ``diff_unet`` (``cfg/amos/train.yaml``,
-    ``cfg/msd/train.yaml``), ``diff_swin_unetr`` (``cfg/btcv/train.yaml``)
-    and the plain ``swin_unetr`` baseline (one forward per step, no
-    q_sample).
+    """Training engine for every model of the factory: ``diff_unet``
+    (``cfg/amos/train.yaml``, ``cfg/msd/train.yaml``; the AMOS recipe also
+    with ``model_name=smooth_diff_unet`` or ``attention_diff_unet``),
+    ``diff_swin_unetr`` (``cfg/btcv/train.yaml``) and the plain
+    ``swin_unetr`` baseline (one forward per step, no q_sample).
 
     Data: the training and validation lists of ``data_path``'s
     ``dataset.json`` (``set_dataloader``; labels converted per batch on the
@@ -470,10 +469,6 @@ class Trainer(Engine):
                  t_sampler: str = "uniform", model_name: str = "diff_unet",
                  model_path: Optional[str] = None, log_dir: str = "logs",
                  **kwargs) -> None:
-        if model_name not in TRAINABLE:
-            raise NotImplementedError(
-                f"training {model_name} is not ported yet (ROADMAP.md); "
-                f"{', '.join(TRAINABLE)} are")
         if train_data is None and kwargs.get("data_path") is None:
             raise ValueError("Trainer needs data_path (a directory holding "
                              "a Decathlon dataset.json) or train_data (an "

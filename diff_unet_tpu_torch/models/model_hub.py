@@ -1,7 +1,7 @@
 """Model factory and model types (counterpart of
-``diff_unet_tpu/models/model_hub.py``). ``diff_unet``,
-``smooth_diff_unet``, ``diff_swin_unetr`` and the plain ``swin_unetr``
-baseline are ported so far."""
+``diff_unet_tpu/models/model_hub.py``): every model family of the JAX
+package's factory; its ``pack``, ``remat`` and ``quantize`` switches are
+not ported."""
 from __future__ import annotations
 
 import enum
@@ -49,7 +49,8 @@ def create_model(model_name: str, *, in_channels: int = 1,
                  dtype: Optional[torch.dtype] = None):
     """Build a model module by name. ``features`` sets the six level
     widths of DiffUNet and SmoothDiffUNet (default (64, 64, 128, 256, 512,
-    64)); SmoothDiffUNet's smoothing weights take the (spatial_size,
+    64)) and the level widths of AttentionDiffUNet (default (32, 64, 128,
+    256, 512)); SmoothDiffUNet's smoothing weights take the (spatial_size,
     image_size, image_size) window's shape."""
     kw = {"features": tuple(features)} if features else {}
     if model_name == "diff_unet":
@@ -62,6 +63,11 @@ def create_model(model_name: str, *, in_channels: int = 1,
         return SmoothDiffUNet(out_channels=out_channels,
                               in_channels=in_channels, image_size=image_size,
                               spatial_size=spatial_size, dtype=dtype, **kw)
+    if model_name == "attention_diff_unet":
+        from diff_unet_tpu_torch.models.attention_diff_unet import \
+            AttentionDiffUNet
+        return AttentionDiffUNet(out_channels=out_channels,
+                                 in_channels=in_channels, dtype=dtype, **kw)
     if model_name == "diff_swin_unetr":
         from diff_unet_tpu_torch.models.swin_unetr import DiffSwinUNETR
         return DiffSwinUNETR(
@@ -74,10 +80,6 @@ def create_model(model_name: str, *, in_channels: int = 1,
             out_channels=out_channels, in_channels=in_channels,
             image_size=parse_image_size(image_size, spatial_size),
             feature_size=feature_size, dtype=dtype)
-    if model_name in MODEL_NAMES and model_name != "attention_unet":
-        # attention_unet is listed but has no model in the reference
-        # either, whose create_model raises ValueError for it
-        raise NotImplementedError(
-            f"{model_name} is not ported to diff_unet_tpu_torch yet "
-            "(ROADMAP.md, modules to port)")
+    # attention_unet is listed but has no model in the JAX package either,
+    # whose create_model raises ValueError for it
     raise ValueError(f"Invalid model type: {model_name}")

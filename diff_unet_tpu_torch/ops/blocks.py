@@ -2,10 +2,12 @@
 
 Counterparts of ``flax.linen`` ``Dense``/``Conv``/``ConvTranspose``/
 ``LayerNorm`` and of ``diff_unet_tpu/ops/blocks.py`` (``swish``,
-``timestep_embedding``, ``TimestepEmbedder``, ``InstanceNorm``, flax's
-default ``nn.LayerNorm`` over channels (``ChannelLayerNorm``), and the
-DiffUNet blocks ``ConvNormAct``, ``TwoConv``, ``Down``, ``UpCat`` with
-instance or layer norm and LeakyReLU). Parameters
+``timestep_embedding``, ``TimestepEmbedder``, ``InstanceNorm``,
+``BatchStatsNorm``, flax's default ``nn.LayerNorm`` over channels
+(``ChannelLayerNorm``), and the DiffUNet blocks ``ConvNormAct``,
+``TwoConv``, ``Down``, ``UpCat`` with instance or layer norm and
+LeakyReLU), and ``scale_shift_relu``, the batch norm's per-channel affine
+and ReLU on a conv's output. Parameters
 are float32; ``dtype`` is the compute dtype (bf16 under ``use_amp``), to
 which inputs and weights are cast at each call, as flax does. ``None``
 computes in the promoted dtype of input and weights.
@@ -24,7 +26,7 @@ from diff_unet_tpu_torch.ops.conv3d import _acc_dtype, conv3x3, \
 
 TEMB_DIM = 128
 TEMB_FEATURES = 512
-EPS = 1e-5              # LayerNorm and InstanceNorm epsilon
+EPS = 1e-5              # LayerNorm, InstanceNorm and BatchStatsNorm epsilon
 LN_EPS = 1e-6           # ChannelLayerNorm: flax nn.LayerNorm's default
 NORMS = ("instance", "layer")
 
@@ -191,6 +193,71 @@ class InstanceNorm(nn.Module):
         a = scale.to(x.dtype)
         b = (self.bias.float() - mean * scale).to(x.dtype)
         return (x * a + b).to(self.dtype or x.dtype)
+
+
+class BatchStatsNorm(nn.Module):
+    """Batch norm from the current batch, without running averages, in
+    training and in eval alike (the JAX package's documented deviation
+    from torch's eval mode, keeping the model stateless): statistics over
+    the samples and the voxels in float32 (float64 stays float64), the
+    two-pass variance mean((x - mean)^2), epsilon 1e-5, the affine in
+    float32, the result rounded to the compute dtype. Unfused: the
+    attention gates use it, and the fused conv chains of
+    ``models/attention_diff_unet.py`` are held against it."""
+
+    def __init__(self, features: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        acc = _acc_dtype(x.dtype)
+        axes = tuple(range(x.dim() - 1))
+        xf = x.to(acc)
+        mean = xf.mean(dim=axes, keepdim=True)
+        var = torch.square(xf - mean).mean(dim=axes, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + EPS)
+        y = y * self.weight.to(acc) + self.bias.to(acc)
+        return y.to(self.dtype or x.dtype)
+
+
+def _scale_shift_relu(y, a, b):
+    return torch.relu(torch.addcmul(b, y, a)).to(y.dtype)
+
+
+class _ScaleShiftReLU(torch.autograd.Function):
+    """``scale_shift_relu`` with a backward that keeps only y (which the
+    conv before it saves anyway) and the output: autograd through the
+    float32 expression would keep two float32 copies of the map."""
+
+    @staticmethod
+    def forward(ctx, y, a, b):
+        z = _scale_shift_relu(y, a, b)
+        ctx.save_for_backward(y, a, z)
+        return z
+
+    @staticmethod
+    def backward(ctx, dz):
+        y, a, z = ctx.saved_tensors
+        t = torch.where(z > 0, dz, 0).to(a.dtype)
+        needs = ctx.needs_input_grad
+        dy = (t * a).to(y.dtype) if needs[0] else None
+        da = (t * y).sum((0, 1, 2, 3)) if needs[1] else None
+        db = t.sum((0, 1, 2, 3)) if needs[2] else None
+        return dy, da, db
+
+
+def scale_shift_relu(y: torch.Tensor, a: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    """relu(y * a + b) over the channels of NDHWC y with (C,) a and b:
+    computed in a's dtype (float32, or float64) and rounded once to y's,
+    where the JAX package rounds its batch norm's output; a ReLU commutes
+    with that rounding."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (y, a, b)):
+        return _ScaleShiftReLU.apply(y, a, b)
+    return _scale_shift_relu(y, a, b)
 
 
 class _LayerNormAct(torch.autograd.Function):

@@ -1,5 +1,6 @@
 """3x3x3 'same' conv over channel-last parts: the CUDA kernel and its plain
-PyTorch version, plus the instance-norm affine taken from its statistics.
+PyTorch version, plus the instance-norm and batch-norm affines taken from
+its statistics.
 
 Counterpart of ``diff_unet_tpu/ops/pallas_conv.py`` (``conv3d_same``),
 ``ops/pallas_aug_conv.py`` (``conv3x3_aug``) and
@@ -797,3 +798,20 @@ def norm_affine_from_stats(stats: torch.Tensor, gamma: torch.Tensor,
     var = torch.clamp(stats[:, 1] / count - mean * mean, min=0.0)
     a = torch.rsqrt(var + eps) * gamma.float()
     return a, beta.float() - mean * a
+
+
+def batch_affine_from_stats(stats: torch.Tensor, gamma: torch.Tensor,
+                            beta: torch.Tensor, count: int,
+                            eps: float = EPS
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batch norm (statistics over the samples and the ``count`` voxels of
+    each) as one per-channel affine from the conv's (N, 2, C) (sum, sum of
+    squares): the samples' sums added in float64 (a reduction without
+    atomics: the same bits on every run), then the one-pass variance
+    clamped at 0. Returns (a, b), both (C,) in the statistics' dtype, with
+    ``y * a + b`` the normalised, scaled and shifted ``y``."""
+    total = stats.double().sum(0) / (stats.shape[0] * count)
+    mean = total[0]
+    var = torch.clamp(total[1] - mean * mean, min=0.0)
+    a = torch.rsqrt(var + eps) * gamma.double()
+    return a.to(stats.dtype), (beta.double() - mean * a).to(stats.dtype)

@@ -10,10 +10,13 @@ train step of its training path, on the card.
     python -m diff_unet_tpu_torch.profile_batch swin_unetr_train [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch smooth_serve [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch smooth_train [--out FILE]
+    python -m diff_unet_tpu_torch.profile_batch attention_serve [--out FILE]
+    python -m diff_unet_tpu_torch.profile_batch attention_train [--out FILE]
 
 The ``_train`` modes build the ``Trainer`` of ``cfg/btcv/train.yaml``
 (batch 1, 14 label values), ``cfg/amos/train.yaml`` (batch 10, 16 label
-values; ``smooth_train``: with ``model_name=smooth_diff_unet``),
+values; ``smooth_train`` and ``attention_train`` with that
+``model_name``),
 ``cfg/msd/train.yaml`` (batch 4, 3 label values) or the BTCV
 config with ``model_name=swin_unetr`` on synthetic batches
 (``data/synthetic.py``) and profile its train step (q_sample, denoise,
@@ -21,8 +24,9 @@ loss, backward, AdamW; the plain model: forward, loss, backward, AdamW)
 the same way.
 
 The others build the ``Predictor`` of ``cfg/<data>/test.yaml`` (``swin_unetr``:
-the BTCV config with that model; ``smooth_serve``: the AMOS config with
-``smooth_diff_unet``) with seeded random weights and run what
+the BTCV config with that model; ``smooth_serve``, ``attention_serve``:
+the AMOS config with ``smooth_diff_unet`` or ``attention_diff_unet``)
+with seeded random weights and run what
 it runs for each window batch: the image embedding and the DDIM loop over
 ``sw_batch_size`` windows of the ROI, or the plain model's one forward
 (stitching excluded). After two warm-up batches it times three batches without the
@@ -32,10 +36,10 @@ un-profiled seconds per batch, the traced batch's summed device time and
 the device's busy share (device time over un-profiled wall time), and the
 top device kernels by summed device time; ``--out`` gets the whole
 ``key_averages`` table (CPU operators and kernels). For a model built from
-``TwoConv`` blocks (DiffUNet, SmoothDiffUNet) it also counts the 3x3x3
-conv operations of
-a batch (forward hooks on the blocks' outputs) and sets them beside the
-conv kernel's device time and the bf16 peak. Needs a CUDA card; it fails
+``TwoConv`` blocks (DiffUNet, SmoothDiffUNet; AttentionDiffUNet also from
+``ConvBNReLU2`` and ``UpConv``) it also counts the 3x3x3 conv operations
+of a batch (forward hooks on the blocks' outputs) and sets them beside
+the conv kernel's device time and the bf16 peak. Needs a CUDA card; it fails
 without one.
 """
 from __future__ import annotations
@@ -64,7 +68,8 @@ def _device_us(evt, self_only: bool) -> float:
 # the config and model of each mode's name
 _CONFIGS = {"btcv": ("btcv", {}), "amos": ("amos", {}), "msd": ("msd", {}),
             "swin_unetr": ("btcv", {"model_name": "swin_unetr"}),
-            "smooth": ("amos", {"model_name": "smooth_diff_unet"})}
+            "smooth": ("amos", {"model_name": "smooth_diff_unet"}),
+            "attention": ("amos", {"model_name": "attention_diff_unet"})}
 
 
 def _window_batch(dev: torch.device, data: str):
@@ -102,7 +107,7 @@ def _window_batch(dev: torch.device, data: str):
 # labels of the synthetic batches (the classes table's entries) and batch
 # size of each train config
 _TRAIN = {"btcv": (14, 1), "amos": (16, 10), "msd": (3, 4),
-          "swin_unetr": (14, 1), "smooth": (16, 10)}
+          "swin_unetr": (14, 1), "smooth": (16, 10), "attention": (16, 10)}
 
 
 def _train_step(dev: torch.device, data: str):
@@ -133,7 +138,7 @@ def _train_step(dev: torch.device, data: str):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("data", choices=(
-        "amos", "btcv", "swin_unetr", "smooth_serve",
+        "amos", "btcv", "swin_unetr", "smooth_serve", "attention_serve",
         *(f"{k}_train" for k in _TRAIN)))
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--top", type=int, default=25)
@@ -143,6 +148,8 @@ def main() -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from diff_unet_tpu_torch.models.attention_diff_unet import \
+        ConvBNReLU2, UpConv
     from diff_unet_tpu_torch.ops.blocks import TwoConv
 
     card = subprocess.run(
@@ -158,14 +165,18 @@ def main() -> None:
             "_serve"))
 
     conv_flops = [0.0]
-    stems = ("embed_model.conv_0", "model.conv_0")   # inputs need no grad
+    # the stems' inputs need no grad
+    stems = ("embed_model.conv_0", "model.conv_0", "embed_model.head",
+             "model.head")
 
     def counter(name):
         def count(mod, args, out):
             parts = (args[0] if isinstance(args[0], (list, tuple))
                      else [args[0]])
             cin, cout = sum(p.shape[-1] for p in parts), out.shape[-1]
-            f0, f1 = (2.0 * out.numel() * 27 * c for c in (cin, cout))
+            # an UpConv runs one conv (on its upsampled input)
+            f0, f1 = (2.0 * out.numel() * 27 * c for c in (
+                cin, 0 if isinstance(mod, UpConv) else cout))
             # a train step adds the wgrad of both convs and the dgrad of
             # all but a stem's first
             conv_flops[0] += ((3 * f0 + 3 * f1 - (f0 if name in stems
@@ -175,7 +186,7 @@ def main() -> None:
 
     hooks = [m.register_forward_hook(counter(name))
              for name, m in pred.module.named_modules()
-             if isinstance(m, TwoConv)]
+             if isinstance(m, (TwoConv, ConvBNReLU2, UpConv))]
     batch()
     for h in hooks:
         h.remove()

@@ -11,7 +11,7 @@ Port submodules carry the flax scope names, so a flax path
 - ConvTranspose kernel (kd, kh, kw, in, out) -> (in, out, kd, kh, kw),
   spatially flipped (flax applies the kernel as a plain conv over the
   dilated input; PyTorch's is the gradient of a conv)
-- LayerNorm / InstanceNorm scale      -> weight
+- LayerNorm / InstanceNorm / BatchStatsNorm scale -> weight
 - relative_position_bias_table, SmoothLayer weights (D, H, W, C),
   FFParser weight_real / weight_imag  -> as is
 """
@@ -26,11 +26,11 @@ from torch import nn
 
 from diff_unet_tpu_torch.models.smooth_diff_unet import FFParser, \
     SmoothLayer
-from diff_unet_tpu_torch.ops.blocks import ChannelLayerNorm, Conv, \
-    ConvTranspose, Dense, InstanceNorm, LayerNorm
+from diff_unet_tpu_torch.ops.blocks import BatchStatsNorm, \
+    ChannelLayerNorm, Conv, ConvTranspose, Dense, InstanceNorm, LayerNorm
 from diff_unet_tpu_torch.ops.swin import WindowAttention
 
-NORM_MODULES = (LayerNorm, ChannelLayerNorm, InstanceNorm)
+NORM_MODULES = (LayerNorm, ChannelLayerNorm, InstanceNorm, BatchStatsNorm)
 # parameters whose flax name and layout are the port's
 AS_IS = {WindowAttention: ("relative_position_bias_table",),
          SmoothLayer: ("weights",), FFParser: ("weight_real", "weight_imag")}

@@ -75,6 +75,11 @@ CASES = {
     # statistics, no activation
     "broadcast prologue": (2, (4, 5, 4), [6], 4, "broadcast", True, None,
                            False, True),
+    # the batch-norm ConvBNReLU2's second conv: per-channel scale / shift
+    # broadcast to (N, Cin), ReLU (slope 0), no const, and statistics
+    # that count only through their sums over the samples
+    "batch-norm prologue": (3, (4, 5, 4), [6], 5, "batch", False, None,
+                            True, True),
 }
 
 
@@ -88,13 +93,16 @@ def test_function_gradients_match_autograd_through_plain(name):
     for p in parts:
         p.requires_grad_(parts_grad)
     rows = [v for v in (pro or ())[:3] if v is not None]
-    if pro_on == "broadcast":
+    if pro_on in ("broadcast", "batch"):
         # leaves of one row each, broadcast over the samples
         rows = [v[0].detach().requires_grad_() for v in rows]
-        pro = (*[v.expand(n, -1) for v in rows], pro[3])
+        pro = (*[v.expand(n, -1) for v in rows],
+               *[None] * (3 - len(rows)), 0.0 if pro_on == "batch" else 0.1)
     rng = np.random.default_rng(1)
     cot_y = torch.from_numpy(rng.standard_normal((n, *dims, cout)))
     cot_s = torch.from_numpy(rng.standard_normal((n, 2, cout)))
+    if pro_on == "batch":
+        cot_s = cot_s[:1].expand(n, -1, -1)
     inputs = [w, b] + rows
     inputs += [p for p in parts if p.requires_grad]
     kw = dict(prologue=pro, negative_slope=slope, with_stats=stats)

@@ -135,8 +135,9 @@ def test_create_model_and_seeded_init():
                               m2.state_dict().items()):
         assert torch.equal(a, b), k
     assert isinstance(m1, TModel)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("attention_diff_unet", out_channels=2)
+    assert type(create_model("attention_diff_unet", out_channels=2,
+                             features=(4, 8, 16, 32, 64))
+                ).__name__ == "AttentionDiffUNet"
     with pytest.raises(ValueError):
         create_model("nope", out_channels=2)
     with pytest.raises(ValueError, match="2\\^5"):

@@ -183,7 +183,7 @@ def test_embed_and_denoise_match_jax_float64(pair):
 def test_factory_and_seeded_init():
     """0.5 * N(0, 1) smoothing weights from the seed; the AMOS widths'
     smoothing weights (96^3 * 64 + 48^3 * 64 + 24^3 * 128 + 12^3 * 256);
-    attention_diff_unet is still refused."""
+    the factory builds attention_diff_unet too."""
     m1, m2 = (init_random(create_model(
         "smooth_diff_unet", out_channels=C, image_size=HW, spatial_size=D,
         features=FEATURES), 7) for _ in range(2))
@@ -201,8 +201,9 @@ def test_factory_and_seeded_init():
                  if ".smooth_" in n)
     assert smooth == 96 ** 3 * 64 + 48 ** 3 * 64 + 24 ** 3 * 128 + \
         12 ** 3 * 256
-    with pytest.raises(NotImplementedError, match="attention_diff_unet"):
-        create_model("attention_diff_unet", out_channels=2)
+    assert type(create_model("attention_diff_unet", out_channels=2,
+                             features=(4, 8, 16, 32, 64))
+                ).__name__ == "AttentionDiffUNet"
 
 
 def _kw(**extra):

@@ -3,9 +3,10 @@
 schedule (1e-7), two AdamW updates against ``optax.adamw`` (1e-6), one
 train step of DiffSwinUNETR (feature 12, 32^3), of DiffUNet (features
 (8, 8, 16, 32, 64, 8), 32^3, every conv through the conv's autograd
-Function) and of SmoothDiffUNet (features (4, 4, 8, 16, 32, 4), 16x32x32)
-against ``jax.value_and_grad`` in float64 with injected t and noise (loss
-and gradients 1e-4), and the Trainers built from
+Function), of SmoothDiffUNet (features (4, 4, 8, 16, 32, 4), 16x32x32)
+and of AttentionDiffUNet (features (4, 8, 16, 32, 64), 16^3, a batch of
+2) against ``jax.value_and_grad`` in float64 with injected t and noise
+(loss and gradients 1e-4), and the Trainers built from
 ``cfg/btcv/train.yaml`` and ``cfg/amos/train.yaml`` on synthetic
 batches."""
 from pathlib import Path
@@ -17,6 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 import optax
+from flax import linen as fnn
 
 from diff_unet_tpu.api import DiffusionSegmenter as JSeg
 from diff_unet_tpu.data import label_smoothing as jls
@@ -24,6 +26,9 @@ from diff_unet_tpu.diffusion import gaussian as jg
 from diff_unet_tpu.engine import engine as jengine
 from diff_unet_tpu.engine import train as jtrain
 from diff_unet_tpu.losses.losses import CompositeLoss as JLoss
+from diff_unet_tpu.models import attention_diff_unet as jatt
+from diff_unet_tpu.models.attention_diff_unet import \
+    AttentionDiffUNet as JAttention
 from diff_unet_tpu.models.diff_unet import DiffUNet as JDiffUNet
 from diff_unet_tpu.models.smooth_diff_unet import SmoothDiffUNet as JSmooth
 from diff_unet_tpu.models.swin_unetr import DiffSwinUNETR as JModel
@@ -34,6 +39,8 @@ from diff_unet_tpu_torch.data.synthetic import SyntheticSegmentation, \
 from diff_unet_tpu_torch.engine import engine as tengine
 from diff_unet_tpu_torch.engine import train as ttrain
 from diff_unet_tpu_torch.losses.losses import CompositeLoss as TLoss
+from diff_unet_tpu_torch.models.attention_diff_unet import \
+    AttentionDiffUNet as TAttention
 from diff_unet_tpu_torch.models.diff_unet import DiffUNet as TDiffUNet
 from diff_unet_tpu_torch.models.smooth_diff_unet import \
     SmoothDiffUNet as TSmooth
@@ -49,11 +56,31 @@ S, C, FS = 32, 3, 12
 FEATURES = (8, 8, 16, 32, 64, 8)
 
 
+class BatchStatsNorm64(jatt.BatchStatsNorm):
+    """The JAX package's ``BatchStatsNorm`` with its statistics and affine
+    in x's dtype (at least float32) where it casts x to float32 whatever
+    its dtype: the same operations in the same order, so that a float64
+    run is float64 throughout."""
+
+    @fnn.compact
+    def __call__(self, x):
+        c = x.shape[-1]
+        scale = self.param("scale", fnn.initializers.ones, (c,))
+        bias = self.param("bias", fnn.initializers.zeros, (c,))
+        axes = tuple(range(x.ndim - 1))
+        xf = x.astype(jnp.promote_types(x.dtype, jnp.float32))
+        mean = jnp.mean(xf, axis=axes, keepdims=True)
+        var = jnp.mean(jnp.square(xf - mean), axis=axes, keepdims=True)
+        y = (xf - mean) * jax.lax.rsqrt(var + self.epsilon)
+        y = y * scale.astype(xf.dtype) + bias.astype(xf.dtype)
+        return y.astype(self.dtype or x.dtype)
+
+
 def _models(name):
     """The JAX module, a constructor of the port's module, small widths,
-    and the patch shape: 32^3, and 16x32x32 for SmoothDiffUNet (whose
+    and the patch shape: 32^3, 16x32x32 for SmoothDiffUNet (whose
     smoothing weights take D from ``spatial_size``, H and W from
-    ``image_size``)."""
+    ``image_size``), 16^3 for AttentionDiffUNet."""
     if name == "diff_unet":
         return (JDiffUNet(out_channels=C, features=FEATURES),
                 lambda: TDiffUNet(C, features=FEATURES), (S,) * 3)
@@ -63,6 +90,10 @@ def _models(name):
                         features=fea),
                 lambda: TSmooth(C, image_size=S, spatial_size=d,
                                 features=fea), (d, S, S))
+    if name == "attention_diff_unet":
+        fea = (4, 8, 16, 32, 64)
+        return (JAttention(out_channels=C, features=fea),
+                lambda: TAttention(C, features=fea), (S // 2,) * 3)
     return (JModel(out_channels=C, image_size=(S,) * 3, feature_size=FS),
             lambda: TModel(C, image_size=(S,) * 3, feature_size=FS),
             (S,) * 3)
@@ -149,8 +180,9 @@ def test_two_adamw_updates_match_optax(scheduler):
 
 
 @pytest.mark.parametrize("model", ["diff_swin_unetr", "diff_unet",
-                                   "smooth_diff_unet"])
-def test_train_step_matches_jax_value_and_grad(model):
+                                   "smooth_diff_unet",
+                                   "attention_diff_unet"])
+def test_train_step_matches_jax_value_and_grad(model, monkeypatch):
     """fp32 port against float64 JAX: the same params, t and noise; the
     loss at 1e-4, each gradient at 1e-4 of the model's largest gradient
     (fp32 rounding leaves ~4e-6 of it; a tensor's own scale is no
@@ -164,13 +196,22 @@ def test_train_step_matches_jax_value_and_grad(model):
     the model's 2^3 instance norms amplify float32 rounding to the size of
     the tolerance itself. SmoothDiffUNet runs in float64 too: its
     denoiser's layer norms through the port's own Function, its smoothing
-    weights through autograd."""
+    weights through autograd. AttentionDiffUNet runs in float64 on a
+    batch of 2 different samples (its batch norms' statistics span the
+    batch); a conv bias before a batch norm has an exact gradient of 0,
+    judged on the model's scale as the instance norms' are. Its JAX side
+    takes ``BatchStatsNorm64``: the JAX norm casts to float32 even in a
+    float64 run, and a conv's weight gradient before a batch norm (the
+    sum of g times inputs of large mean, where g sums to 0) turns that
+    rounding into ~4e-4 of the model's largest gradient."""
+    monkeypatch.setattr(jatt, "BatchStatsNorm", BatchStatsNorm64)
     jm, build, shape = _models(model)
+    n = 2 if model == "attention_diff_unet" else 1
     rng = np.random.default_rng(0)
-    image = rng.random((1, *shape, 1)).astype(np.float32)
-    labels = np.eye(C, dtype=np.float32)[rng.integers(0, C, (1, *shape))]
+    image = rng.random((n, *shape, 1)).astype(np.float32)
+    labels = np.eye(C, dtype=np.float32)[rng.integers(0, C, (n, *shape))]
     noise = rng.standard_normal(labels.shape).astype(np.float32)
-    t = np.array([417], np.int32)
+    t = np.array([417, 80][:n], np.int32)
     params = random_flax_params(jm, image, labels, t, seed=1)
     crit = JLoss("mse,bce,dice", C, "sum", fold=1)
     sched = JSeg(module=jm, num_classes=C).train_schedule
@@ -254,13 +295,15 @@ def test_trainer_runs_btcv_recipe_on_synthetic_batches(tmp_path,
     assert isinstance(unet.module, TDiffUNet)
     unet.train()
     assert len(unet.history) == 2 and np.isfinite(unet.history[-1]["loss"])
-    # the family still to port raises (swin_unetr trains:
+    # the recipe takes every family (swin_unetr trains:
     # tests/test_torch_port_swin_unetr.py; smooth_diff_unet:
-    # tests/test_torch_port_smooth.py)
-    with pytest.raises(NotImplementedError, match="attention_diff_unet"):
-        tengine.Trainer.from_config(
-            cfg, train_data=data,
-            **{**kw, "model_name": "attention_diff_unet"})
+    # tests/test_torch_port_smooth.py; attention_diff_unet:
+    # tests/test_torch_port_attention_diff_unet.py)
+    att = tengine.Trainer.from_config(
+        cfg, train_data=data, max_epochs=1,
+        **{**kw, "model_name": "attention_diff_unet",
+           "features": (4, 8, 16, 32, 64)})
+    assert isinstance(att.module, TAttention) and att.module.training
     with pytest.raises(ValueError, match="train_data"):
         tengine.Trainer.from_config(cfg, **{**kw, "data_path": None})
     # the JAX Trainer's keys (tests/test_torch_port_train_extras.py)
