@@ -64,6 +64,12 @@ PyTorch built for CUDA. Phases, each of which must pass:
       per-channel ReLU prologue, a gated stage's two-part conv_0): the
       forward at N 4 and 10, the dgrad and weight gradient at N 10,
       against their plain versions, with kernel, cuDNN and bound times;
+   h. HybridMIM pretraining's float32 convs at N 2 (the stem 1 -> 64 at
+      64^3 down to 512 -> 512 at 4^3, and the decoder's two-part convs
+      at 32^3 down to 4^3): forward with statistics, dgrad and weight
+      gradient against their plain versions, with kernel, plain, cuDNN and
+      bound times, then each summed over one pretraining step (28 / 17 /
+      18 launches);
 4. small models on the card against the same weights on the CPU's plain
    path, fp32 with TF32 off: a DiffSwinUNETR denoiser step (feature 12,
    32^3), a DiffUNet denoiser step (features (8, 8, 16, 32, 64, 8), 32^3),
@@ -77,7 +83,10 @@ PyTorch built for CUDA. Phases, each of which must pass:
    steps as DiffUNet's, its card step run twice for the same bits;
    AttentionDiffUNet (features (8, 16, 32, 64, 128), 32^3, a batch of 2
    different samples) the same, its train-step gradients within
-   ATT_GRAD_TOL of the model's largest;
+   ATT_GRAD_TOL of the model's largest; a small HybridMIM (features
+   (8, 8, 16, 32, 64, 8), 32^3, mask patch 8, a batch of 2, the masks
+   pinned): the forward's outputs, then two pretraining steps as
+   DiffUNet's, the card step run twice for the same bits;
 5. each slice at full width from the repository's config with seeded
    random weights:
    a. ``cfg/btcv/test.yaml`` (diff_swin_unetr, feature 48, 13 classes,
@@ -139,6 +148,15 @@ PyTorch built for CUDA. Phases, each of which must pass:
       32 -> 32 ConvBNReLU2 at 10 x 96^3 (the kernel chain against the
       plain chain, its batch norm against a float64 two-pass one, times
       against cuDNN's conv, batch norm and ReLU);
+   l. HybridMIM pretraining at ``examples/pretrain_mim.py``'s defaults
+      (features (64, 64, 128, 256, 512, 64), batch 2 of 64^3, mask patch
+      16, AdamW lr 1e-3 wd 1e-4, float32) through
+      ``diff_unet_tpu_torch.pretrain_mim``: MIM_STEPS steps with every
+      loss term finite, every parameter tensor moved and exactly 28 / 17
+      / 18 conv launches a step, the median s/step of a synchronised pass
+      and the peak memory; then the encoder ``.npz``, grafted by
+      ``Trainer.from_config("cfg/amos/train.yaml", pretrained_path=...)``
+      into ``embed_model`` bit for bit, and one AMOS step of batch 10;
 6. the exact distance transform under HD95 (``ops/edt.py``, host C++ built
    with g++) against ``scipy.ndimage.distance_transform_edt`` on one
    96x192x192 organ-surface mask, within 1e-6 of the largest distance,
@@ -166,8 +184,8 @@ PyTorch built for CUDA. Phases, each of which must pass:
 Serving outputs are checked for shape, finiteness and a binary mask. Each
 path is driven with its kernels' launch counters set to 0 just before it
 and read just after; the kernels line reports each kernel's launches on
-the first path of ``LAUNCH_ORDER`` it ran on (the AMOS AttentionDiffUNet
-training first) and all of them under ``launches_by_path``. Phases 2-8
+the first path of ``LAUNCH_ORDER`` it ran on (HybridMIM pretraining
+first) and all of them under ``launches_by_path``. Phases 2-8
 run in a temporary directory under ``build/``, where the trainers' logs and phases
 7-8's data, weights and logs are written. It prints one
 JSON line with the kernels (times, error, launches, and the least time the
@@ -345,10 +363,42 @@ SWIN_UNETR_PER_STEP = {"window_attention": (8, 8), "shift_windows": (6, 6),
                        "window_partition": (4, 4), "window_reverse": (4, 4)}
 SWIN_UNETR_PER_BATCH = {"window_attention": 8, "shift_windows": 6,
                         "window_partition": 4, "window_reverse": 4}
+# HybridMIM pretraining at examples/pretrain_mim.py's defaults: features
+# (64, 64, 128, 256, 512, 64), batch 2 of 64^3, mask_patch 16, float32. A
+# step runs 28 forward convs (10 in view 1's encoder, 8 in the decoder, 10
+# in view 2's encoder under no_grad), the dgrad of the 18 with a gradient
+# but view 1's stem (its input needs none) and the wgrad of those 18
+MIM_STEPS = 6
+MIM_BATCH, MIM_SIZE = 2, 64
+MIM_PER_STEP = {"conv3x3": 28, "conv3x3_dgrad": 17, "conv3x3_wgrad": 18}
+# its distinct convs: (tag, part channels, Cout, side, prologue, launches a
+# step forward, dgrad, wgrad); the decoder's crops are 32^3 down to 4^3
+MIM_CONV_CASES = [
+    ("stem", [1], 64, 64, False, 2, 0, 1),
+    ("L0 conv_1", [64], 64, 64, True, 2, 1, 1),
+    ("L1 conv_0", [64], 64, 32, False, 2, 1, 1),
+    ("L1 conv_1, up_3 conv_1", [64], 64, 32, True, 3, 2, 2),
+    ("up_3 conv_0", [64, 64], 64, 32, False, 1, 1, 1),
+    ("L2 conv_0", [64], 128, 16, False, 2, 1, 1),
+    ("L2 conv_1", [128], 128, 16, True, 2, 1, 1),
+    ("up_2 conv_0", [64, 64], 64, 16, False, 1, 1, 1),
+    ("up_2 conv_1", [64], 64, 16, True, 1, 1, 1),
+    ("L3 conv_0", [128], 256, 8, False, 2, 1, 1),
+    ("L3 conv_1", [256], 256, 8, True, 2, 1, 1),
+    ("up_1 conv_0", [128, 128], 128, 8, False, 1, 1, 1),
+    ("up_1 conv_1", [128], 128, 8, True, 1, 1, 1),
+    ("L4 conv_0", [256], 512, 4, False, 2, 1, 1),
+    ("L4 conv_1", [512], 512, 4, True, 2, 1, 1),
+    ("up_0 conv_0", [256, 256], 256, 4, False, 1, 1, 1),
+    ("up_0 conv_1", [256], 256, 4, True, 1, 1, 1),
+]
+# the small HybridMIM of phase 4: widths, side, mask patch, batch, lr
+SMALL_MIM = ((8, 8, 16, 32, 64, 8), 32, 8, 2, 1e-3)
 # the paths whose launches the kernels line reports, in order of choice:
-# this slice's paths first
-LAUNCH_ORDER = ("amos_attention_train", "amos_attention_serve",
-                "amos_smooth_train", "amos_smooth_serve", "msd_train",
+# this slice's path first
+LAUNCH_ORDER = ("mim_pretrain", "amos_attention_train",
+                "amos_attention_serve", "amos_smooth_train",
+                "amos_smooth_serve", "msd_train",
                 "amos_train_ema", "swin_unetr_train",
                 "swin_unetr_serve", "amos_test", "amos_train_data",
                 "amos_train", "btcv_train", "btcv_serve", "amos_serve")
@@ -1654,6 +1704,113 @@ def phase_cout32(dev: torch.device) -> None:
             del parts, gy, got, x_cl, g_cl
 
 
+
+def phase_conv_mim(dev: torch.device) -> None:
+    """HybridMIM pretraining's float32 convs at the example's batch
+    (MIM_CONV_CASES, N = MIM_BATCH): the forward kernel with statistics
+    (and the prologue where the conv has one), the dgrad and the weight
+    gradient against their plain versions, each with kernel, plain and
+    cuDNN times and the bound at the float32 FFMA peak; then each of the
+    three summed over one pretraining step (every conv times its launches
+    a step)."""
+    from diff_unet_tpu_torch.ops.conv3d import (
+        KERNEL_TOL, STATS_TOL, WGRAD_TOL, conv3x3, conv3x3_dgrad,
+        conv3x3_dgrad_plain, conv3x3_plain, conv3x3_wgrad,
+        conv3x3_wgrad_plain)
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    dt, n = torch.float32, MIM_BATCH
+    counts = [sum(c[5 + i] for c in MIM_CONV_CASES) for i in range(3)]
+    if counts != list(MIM_PER_STEP.values()):
+        fail(f"MIM_CONV_CASES count {counts} launches a step, "
+             f"MIM_PER_STEP {list(MIM_PER_STEP.values())}")
+    # one step's kernel, plain, cuDNN and bound ms of each of the three
+    step = {k: [0.0] * 4 for k in MIM_PER_STEP}
+
+    def measure(kind, name, got, want, tol, reps, fns, flops, moved, per):
+        err = (got - want).abs().max().item()
+        ms, plain_ms, library_ms = (cuda_ms(f, reps, 1) for f in fns)
+        bnd = bound(moved, flops, dt)
+        for i, v in enumerate((ms, plain_ms, library_ms, bnd["bound_ms"])):
+            step[kind][i] += per * v
+        log(f"{kind} {name}: max_abs_err {err:.3e} (tol {tol:.3e}) kernel "
+            f"{ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} "
+            f"ms bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+            f"{bnd['bound_ms'] / ms:.1%} of it), kernel "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {ms / library_ms:.2f}x the "
+            "library")
+        if not (err <= tol and torch.isfinite(got).all()):
+            fail(f"{kind} {name} disagrees with its plain version")
+
+    for tag, chans, cout, side, pro_on, fwd, dgrad, wgrad in MIM_CONV_CASES:
+        shape = (n, side, side, side)
+        cin = sum(chans)
+        parts = [torch.randn((*shape, c), generator=g, device=dev)
+                 for c in chans]
+        w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) \
+            / (27 * cin) ** 0.5
+        b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        gy = torch.randn((*shape, cout), generator=g, device=dev)
+        pro = None
+        if pro_on:
+            pro = tuple(torch.randn((n, cin), generator=g, device=dev)
+                        * sd + mu for mu, sd in ((1.0, 0.3), (0.0, 0.3),
+                                                 (0.0, 0.2))) + (0.1,)
+        reps = 3 if side == 64 else 10
+        x_cl = torch.cat(parts, dim=-1).permute(0, 4, 1, 2, 3)
+        w_cl = w.contiguous(memory_format=torch.channels_last_3d)
+        g_cl = gy.permute(0, 4, 1, 2, 3)
+        flops = 2.0 * gy.numel() * 27 * cin
+        name = f"MIM {tag} fp32 {chans}->{cout} at {n}x{side}^3"
+        kw = dict(prologue=pro, with_stats=True)
+        (got, gst), (want, wst) = (conv3x3(parts, w, b, **kw),
+                                   conv3x3_plain(parts, w, b, **kw))
+        torch.cuda.synchronize()
+        st_err = (gst - wst).abs().max().item()
+        if not st_err <= STATS_TOL * wst.abs().max().item():
+            fail(f"conv3x3 {name}: statistics err {st_err:.3e}")
+
+        def library():
+            torch.var_mean(torch.nn.functional.conv3d(x_cl, w_cl, b,
+                                                      padding=1),
+                           dim=(2, 3, 4))
+
+        measure("conv3x3", name, got, want, KERNEL_TOL[dt] * max(
+            1.0, want.abs().max().item()), reps,
+            (lambda: conv3x3(parts, w, b, **kw),
+             lambda: conv3x3_plain(parts, w, b, **kw), library), flops,
+            nbytes(*parts, got, gst, b, w, *(pro or ())[:3]), fwd)
+        del got, gst, want, wst
+        if dgrad:
+            got, want = conv3x3_dgrad(gy, w), conv3x3_dgrad_plain(gy, w)
+            measure("conv3x3_dgrad", name, got, want, KERNEL_TOL[dt] * max(
+                1.0, want.abs().max().item()), reps,
+                (lambda: conv3x3_dgrad(gy, w),
+                 lambda: conv3x3_dgrad_plain(gy, w),
+                 lambda: torch.ops.aten.convolution_backward(
+                     g_cl, x_cl, w_cl, None, [1] * 3, [1] * 3, [1] * 3,
+                     False, [0] * 3, 1, [True, False, False])),
+                flops, nbytes(gy, got, w), dgrad)
+            del got, want
+        got, want = (conv3x3_wgrad(gy, parts, pro),
+                     conv3x3_wgrad_plain(gy, parts, pro))
+        measure("conv3x3_wgrad", name, got, want,
+                WGRAD_TOL[dt] * want.abs().max().item(), reps,
+                (lambda: conv3x3_wgrad(gy, parts, pro),
+                 lambda: conv3x3_wgrad_plain(gy, parts, pro),
+                 lambda: torch.ops.aten.convolution_backward(
+                     g_cl, x_cl, w_cl, None, [1] * 3, [1] * 3, [1] * 3,
+                     False, [0] * 3, 1, [False, True, False])),
+                flops, nbytes(gy, *parts, got, *(pro or ())[:3]), wgrad)
+        del parts, gy, got, want, x_cl, g_cl
+    for kind, (ms, plain_ms, library_ms, bound_ms) in step.items():
+        log(f"{kind} over one HybridMIM pretraining step "
+            f"({MIM_PER_STEP[kind]} launches, fp32): kernel {ms:.3f} ms "
+            f"plain {plain_ms:.3f} ms library {library_ms:.3f} ms "
+            f"({ms / library_ms:.2f}x) bound {bound_ms:.3f} ms "
+            f"({bound_ms / ms:.1%} of it)")
+
 def phase_bn_chain(dev: torch.device) -> None:
     """One 32 -> 32 ``ConvBNReLU2`` at 10 x 96^3 in bf16 over fp32
     parameters, its conv_0 bias set to 10 so that the conv output's mean
@@ -2277,6 +2434,197 @@ def phase_small_swin_unetr(dev: torch.device) -> None:
     compare_steps("small swin_unetr train steps", *records)
 
 
+
+def phase_small_mim(dev: torch.device) -> None:
+    """A small HybridMIM (SMALL_MIM: widths, 32^3, mask patch 8, a batch
+    of 2) on the card against the same weights on the CPU's plain path,
+    fp32 with TF32 off, with pinned masks: the forward's outputs within
+    MODEL_TOL of each one's max |y| (the labels and masks exactly); two
+    ``MimPretrainStep``s: loss and grad norm within MODEL_TOL relative,
+    every gradient within MODEL_TOL of max(its |g| max, 0.1 x the
+    model's), the parameters after them within 2 lr (the second step from
+    the CPU's parameters on both sides, as phase_small_train's); the card
+    step, run twice from the same start, gives the same bits."""
+    from diff_unet_tpu_torch.models.hybrid_mim import HybridMIMBasicUNet, \
+        MimPretrainStep
+    from diff_unet_tpu_torch.ops.mim import block_mask
+    from diff_unet_tpu_torch.utils.weights import init_random
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fea, s, p, n, lr = SMALL_MIM
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(SEED)
+
+    def batch():
+        x = torch.from_numpy(rng.standard_normal((n, s, s, s, 1),
+                                                 np.float32))
+        return x, tuple(block_mask((s,) * 3, patch=p, mask_ratio=0.4,
+                                   noise=torch.from_numpy(rng.random(
+                                       (n, (s // p) ** 3), np.float32)))
+                        for _ in range(2))
+
+    steps = [batch() for _ in range(2)]
+
+    def build(where):
+        model = init_random(HybridMIMBasicUNet(features=fea, mask_patch=p),
+                            SEED).to(where)
+        return model, MimPretrainStep(model, lr=lr)
+
+    def run(model, step, where, x, masks):
+        m = step(x.to(where), masks=tuple(k.to(where) for k in masks))
+        return (m["loss"].item(), m["grad_norm"].item(),
+                [q.grad.detach().cpu().clone() for q in model.parameters()])
+
+    (cm, cs), (gm, gs) = build(cpu), build(dev)
+    x, masks = steps[0]
+    with torch.no_grad():
+        want = cm(x, masks=masks)
+        got = gm(x.to(dev), masks=tuple(k.to(dev) for k in masks))
+    errs, exact = {}, True
+    for k, w in want.items():
+        v = got[k].cpu()
+        if k in ("mask_labels", "mask_position_labels", "mask"):
+            exact &= torch.equal(v, w)
+        else:
+            errs[k] = ((v - w).abs().max() / w.abs().max()).item()
+    log(f"small HybridMIM (features {fea}, {s}^3, mask patch {p}, fp32, "
+        f"TF32 off) cuda vs cpu, error / max|y|: "
+        f"{ {k: f'{e:.2e}' for k, e in errs.items()} } (tol "
+        f"{MODEL_TOL:.0e}); labels and masks "
+        f"{'equal' if exact else 'DIFFERENT'}")
+    if not (exact and max(errs.values()) <= MODEL_TOL
+            and all(torch.isfinite(v).all() for v in got.values())):
+        fail("small HybridMIM on the card disagrees with the CPU")
+    records = ([], [])
+    for k, (x, masks) in enumerate(steps):
+        if k:
+            with torch.no_grad():
+                for a, b in zip(cm.parameters(), gm.parameters()):
+                    b.copy_(a)
+        records[0].append(run(cm, cs, cpu, x, masks))
+        records[1].append(run(gm, gs, dev, x, masks))
+    again = run(*build(dev), dev, *steps[0])
+    reproducible = again[0] == records[1][0][0] and all(
+        torch.equal(a, b) for a, b in zip(again[2], records[1][0][2]))
+    worst, worst_name = [0.0, 0.0, 0.0], ""
+    names = [k for k, _ in cm.named_parameters()]
+    for (lc, nc, gc), (lg, ng, gg) in zip(*records):
+        worst[0] = max(worst[0], abs(lg - lc) / abs(lc))
+        worst[1] = max(worst[1], abs(ng - nc) / abs(nc))
+        gmax = max(a.abs().max().item() for a in gc)
+        for name, a, b in zip(names, gc, gg):
+            err = (b - a).abs().max().item() / max(a.abs().max().item(),
+                                                   0.1 * gmax)
+            if err > worst[2]:
+                worst[2], worst_name = err, name
+    perr = max((a.detach().cpu() - b).abs().max().item()
+               for a, b in zip(gm.parameters(), cm.parameters()))
+    log(f"small HybridMIM pretraining steps cuda vs cpu: loss rel "
+        f"{worst[0]:.3e}, grad norm rel {worst[1]:.3e} (tol "
+        f"{MODEL_TOL:.0e}); worst gradient error {worst[2]:.3e} of "
+        f"max(|g| max, 0.1 model max) (tol {MODEL_TOL:.0e}), {worst_name}; "
+        f"parameters after 2 steps (the second from the same ones) "
+        f"{perr:.3e} (tol {2 * lr:.0e}); losses "
+        f"{[round(r[0], 6) for r in records[0]]}; the card step run twice: "
+        f"{'the same' if reproducible else 'different'} loss and "
+        "gradients, bit for bit")
+    if not (max(worst) <= MODEL_TOL and perr <= 2 * lr and reproducible
+            and all(np.isfinite(r[0]) for r in records[1])):
+        fail("small HybridMIM pretraining steps on the card disagree with "
+             "the CPU")
+
+
+def phase_mim_pretrain(dev: torch.device, work: Path) -> dict:
+    """HybridMIM pretraining at examples/pretrain_mim.py's defaults through
+    ``diff_unet_tpu_torch.pretrain_mim``'s own functions (``build``,
+    ``pretrain``, ``save_encoder``): MIM_STEPS steps on synthetic batches
+    with every loss term finite, every parameter tensor moved and exactly
+    MIM_PER_STEP conv launches a step; the median s/step of MIM_STEPS more
+    with the card synchronised around each, and the peak memory of
+    ``pretrain``. Then the encoder ``.npz``, which
+    ``Trainer.from_config("cfg/amos/train.yaml", pretrained_path=...)``
+    grafts into ``embed_model`` bit for bit, and one AMOS step of batch 10
+    with a finite loss. Returns the launches of ``pretrain``."""
+    from diff_unet_tpu_torch.data.synthetic import SyntheticSegmentation
+    from diff_unet_tpu_torch.engine.engine import Trainer
+    from diff_unet_tpu_torch.engine.sliding_window import window_seed
+    from diff_unet_tpu_torch.pretrain_mim import build, pretrain, \
+        save_encoder, synthetic_batch
+
+    t0 = time.perf_counter()
+    model, step = build(device=dev)
+    torch.cuda.synchronize()
+    names = [k for k, _ in model.named_parameters()]
+    before = [q.detach().clone() for q in model.parameters()]
+    log(f"HybridMIM pretrainer: {sum(q.numel() for q in before)} "
+        f"parameters, batch {MIM_BATCH} of {MIM_SIZE}^3, mask patch "
+        f"{model.mask_patch}, fp32; set-up {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_conv()
+    hist = pretrain(step, MIM_STEPS, MIM_BATCH, MIM_SIZE, log=log)
+    torch.cuda.synchronize()
+    counts = conv_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    hist = [{k: v.item() for k, v in h.items()} for h in hist]
+    still = [k for k, a, q in zip(names, before, model.parameters())
+             if torch.equal(a, q)]
+    log("HybridMIM steps: " + "; ".join(
+        f"loss {h['loss']:.5f} grad_norm {h['grad_norm']:.5f}"
+        for h in hist))
+    log(f"launches during HybridMIM pretraining ({MIM_STEPS} steps): "
+        f"{counts}")
+    batches = [synthetic_batch(torch.Generator(device=dev).manual_seed(
+        window_seed(SEED, (MIM_STEPS + i,))), MIM_BATCH, MIM_SIZE)
+        for i in range(MIM_STEPS)]
+    step_s = []
+    for x in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(x)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    log(f"HybridMIM pretraining: median {np.median(step_s[1:]):.4f} s/step "
+        f"over steps 2..{len(step_s)} of a synchronised pass, {step_s}; "
+        f"peak device memory {peak:.2f} GiB over the {MIM_STEPS} steps of "
+        f"pretrain(); {len(names) - len(still)} of {len(names)} parameter "
+        "tensors moved")
+    if not all(np.isfinite(v) for h in hist for v in h.values()) or not all(
+            h["grad_norm"] > 0 for h in hist):
+        fail("a HybridMIM step has a non-finite loss term or a zero grad "
+             "norm")
+    if still:
+        fail(f"HybridMIM parameters did not move: {still}")
+    for k, c in counts.items():
+        if c != MIM_PER_STEP[k] * MIM_STEPS:
+            fail(f"{k}: {c} launches in {MIM_STEPS} HybridMIM steps, "
+                 f"predicted {MIM_PER_STEP[k]} x {MIM_STEPS}")
+    path = work / "mim_encoder.npz"
+    save_encoder(model, path)
+    data = SyntheticSegmentation((96, 96, 96), num_labels=16, batch_size=10,
+                                 batches=1, seed=SEED)
+    trainer = Trainer.from_config(
+        ROOT / "cfg/amos/train.yaml", train_data=data, device=dev,
+        classes=str(ROOT / "cfg/amos/classes.yaml"), seed=SEED,
+        max_epochs=1, pretrained_path=str(path))
+    enc = trainer.module.embed_model
+    grafted = [k for k, _ in enc.named_parameters()]
+    differ = [k for k in grafted
+              if not torch.equal(enc.get_parameter(k), model.get_parameter(k))]
+    del model, step, before, batches
+    trainer.train()
+    loss = trainer.history[0]["loss"]
+    log(f"encoder .npz ({path.stat().st_size / 2 ** 20:.1f} MiB) grafted "
+        f"into the AMOS Trainer's embed_model: {len(grafted) - len(differ)} "
+        f"of {len(grafted)} tensors equal bit for bit; one AMOS step of "
+        f"batch {trainer.batch_size}: loss {loss:.5f}")
+    if differ or len(grafted) != 40:
+        fail(f"the grafted encoder differs from the pretrained one: {differ}")
+    if not np.isfinite(loss):
+        fail("the AMOS step after the graft has a non-finite loss")
+    del trainer
+    return counts
+
 def step_seconds(trainer, calls: int = None) -> list:
     """Seconds of each train call over the trainer's batches once more,
     the card synchronised before and after each."""
@@ -2569,6 +2917,7 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
     report.update(phase_conv_backward(dev))
     phase_conv_msd(dev)
     phase_cout32(dev)
+    phase_conv_mim(dev)
     report.update(phase_partition(dev))
     report.update(phase_backward(dev))
     phase_small_model(dev)
@@ -2581,6 +2930,7 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
     phase_small_train(dev, "attention_diff_unet")
     phase_small_all_losses(dev)
     phase_small_swin_unetr(dev)
+    phase_small_mim(dev)
     swin = {"window_attention": window_attention,
             "shift_windows": shift_windows,
             "window_partition": partition_windows,
@@ -2649,6 +2999,8 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
         f"({att_step_s / amos_step_s:.2f}x), peak memory "
         f"{att_peak:.2f} / {amos_peak:.2f} GiB")
     phase_bn_chain(dev)
+    for k, c in phase_mim_pretrain(dev, work).items():
+        paths[k]["mim_pretrain"] = c
     for phase in (lambda: phase_train_msd(dev),
                   lambda: phase_train_amos_keys(dev, work, amos_step_s),
                   lambda: phase_swin_unetr(dev, swin)):
@@ -2694,8 +3046,7 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
             "through flax nn.Conv (jax.value_and_grad)"),
     }
     # launches: the first path of LAUNCH_ORDER on which the kernel ran,
-    # this slice's paths (the AMOS AttentionDiffUNet training and serving)
-    # first
+    # this slice's path (HybridMIM pretraining) first
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=next((paths[k][p] for p in LAUNCH_ORDER
                                    if paths[k].get(p)), 0),

@@ -12,6 +12,7 @@ train step of its training path, on the card.
     python -m diff_unet_tpu_torch.profile_batch smooth_train [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch attention_serve [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch attention_train [--out FILE]
+    python -m diff_unet_tpu_torch.profile_batch mim_train [--out FILE]
 
 The ``_train`` modes build the ``Trainer`` of ``cfg/btcv/train.yaml``
 (batch 1, 14 label values), ``cfg/amos/train.yaml`` (batch 10, 16 label
@@ -21,7 +22,8 @@ values; ``smooth_train`` and ``attention_train`` with that
 config with ``model_name=swin_unetr`` on synthetic batches
 (``data/synthetic.py``) and profile its train step (q_sample, denoise,
 loss, backward, AdamW; the plain model: forward, loss, backward, AdamW)
-the same way.
+the same way. ``mim_train`` profiles one HybridMIM pretraining step of
+``pretrain_mim`` at its defaults (batch 2 of 64^3, float32).
 
 The others build the ``Predictor`` of ``cfg/<data>/test.yaml`` (``swin_unetr``:
 the BTCV config with that model; ``smooth_serve``, ``attention_serve``:
@@ -39,8 +41,8 @@ top device kernels by summed device time; ``--out`` gets the whole
 ``TwoConv`` blocks (DiffUNet, SmoothDiffUNet; AttentionDiffUNet also from
 ``ConvBNReLU2`` and ``UpConv``) it also counts the 3x3x3 conv operations
 of a batch (forward hooks on the blocks' outputs) and sets them beside
-the conv kernel's device time and the bf16 peak. Needs a CUDA card; it fails
-without one.
+the conv kernel's device time and the peak of the compute dtype (bf16, or
+float32 FFMA). Needs a CUDA card; it fails without one.
 """
 from __future__ import annotations
 
@@ -48,11 +50,13 @@ import argparse
 import subprocess
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PEAK_BF16_FLOP_PER_S = 989e12      # H100 SXM, dense (NVIDIA data sheet)
+# H100 SXM, dense (NVIDIA data sheet): bf16 tensor cores, float32 FFMA
+PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 def _device_us(evt, self_only: bool) -> float:
@@ -135,11 +139,24 @@ def _train_step(dev: torch.device, data: str):
                            f"{trainer.label_smoothing})")
 
 
+def _mim_step(dev: torch.device):
+    """``pretrain_mim``'s pretrainer at its defaults and one of its steps
+    on a synthetic batch."""
+    from diff_unet_tpu_torch.pretrain_mim import build, synthetic_batch
+
+    model, step = build(device=dev)
+    x = synthetic_batch(torch.Generator(device=dev).manual_seed(0), 2, 64)
+    info = SimpleNamespace(module=model, model_name="hybrid_mim",
+                           dtype=torch.float32)
+    return info, lambda: step(x), ("one pretraining step of batch 2 x "
+                                   "64^3 (mask patch 16)")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("data", choices=(
         "amos", "btcv", "swin_unetr", "smooth_serve", "attention_serve",
-        *(f"{k}_train" for k in _TRAIN)))
+        *(f"{k}_train" for k in _TRAIN), "mim_train"))
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args()
@@ -158,7 +175,9 @@ def main() -> None:
         timeout=60).stdout.strip()
     dev = torch.device("cuda", 0)
     train = args.data.endswith("_train")
-    if train:
+    if args.data == "mim_train":
+        pred, batch, what = _mim_step(dev)
+    elif train:
         pred, batch, what = _train_step(dev, args.data[:-len("_train")])
     else:
         pred, batch, what = _window_batch(dev, args.data.removesuffix(
@@ -167,7 +186,7 @@ def main() -> None:
     conv_flops = [0.0]
     # the stems' inputs need no grad
     stems = ("embed_model.conv_0", "model.conv_0", "embed_model.head",
-             "model.head")
+             "model.head", "conv_0")
 
     def counter(name):
         def count(mod, args, out):
@@ -178,10 +197,11 @@ def main() -> None:
             f0, f1 = (2.0 * out.numel() * 27 * c for c in (
                 cin, 0 if isinstance(mod, UpConv) else cout))
             # a train step adds the wgrad of both convs and the dgrad of
-            # all but a stem's first
+            # all but a stem's first, where the pass has a gradient
             conv_flops[0] += ((3 * f0 + 3 * f1 - (f0 if name in stems
                                                    else 0.0))
-                              if train else f0 + f1)
+                              if train and torch.is_grad_enabled()
+                              else f0 + f1)
         return count
 
     hooks = [m.register_forward_hook(counter(name))
@@ -219,17 +239,20 @@ def main() -> None:
     print(f"traced device time: {device_ms:.1f} ms; busy share "
           f"{device_ms / wall_ms:.3f} of the fastest un-profiled one")
     if conv_flops[0]:
-        sw = pred.sw_batch_size
         conv_ms = sum(_device_us(e, True) for e in kernels
                       if "conv3d_" in e.key) / 1e3
         per = ("forward, dgrad and wgrad" if train else
-               f"{conv_flops[0] / sw / 1e12:.3f} per window")
+               f"{conv_flops[0] / pred.sw_batch_size / 1e12:.3f} per "
+               "window")
+        dt = (torch.bfloat16 if pred.dtype == torch.bfloat16
+              else torch.float32)
         print(f"3x3x3 conv work per {args.data} unit: "
               f"{conv_flops[0] / 1e12:.3f} TFLOP ({per}); conv kernels "
               f"{conv_ms:.1f} ms ({conv_ms / device_ms:.1%} of the device "
               f"time) = "
               f"{conv_flops[0] / conv_ms / 1e9:.1f} TFLOP/s; bound at the "
-              f"bf16 peak {conv_flops[0] / PEAK_BF16_FLOP_PER_S * 1e3:.1f} ms")
+              f"{str(dt)[6:]} peak "
+              f"{conv_flops[0] / PEAK_FLOP_PER_S[dt] * 1e3:.1f} ms")
     rows = sorted(kernels, key=lambda e: _device_us(e, True), reverse=True)
     print(f"{'device ms':>10} {'share':>7} {'calls':>6}  kernel")
     for e in rows[:args.top]:

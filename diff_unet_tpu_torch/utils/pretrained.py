@@ -126,7 +126,10 @@ def load_pretrained_encoder(path, module: nn.Module,
             "installed: restore it with orbax.checkpoint."
             "StandardCheckpointer().restore(path) and write it with "
             "diff_unet_tpu_torch.engine.checkpoint.save_jax_npz to "
-            f"{p}.npz (README.md, 'JAX checkpoints')")
+            f"{p}.npz (README.md, 'JAX checkpoints'). Or pretrain the "
+            "encoder with the port itself: python -m "
+            "diff_unet_tpu_torch.pretrain_mim --out encoder.npz writes a "
+            ".npz that pretrained_path takes")
     if p.suffix == ".npz":
         from diff_unet_tpu_torch.engine.checkpoint import read_jax_npz
         from diff_unet_tpu_torch.utils.weights import load_jax_params
