@@ -157,6 +157,27 @@ PyTorch built for CUDA. Phases, each of which must pass:
       and the peak memory; then the encoder ``.npz``, grafted by
       ``Trainer.from_config("cfg/amos/train.yaml", pretrained_path=...)``
       into ``embed_model`` bit for bit, and one AMOS step of batch 10;
+   m. (run after phase 7, on its NIfTI set and weights) continuous window
+      batching across volumes (``Engine.serve_volumes``), against the
+      serial path on the same inputs with the engine seed for every
+      volume: a volume whose every window runs at the same batch size on
+      both paths gives the same bits, any other is within CONT_TOL of max
+      |y| with binaries on all but CONT_FLIPS of the voxels (another
+      batch size rounds the bf16 sums in another order). AMOS DiffUNet
+      over CONT_SHAPES (7 batches of the unit against 9 serial ones) in
+      turns serial, continuous, continuous, serial: volumes/min, DDIM
+      window-steps/s, the card's busy share (the window batches' CUDA-event
+      times over the wall time) and peak memory of each, the two
+      continuous runs bit for bit, 190 conv launches per planned batch;
+      AMOS AttentionDiffUNet over two 96x192x192 volumes (batches 4, 4, 4,
+      4, 2; 310 launches each; its difference from serial printed, since
+      its batch statistics depend on the batch); BTCV DiffSwinUNETR over
+      96x192x192 and 80x160x176 at unit 2 (each Swin kernel's count per
+      batch); ``Tester(continuous=2)`` over phase 7's cases (outputs and
+      metrics against phase 7's, s/case); ``python -m
+      diff_unet_tpu_torch.predict`` in process over phase 7's two CTs each
+      listed twice, every labelmap against ``predict_volume``'s,
+      volumes/min and busy share against the serial loop;
 6. the exact distance transform under HD95 (``ops/edt.py``, host C++ built
    with g++) against ``scipy.ndimage.distance_transform_edt`` on one
    96x192x192 organ-surface mask, within 1e-6 of the largest distance,
@@ -184,8 +205,8 @@ PyTorch built for CUDA. Phases, each of which must pass:
 Serving outputs are checked for shape, finiteness and a binary mask. Each
 path is driven with its kernels' launch counters set to 0 just before it
 and read just after; the kernels line reports each kernel's launches on
-the first path of ``LAUNCH_ORDER`` it ran on (HybridMIM pretraining
-first) and all of them under ``launches_by_path``. Phases 2-8
+the first path of ``LAUNCH_ORDER`` it ran on (continuous serving first)
+and all of them under ``launches_by_path``. Phases 2-8
 run in a temporary directory under ``build/``, where the trainers' logs and phases
 7-8's data, weights and logs are written. It prints one
 JSON line with the kernels (times, error, launches, and the least time the
@@ -195,6 +216,7 @@ exits non-zero before that.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -396,12 +418,33 @@ MIM_CONV_CASES = [
 SMALL_MIM = ((8, 8, 16, 32, 64, 8), 32, 8, 2, 1e-3)
 # the paths whose launches the kernels line reports, in order of choice:
 # this slice's path first
-LAUNCH_ORDER = ("mim_pretrain", "amos_attention_train",
+LAUNCH_ORDER = ("amos_continuous", "amos_attention_continuous",
+                "btcv_continuous", "amos_test_continuous",
+                "mim_pretrain", "amos_attention_train",
                 "amos_attention_serve", "amos_smooth_train",
                 "amos_smooth_serve", "msd_train",
                 "amos_train_ema", "swin_unetr_train",
                 "swin_unetr_serve", "amos_test", "amos_train_data",
                 "amos_train", "btcv_train", "btcv_serve", "amos_serve")
+# phase 5m, continuous serving: the AMOS stream (phase 5b's three shapes and
+# a second 96x192x192: 25 windows, 7 batches of unit 4 against 9 serial
+# ones), AttentionDiffUNet's two 96x192x192 volumes (18 windows: 4, 4, 4,
+# 4, 2), BTCV's 96x192x192 and 80x160x176 (unit 2)
+CONT_SHAPES = ((96, 192, 192), (80, 160, 176), (96, 96, 96), (96, 192, 192))
+CONT_ATT_SHAPES = ((96, 192, 192), (96, 192, 192))
+CONT_BTCV_SHAPES = ((96, 192, 192), (80, 160, 176))
+# continuous against serial: a volume whose every window runs at the same
+# batch size on both paths must give the same bits (the samples of a batch
+# are computed apart); a window in a batch of another size rounds its bf16
+# sums in another order (``conv_plan`` splits a small grid's channel
+# chunks by the batch), and such flips pass through the model as in phase
+# 4: logits within CONT_TOL of max |y|. Each binary is sigmoid(logit) >
+# 0.5, so the binaries differ only where the logits straddle 0: 0.11% of
+# the voxels of a 96^3 volume whose one window ran at batch 1 against 4
+# (H100, random weights); CONT_FLIPS bounds that share, where a misplaced
+# window would flip about half of its voxels
+CONT_TOL = SMOOTH_BF16_TOL
+CONT_FLIPS = 1e-2
 EDT_SHAPE = (96, 192, 192)
 EDT_TOL = 1e-6                          # of the largest distance
 METRIC_TOL = 1e-6
@@ -2886,6 +2929,377 @@ def phase_swin_unetr(dev: torch.device, counters: dict) -> dict:
     return paths
 
 
+@contextlib.contextmanager
+def ddim_spans():
+    """Record CUDA events around every ``DiffusionSegmenter.ddim_sample``
+    call (one window batch) while the context is open; yields the list of
+    (start, end) event pairs."""
+    from diff_unet_tpu_torch.api import DiffusionSegmenter
+
+    spans = []
+    inner = DiffusionSegmenter.ddim_sample
+
+    def ddim_sample(self, image, *, noise):
+        a = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = inner(self, image, noise=noise)
+        b = torch.cuda.Event(enable_timing=True)
+        b.record()
+        spans.append((a, b))
+        return out
+
+    DiffusionSegmenter.ddim_sample = ddim_sample
+    try:
+        yield spans
+    finally:
+        DiffusionSegmenter.ddim_sample = inner
+
+
+def timed_run(fn, spans: list) -> tuple:
+    """(fn's result, its wall seconds with the card synchronised before
+    and after, the card's busy share: the window batches' event times
+    over the wall time)."""
+    torch.cuda.synchronize()
+    spans.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = sum(a.elapsed_time(b) for a, b in spans) / 1e3 / wall
+    return out, wall, busy
+
+
+def batch_sizes(pred, shapes) -> tuple:
+    """Per volume, the size of the batch each window runs in: in
+    ``infer`` (dummy windows counted) and in ``serve_volumes``'s schedule
+    (the unit: the power-of-two floor of sw_batch_size)."""
+    from diff_unet_tpu_torch.engine.serving import schedule
+
+    inf = pred._inferer
+    serial, starts = [], []
+    for shape in shapes:
+        padded = tuple(max(r, s) for r, s in zip(inf.roi, shape))
+        serial.append([len(row) for _, valid in inf._geometry(padded)
+                       for row in valid for _ in range(int(row.sum()))])
+        starts.append(inf._starts(padded))
+    cont = [[] for _ in shapes]
+    for batch in schedule(starts, 2 ** int(np.log2(pred.sw_batch_size))):
+        for i, _ in batch:
+            cont[i].append(len(batch))
+    return serial, cont
+
+
+def compare_served(name: str, pred, shapes, serial: list, cont: list,
+                   fail_on_mismatch: bool = True) -> float:
+    """Each volume's continuous answer against its serial one: bit for bit
+    where every window ran at the same batch size on both paths, else
+    logits within CONT_TOL of max |y| and binaries on all but CONT_FLIPS
+    of the voxels (``fail_on_mismatch``; else only printed). Returns the
+    largest logit difference."""
+    sizes_serial, sizes_cont = batch_sizes(pred, shapes)
+    worst = 0.0
+    for shape, (sl, sb), (cl, cb), ns, nc in zip(
+            shapes, serial, cont, sizes_serial, sizes_cont):
+        want = (*shape, pred.num_classes)
+        if tuple(cl.shape) != want or tuple(cb.shape) != want:
+            fail(f"{name}: output shape {tuple(cl.shape)} != {want}")
+        if not torch.isfinite(cl).all() or not torch.equal(
+                cb, (torch.sigmoid(cl) > 0.5).float()):
+            fail(f"{name}: non-finite logits, or a binary output that is "
+                 "not sigmoid(logits) > 0.5")
+        diff = float((cl - sl).abs().max())
+        scale = float(sl.abs().max())
+        flips = float((cb != sb).float().mean())
+        same = torch.equal(cl, sl) and torch.equal(cb, sb)
+        worst = max(worst, diff)
+        log(f"{name} {shape}: batch sizes serial {ns}, continuous {nc}; "
+            f"logits {'bit for bit' if same else f'max diff {diff:.3e}'} "
+            f"(max |y| {scale:.3f}, {diff / scale:.3e} of it), binaries "
+            f"differ on {flips:.3e} of the voxels")
+        if not fail_on_mismatch:
+            continue
+        if ns == nc and not same:
+            fail(f"{name} {shape}: every window ran at the same batch size "
+                 "on both paths, but the answers differ")
+        if diff > CONT_TOL * scale or flips > CONT_FLIPS:
+            fail(f"{name} {shape}: continuous differs from serial by "
+                 f"{diff / scale:.3e} of max |y| (tol {CONT_TOL}) and on "
+                 f"{flips:.3e} of the binaries (tol {CONT_FLIPS})")
+    return worst
+
+
+def phase_continuous_amos(dev: torch.device, spans: list) -> dict:
+    """AMOS DiffUNet (``cfg/amos/test.yaml``): ``serve_volumes`` over the
+    CONT_SHAPES stream with the engine seed for every volume, against
+    ``infer`` of each volume, in turns (serial, continuous, continuous,
+    serial): answers as ``compare_served`` holds them, the two continuous
+    runs bit for bit, exactly 190 conv launches per planned batch and no
+    backward; volumes/min, DDIM window-steps/s, busy share and peak memory
+    of each. Returns the launches."""
+    from diff_unet_tpu_torch.data.synthetic import synthetic_ct
+    from diff_unet_tpu_torch.engine.engine import Predictor
+
+    pred = Predictor.from_config(
+        ROOT / "cfg/amos/test.yaml", model_path=None,
+        classes=str(ROOT / "cfg/amos/classes.yaml"), device=dev, seed=SEED)
+    vols = [synthetic_ct(s, SEED + i, dev) for i, s in enumerate(CONT_SHAPES)]
+    pred.infer(vols[2])                            # warm-up, both paths
+    pred.serve_volumes(vols[2:3])
+    plan = [len(b) for b in pred._continuous.plan(CONT_SHAPES)]
+    serial_batches = sum(window_batches(pred._inferer, s)
+                         for s in CONT_SHAPES)
+    windows = sum(plan)
+    steps = pred.seg.sample_steps
+    runs = {}
+    for kind in ("serial", "continuous", "continuous", "serial"):
+        fn = ((lambda: [pred.infer(v) for v in vols]) if kind == "serial"
+              else (lambda: pred.serve_volumes(
+                  vols, seeds=[pred.seed] * len(vols))))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        reset_conv()
+        out, wall, busy = timed_run(fn, spans)
+        peak = (torch.cuda.max_memory_allocated(dev) - held) / 2 ** 30
+        runs.setdefault(kind, []).append((out, wall, busy, conv_counts()))
+        log(f"AMOS {kind}: {len(vols)} volumes ({windows} windows, "
+            f"{len(plan) if kind == 'continuous' else serial_batches} "
+            f"window batches) in {wall:.3f} s: "
+            f"{len(vols) / wall * 60:.2f} volumes/min, "
+            f"{windows * steps / wall:.3f} DDIM window-steps/s, busy "
+            f"{busy:.3f}, peak memory {peak:.2f} GiB above the "
+            f"{held / 2 ** 30:.2f} GiB held before")
+    (c1, _, _, counts), (c2, *_) = runs["continuous"]
+    walls = {k: [r[1] for r in v] for k, v in runs.items()}
+    log(f"AMOS continuous against serial over the same stream: plan "
+        f"{plan} against {serial_batches} serial batches; mean wall "
+        f"{np.mean(walls['continuous']):.4f} / "
+        f"{np.mean(walls['serial']):.4f} s "
+        f"({np.mean(walls['serial']) / np.mean(walls['continuous']):.3f}x)")
+    if not all(torch.equal(a, b) for x, y in zip(c1, c2)
+               for a, b in zip(x, y)):
+        fail("AMOS continuous: two runs over the same stream differ")
+    compare_served("AMOS continuous", pred, CONT_SHAPES,
+                   runs["serial"][0][0], c1)
+    log(f"launches during amos_continuous ({len(plan)} window batches): "
+        f"{counts}")
+    if counts != {"conv3x3": AMOS_CONV_PER_BATCH * len(plan),
+                  "conv3x3_dgrad": 0, "conv3x3_wgrad": 0}:
+        fail(f"AMOS continuous conv launches {counts}, predicted "
+             f"{AMOS_CONV_PER_BATCH} x {len(plan)} forward, no backward")
+    return {k: {"amos_continuous": c} for k, c in counts.items()}
+
+
+def phase_continuous_attention(dev: torch.device, spans: list) -> dict:
+    """AMOS AttentionDiffUNet: ``serve_volumes`` over CONT_ATT_SHAPES
+    (batches 4, 4, 4, 4, 2 that mix the volumes): finite, binary, exactly
+    ATT_CONV_PER_BATCH conv launches per batch; its batch statistics make
+    the answer depend on the batches, so the largest difference from
+    ``infer``'s is printed, not checked. Returns the launches."""
+    from diff_unet_tpu_torch.data.synthetic import synthetic_ct
+    from diff_unet_tpu_torch.engine.engine import Predictor
+
+    pred = Predictor.from_config(
+        ROOT / "cfg/amos/test.yaml", model_path=None,
+        model_name="attention_diff_unet",
+        classes=str(ROOT / "cfg/amos/classes.yaml"), device=dev, seed=SEED)
+    vols = [synthetic_ct(s, SEED + 3 * i, dev)
+            for i, s in enumerate(CONT_ATT_SHAPES)]
+    serial, wall_s, busy_s = timed_run(
+        lambda: [pred.infer(v) for v in vols], spans)
+    reset_conv()
+    cont, wall_c, busy_c = timed_run(lambda: pred.serve_volumes(
+        vols, seeds=[pred.seed] * len(vols)), spans)
+    counts = conv_counts()
+    plan = [len(b) for b in pred._continuous.plan(CONT_ATT_SHAPES)]
+    worst = compare_served("AMOS attention continuous", pred,
+                           CONT_ATT_SHAPES, serial, cont,
+                           fail_on_mismatch=False)
+    log(f"AMOS attention_diff_unet continuous: plan {plan}, {wall_c:.3f} s "
+        f"(busy {busy_c:.3f}) against serial {wall_s:.3f} s (busy "
+        f"{busy_s:.3f}); largest logit difference from serial {worst:.4e} "
+        f"(batch statistics: recorded, not checked); launches {counts}")
+    if plan != [4, 4, 4, 4, 2]:
+        fail(f"AMOS attention continuous plan {plan}, not [4, 4, 4, 4, 2]")
+    if counts != {"conv3x3": ATT_CONV_PER_BATCH * len(plan),
+                  "conv3x3_dgrad": 0, "conv3x3_wgrad": 0}:
+        fail(f"AMOS attention continuous conv launches {counts}, predicted "
+             f"{ATT_CONV_PER_BATCH} x {len(plan)} forward, no backward")
+    return {k: {"amos_attention_continuous": c} for k, c in counts.items()}
+
+
+def phase_continuous_btcv(dev: torch.device, spans: list,
+                          counters: dict) -> dict:
+    """BTCV DiffSwinUNETR (``cfg/btcv/test.yaml``, unit 2):
+    ``serve_volumes`` over CONT_BTCV_SHAPES against ``infer`` of each
+    (``compare_served``); each Swin kernel exactly SERVE_PER_BATCH
+    launches per planned batch. Returns the launches."""
+    from diff_unet_tpu_torch.data.synthetic import synthetic_ct
+    from diff_unet_tpu_torch.engine.engine import Predictor
+
+    pred = Predictor.from_config(
+        ROOT / "cfg/btcv/test.yaml", model_path=None,
+        classes=str(ROOT / "cfg/btcv/classes.yaml"), device=dev, seed=SEED)
+    vols = [synthetic_ct(s, SEED + i, dev)
+            for i, s in enumerate(CONT_BTCV_SHAPES)]
+    serial, wall_s, busy_s = timed_run(
+        lambda: [pred.infer(v) for v in vols], spans)
+    reset(counters)
+    cont, wall_c, busy_c = timed_run(lambda: pred.serve_volumes(
+        vols, seeds=[pred.seed] * len(vols)), spans)
+    counts = {k: fn.launches for k, fn in counters.items()}
+    backward = sum(getattr(fn, "backward_launches", 0)
+                   for fn in counters.values())
+    plan = [len(b) for b in pred._continuous.plan(CONT_BTCV_SHAPES)]
+    log(f"BTCV continuous: plan {plan}, {wall_c:.3f} s (busy {busy_c:.3f}) "
+        f"against serial {wall_s:.3f} s (busy {busy_s:.3f}) and "
+        f"{sum(window_batches(pred._inferer, s) for s in CONT_BTCV_SHAPES)}"
+        f" batches; launches {counts}")
+    compare_served("BTCV continuous", pred, CONT_BTCV_SHAPES, serial, cont)
+    for k, c in counts.items():
+        if c != SERVE_PER_BATCH[k] * len(plan) or backward:
+            fail(f"BTCV continuous {k}: {c} launches ({backward} backward),"
+                 f" predicted {SERVE_PER_BATCH[k]} x {len(plan)}")
+    return {k: {"btcv_continuous": c} for k, c in counts.items()}
+
+
+def phase_continuous_tester(dev: torch.device, work: Path, serial: dict,
+                            serial_seconds: list) -> dict:
+    """``Tester.from_config("cfg/amos/test.yaml", continuous=2)`` over phase
+    7's cases and weights: each case's outputs against phase 7's as
+    ``compare_served`` holds logits' binaries, and where a case's outputs
+    are the same, its dices, HD95s and IoUs bit for bit (else their
+    differences printed); exactly 190 conv launches per planned batch;
+    s/case against phase 7's. Returns the launches."""
+    from diff_unet_tpu_torch.engine.engine import Tester
+
+    tester = Tester.from_config(
+        ROOT / "cfg/amos/test.yaml", data_path=str(work / "amos_eval"),
+        model_path=str(work / "amos_eval_weights" / "epoch_3000"),
+        classes=str(ROOT / "cfg/amos/classes.yaml"), device=dev, seed=SEED,
+        continuous=2, log_dir=str(work / "amos_cont_logs"))
+    reset_conv()
+    t0 = time.perf_counter()
+    results = tester.test()
+    seconds = time.perf_counter() - t0
+    counts = conv_counts()
+    shapes = [tuple(x.shape) for x in results["images"]]
+    plan = [len(b) for b in tester._continuous.plan(shapes)]
+    for i, (a, b) in enumerate(zip(results["outputs"], serial["outputs"])):
+        flips = float(np.mean(a != b))
+        same = np.array_equal(a, b)
+        deltas = {k: np.nanmax(np.abs(np.asarray(results[k][i], np.float64)
+                                      - np.asarray(serial[k][i],
+                                                   np.float64)))
+                  for k in ("dices", "hd95s", "ious")}
+        log(f"Tester(continuous=2) case {i} {shapes[i]}: outputs "
+            f"{'equal' if same else f'differ on {flips:.3e} of the voxels'};"
+            f" largest metric differences from phase 7 " + ", ".join(
+                f"{k} {v:.3e}" for k, v in deltas.items()))
+        if flips > CONT_FLIPS:
+            fail(f"Tester(continuous=2) case {i}: outputs differ from the "
+                 f"serial Tester's on {flips:.3e} of the voxels")
+        if same and not all(np.array_equal(
+                np.asarray(results[k][i]), np.asarray(serial[k][i]),
+                equal_nan=True) for k in ("dices", "hd95s", "ious")):
+            fail(f"Tester(continuous=2) case {i}: the same outputs, other "
+                 "metrics")
+    def per_case(split):
+        return (np.mean([sum(s.values()) for s in split]),
+                np.mean([s["inference"] for s in split]))
+
+    log(f"Tester(continuous=2): {len(shapes)} cases in {seconds:.3f} s, plan "
+        f"{plan}; s/case, inference s/case %.4f, %.4f against phase 7's "
+        f"%.4f, %.4f; launches {counts}" % (*per_case(tester.case_seconds),
+                                           *per_case(serial_seconds)))
+    if counts != {"conv3x3": AMOS_CONV_PER_BATCH * len(plan),
+                  "conv3x3_dgrad": 0, "conv3x3_wgrad": 0}:
+        fail(f"Tester(continuous=2) conv launches {counts}, predicted "
+             f"{AMOS_CONV_PER_BATCH} x {len(plan)} forward, no backward")
+    return {k: {"amos_test_continuous": c} for k, c in counts.items()}
+
+
+def phase_continuous_predict(dev: torch.device, work: Path,
+                             spans: list) -> None:
+    """``python -m diff_unet_tpu_torch.predict`` in process over phase 7's
+    two CTs, each listed twice (without the foreground crop each is
+    100x196x196: 18 windows): every labelmap against ``predict_volume``'s
+    on the same weights, bit for bit where each window ran at the same
+    batch size on both paths (here: all), else on all but CONT_FLIPS of
+    the voxels; volumes/min and busy share against the serial loop
+    (load, infer and write each in turn)."""
+    from diff_unet_tpu_torch import predict
+    from diff_unet_tpu_torch.data.nifti import read_nifti
+    from diff_unet_tpu_torch.engine.engine import Predictor
+
+    cts = [str(work / "amos_eval" / f"ct_{i}.nii.gz") for i in range(2)]
+    inputs = cts * 2
+    weights = str(work / "amos_eval_weights" / "epoch_3000")
+    classes = str(ROOT / "cfg/amos/classes.yaml")
+    t0 = time.perf_counter()
+    engine = Predictor.from_config(
+        ROOT / "cfg/amos/test.yaml", model_path=weights, classes=classes,
+        device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    serial_dir = work / "predict_serial"
+    serial_dir.mkdir()
+    serial, wall_s, busy_s = timed_run(lambda: [
+        predict.predict_volume(engine, p, serial_dir / f"{i}.nii.gz")
+        for i, p in enumerate(inputs)], spans)
+    out_dir = work / "predict_many"
+    many, wall_c, busy_c = timed_run(lambda: predict.main([
+        "--config", str(ROOT / "cfg/amos/test.yaml"),
+        f"model_path={weights}", f"classes={classes}", f"seed={SEED}",
+        "input=" + ",".join(inputs), f"output={out_dir}"]), spans)
+    shapes = [tuple(x.shape) for x in serial]
+    sizes_serial, sizes_cont = batch_sizes(engine, shapes)
+    windows = sum(len(engine._inferer._starts(
+        tuple(max(r, s) for r, s in zip(engine._inferer.roi, sh))))
+        for sh in shapes)
+    # an input listed twice writes one file: its last listing's labelmap
+    names = [predict._output_name(p) for p in inputs]
+    last = {name: i for i, name in enumerate(names)}
+    for name, i in last.items():
+        if not np.array_equal(read_nifti(out_dir / name).data, many[i]):
+            fail(f"predict: {name} does not hold input {i}'s labelmap")
+    for i, (a, b) in enumerate(zip(many, serial)):
+        flips = float(np.mean(a != b))
+        same = np.array_equal(a, b)
+        log(f"predict input {i} {shapes[i]}: labelmap "
+            + ("equal" if same else f"differs on {flips:.3e} of the voxels")
+            + f" to predict_volume's; batch sizes serial {sizes_serial[i]},"
+            f" continuous {sizes_cont[i]}")
+        if (sizes_serial[i] == sizes_cont[i] and not same) \
+                or flips > CONT_FLIPS:
+            fail(f"predict input {i}: labelmap differs from "
+                 "predict_volume's")
+    log(f"predict, {len(inputs)} inputs ({windows} windows): main "
+        f"(predict_many) {wall_c:.3f} s ({len(inputs) / wall_c * 60:.2f} "
+        f"volumes/min, busy {busy_c:.3f}; its Predictor build included, "
+        f"{build_s:.3f} s for the serial loop's) against the serial loop "
+        f"{wall_s:.3f} s ({len(inputs) / wall_s * 60:.2f} volumes/min, "
+        f"busy {busy_s:.3f})")
+
+
+def phase_continuous(dev: torch.device, work: Path, swin: dict,
+                     serial: dict, serial_seconds: list) -> dict:
+    """Phase 5m: continuous serving on every path that reaches it."""
+    t0 = time.perf_counter()
+    paths = {}
+    with ddim_spans() as spans:
+        for part in (phase_continuous_amos(dev, spans),
+                     phase_continuous_attention(dev, spans),
+                     phase_continuous_btcv(dev, spans, swin),
+                     phase_continuous_tester(dev, work, serial,
+                                             serial_seconds)):
+            for k, v in part.items():
+                paths.setdefault(k, {}).update(v)
+        phase_continuous_predict(dev, work, spans)
+    log(f"phase 5m: {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card, clock_hz = phase_card()
@@ -3007,10 +3421,13 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
         for k, v in phase().items():
             paths[k].update(v)
     phase_edt()
-    launches, results, _ = phase_eval_amos(dev, work)
+    launches, results, case_seconds = phase_eval_amos(dev, work)
     for k, v in launches.items():
         paths[k].update(v)
     phase_metrics(dev, results)
+    for k, v in phase_continuous(dev, work, swin, results,
+                                 case_seconds).items():
+        paths[k].update(v)
     del results
     for k, v in phase_train_amos_data(dev, work, amos_step_s).items():
         paths[k].update(v)
@@ -3046,7 +3463,7 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
             "through flax nn.Conv (jax.value_and_grad)"),
     }
     # launches: the first path of LAUNCH_ORDER on which the kernel ran,
-    # this slice's path (HybridMIM pretraining) first
+    # this slice's path (continuous serving) first
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=next((paths[k][p] for p in LAUNCH_ORDER
                                    if paths[k].get(p)), 0),

@@ -11,14 +11,16 @@ forward per window batch and no DDIM loop), holds the model
 with seeded random weights or the
 weights of ``model_path`` (``engine/checkpoint.py``: the port's ``.pt`` or
 a JAX tree as ``.npz``; ``use_ema`` takes the EMA tree), and serves whole
-volumes: ``infer(volume) -> (logits, binary)`` and ``serve(volumes)``.
-``Tester`` adds the validation set of ``data_path`` (a Decathlon
-``dataset.json``) and scores each case: dice on the device, HD95 and IoU
-per class on the host, the per-class table, the mean dice and
-``logs/<log_dir>/results.pkl``. ``Trainer`` is built from a train config
-(``cfg/amos/train.yaml``, ``cfg/btcv/train.yaml``, ``cfg/msd/train.yaml``)
-and trains on the NIfTI set of ``data_path``, or on ``train_data``, an
-iterable of batches;
+volumes: ``infer(volume) -> (logits, binary)``, ``serve(volumes)`` (one
+after another) and ``serve_volumes(volumes)`` (continuous window batching
+across volumes, ``engine/serving.py``). ``Tester`` adds the validation set
+of ``data_path`` (a Decathlon ``dataset.json``) and scores each case: dice
+on the device, HD95 and IoU per class on the host, the per-class table,
+the mean dice and ``logs/<log_dir>/results.pkl``; ``continuous: N`` serves
+the cases N at a time through ``serve_volumes``. ``Trainer`` is built from
+a train config (``cfg/amos/train.yaml``, ``cfg/btcv/train.yaml``,
+``cfg/msd/train.yaml``) and trains on the NIfTI set of ``data_path``, or
+on ``train_data``, an iterable of batches;
 ``train()`` runs the epochs with validation every ``val_freq``, the
 best-checkpoint gate, ``epoch_{n}.pt`` every ``save_freq`` and resume from
 ``model_path``. All default to ``diff_unet``, as the JAX engine does. All
@@ -37,8 +39,8 @@ import pickle
 import time
 import warnings
 from pathlib import Path
-from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, \
-    Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, \
+    Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,6 +51,7 @@ from diff_unet_tpu_torch.data.datalist import load_decathlon_datalist
 from diff_unet_tpu_torch.data.label_smoothing import \
     LabelSmoothingCacheDataset, smooth_labels
 from diff_unet_tpu_torch.engine import checkpoint as ckpt_lib
+from diff_unet_tpu_torch.engine.serving import ContinuousBatchingInferer
 from diff_unet_tpu_torch.engine.sliding_window import (
     SlidingWindowInferer,
     bucket_shape,
@@ -76,7 +79,7 @@ _IGNORED_KEYS = frozenset((
     "quant_calibrate", "noise_ratio",
 ))
 # keys of the shared test configs that only the Tester reads
-TESTER_KEYS = ("save_volumes",)
+TESTER_KEYS = ("save_volumes", "continuous")
 
 
 def convert_labels(labels: torch.Tensor, class_ids: Sequence[int]
@@ -117,7 +120,7 @@ class Engine:
                  sw_mode: str = "constant", pack: Optional[int] = None,
                  quantize: bool = False, model_path: Optional[str] = None,
                  use_ema: bool = False, epoch: Optional[int] = None,
-                 continuous: int = 0, project_name: Optional[str] = None,
+                 project_name: Optional[str] = None,
                  log_dir: str = "logs", use_wandb: bool = False,
                  device: Union[str, torch.device, None] = None,
                  **unused) -> None:
@@ -131,11 +134,6 @@ class Engine:
         if quantize:
             raise NotImplementedError("W8A8 inference is not ported yet "
                                       "(ROADMAP.md, int8 inference)")
-        if continuous:
-            raise NotImplementedError(
-                "continuous serving (continuous > 0) is not ported yet "
-                "(ROADMAP.md, continuous serving); continuous: 0 answers "
-                "the volumes one after another with the same results")
         if use_wandb:
             raise NotImplementedError("wandb logging is not ported")
         if use_ema and model_path is None:
@@ -191,6 +189,8 @@ class Engine:
         self._inferer = SlidingWindowInferer(
             roi=(spatial_size, image_size, image_size),
             sw_batch_size=sw_batch_size, overlap=self.overlap, mode=sw_mode)
+        self._continuous: Optional[ContinuousBatchingInferer] = None
+        self._continuous_key: Optional[tuple] = None
         self.dataloader: Dict[str, DataLoader] = {}
 
     # ---- data ----
@@ -282,6 +282,39 @@ class Engine:
         """Answer each volume in turn with ``infer``."""
         return [self.infer(v) for v in volumes]
 
+    def serve_volumes(self, volumes: Iterable[torch.Tensor],
+                      seeds: Union[Sequence[int], Callable[[int], int],
+                                   None] = None,
+                      on_result: Optional[Callable] = None
+                      ) -> List[Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+        """Serve volumes (D, H, W, 1), from any iterable, through
+        cross-volume continuous window batching (``engine/serving.py``):
+        the windows of consecutive volumes share full DDIM batches of the
+        unit, the power-of-two floor of ``sw_batch_size``. Volume i's noise
+        comes from ``volume_seed(seed, i)``, or from ``seeds`` (a sequence
+        or a callable i -> seed); given the engine seed for a volume, it
+        draws the noise of ``infer``. Returns [(logits, binary)] on the
+        device, or streams each to ``on_result(i, logits, binary)`` as its
+        volume is finalized. The inferer is rebuilt when the unit, ROI,
+        overlap or blend mode has changed since the last call."""
+        unit = 1
+        while unit * 2 <= self.sw_batch_size:
+            unit *= 2
+        key = (unit, self._inferer.roi, self.overlap, self._inferer.mode)
+        if self._continuous_key != key:
+            predictor = None
+            if self.model_type != ModelType.DIFFUSION:
+                def predictor(windows, starts, seeds):
+                    return self.seg.predict(windows)
+            self._continuous = ContinuousBatchingInferer(
+                self.seg, roi=self._inferer.roi, unit=unit,
+                overlap=self.overlap, mode=self._inferer.mode,
+                predictor=predictor)
+            self._continuous_key = key
+        return self._continuous.serve(
+            (v.to(self.device, torch.float32) for v in volumes), self.seed,
+            seeds=seeds, on_result=on_result)
+
 
 class Predictor(Engine):
     """Whole-volume serving engine, no dataset attached."""
@@ -310,13 +343,20 @@ class Tester(Engine):
     ``save_volumes`` the fp16 images and bool one-hot outputs and labels).
     ``case_seconds`` holds each case's seconds split four ways: inference
     (ended by a device synchronisation), dice on the device, HD95 + IoU on
-    the host, and recording."""
+    the host, and recording.
+
+    ``continuous=N`` (N > 0) serves the cases N at a time (the last group
+    may be smaller) through ``serve_volumes``, each with the engine seed,
+    so that each case draws the serial path's noise; its inference
+    seconds are the group's (ended by a device synchronisation) shared
+    out over the group's cases in proportion to their window counts."""
 
     def __init__(self, log_dir: str = "logs", save_volumes: bool = True,
-                 **kwargs) -> None:
+                 continuous: int = 0, **kwargs) -> None:
         super().__init__(log_dir=log_dir, **kwargs)
         self.module.eval().requires_grad_(False)
         self.save_volumes = save_volumes
+        self.continuous = int(continuous)
         self.results: Dict[str, list] = {
             "images": [], "outputs": [], "labels": [], "dices": [],
             "ious": [], "hd95s": [], "filenames": []}
@@ -334,8 +374,17 @@ class Tester(Engine):
         return cls(**cfg)
 
     def test(self) -> Dict[str, list]:
+        group: List[Dict[str, Any]] = []
         for batch in self.dataloader["val"]:
-            self.validation_step(batch)
+            if self.continuous > 0:
+                group.append(batch)
+                if len(group) == self.continuous:
+                    self._serve_group(group)
+                    group = []
+            else:
+                self.validation_step(batch)
+        if group:
+            self._serve_group(group)
         have = bool(self.results["dices"])
         mean_dice = float(np.mean(self.results["dices"])) if have else 0.0
         print(self.logger.per_class_table(
@@ -358,6 +407,23 @@ class Tester(Engine):
         self._record_case(image, labels, outputs,
                           batch.get("filename", [None])[0],
                           inference_s=time.perf_counter() - t0)
+
+    def _serve_group(self, group: List[Dict[str, Any]]) -> None:
+        t0 = time.perf_counter()
+        images = [torch.from_numpy(b["image"][0]).to(self.device)
+                  for b in group]
+        labels = [self.convert_labels(
+            torch.from_numpy(b["label"]).to(self.device))[0] for b in group]
+        results = self.serve_volumes(images, seeds=[self.seed] * len(group))
+        self._sync()
+        seconds = time.perf_counter() - t0
+        windows = [len(self._continuous.starts(im.shape[:3]))
+                   for im in images]
+        for b, image, lab, (_, outputs), n in zip(group, images, labels,
+                                                  results, windows):
+            self._record_case(image, lab, outputs,
+                              b.get("filename", [None])[0],
+                              inference_s=seconds * n / sum(windows))
 
     def _record_case(self, image: torch.Tensor, labels: torch.Tensor,
                      outputs: torch.Tensor, filename: Optional[str],

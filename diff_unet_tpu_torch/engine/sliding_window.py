@@ -11,7 +11,7 @@ windows are batched.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,15 +40,27 @@ def window_seed(seed: int, start: Sequence[int]) -> int:
     return h
 
 
-def make_ddim_window_predictor(seg, seed: int) -> Callable:
-    """predictor(windows, starts) drawing each window's x_T noise from a
-    generator seeded on its start (layout-invariant for eta = 0 DDIM)."""
-    def predictor(windows: torch.Tensor, starts: np.ndarray) -> torch.Tensor:
+def volume_seed(seed: int, i: int) -> int:
+    """The seed of the i-th volume of a served stream: the counterpart of
+    ``jax.random.fold_in(rng, i)``."""
+    return window_seed(seed, (i,))
+
+
+def make_ddim_window_predictor(seg, seed: Optional[int] = None) -> Callable:
+    """predictor(windows, starts, seeds=None) drawing each window's x_T
+    noise from a generator seeded on (its seed, its start), so that the
+    noise does not depend on the batching (eta = 0 DDIM). ``seeds`` gives
+    each window its volume's seed (a continuous batch mixes volumes);
+    without it every window takes ``seed``."""
+    def predictor(windows: torch.Tensor, starts: np.ndarray,
+                  seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
         roi_shape = (*windows.shape[1:-1], seg.num_classes)
+        if seeds is None:
+            seeds = [seed] * len(starts)
         noise = []
-        for s in starts:
+        for s, vs in zip(starts, seeds):
             g = torch.Generator(device=windows.device)
-            g.manual_seed(window_seed(seed, s))
+            g.manual_seed(window_seed(vs, s))
             noise.append(torch.randn(roi_shape, generator=g,
                                      device=windows.device))
         return seg.ddim_sample(windows, noise=torch.stack(noise))

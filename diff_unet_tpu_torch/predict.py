@@ -8,16 +8,19 @@ reads each CT, preprocesses it as evaluation does (RAS, intensity window,
 spacing resample to (1.5, 1.5, 2.0); no foreground crop), serves it with
 sliding-window DDIM, and writes an int16 labelmap over the class ids of
 ``classes`` with the resampled grid's RAS affine. ``input`` is one file, a
-comma-separated list or a glob; with several inputs ``output`` is a
-directory, and the volumes are served one after another. ``key=value``
-arguments override the config; ``device=cpu`` runs on the CPU (the
-default is the card).
+comma-separated list or a glob. With several inputs ``output`` is a
+directory, and the volumes are served together through cross-volume
+continuous window batching (``predict_many``): loader threads read and
+preprocess the next volumes while the card runs the current batches, and
+a writer thread writes each labelmap as soon as its volume is finished.
+``key=value`` arguments override the config; ``device=cpu`` runs on the
+CPU (the default is the card).
 """
 from __future__ import annotations
 
 import glob as globlib
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,22 +40,104 @@ def load_preprocessed(image_path) -> Tuple[torch.Tensor, np.ndarray]:
                                                  np.float32)), affine
 
 
-def predict_volume(engine, image_path, output_path=None) -> np.ndarray:
-    """Serve one NIfTI file; returns the labelmap (D, H, W) int16 on the
-    preprocessed (RAS, resampled) grid, written to ``output_path`` when
-    given."""
+def _labelmap(engine, binary: np.ndarray, affine: np.ndarray,
+              output_path) -> np.ndarray:
+    """Binary channels (D, H, W, C) -> the int16 labelmap over the class
+    ids, written with ``affine`` to ``output_path`` when given."""
     from diff_unet_tpu_torch.data import nifti
     from diff_unet_tpu_torch.engine.engine import channels_to_class_ids
 
-    vol, affine = load_preprocessed(image_path)
-    _, binarized = engine.infer(vol)
     labels = channels_to_class_ids(
-        binarized.cpu().numpy(), sorted(engine.class_names)
-    ).astype(np.int16)
+        binary, sorted(engine.class_names)).astype(np.int16)
     if output_path is not None:
         nifti.write_nifti(output_path, labels, affine)
         print(f"segmentation written to {output_path}")
     return labels
+
+
+def predict_volume(engine, image_path, output_path=None) -> np.ndarray:
+    """Serve one NIfTI file; returns the labelmap (D, H, W) int16 on the
+    preprocessed (RAS, resampled) grid, written to ``output_path`` when
+    given."""
+    vol, affine = load_preprocessed(image_path)
+    _, binarized = engine.infer(vol)
+    return _labelmap(engine, binarized.cpu().numpy(), affine, output_path)
+
+
+def _host_copy(binary: torch.Tensor, stream: Optional[torch.cuda.Stream]
+               ) -> Callable[[], np.ndarray]:
+    """Start copying a finished binary output to the host without holding
+    up the dispatch thread; returns a function that waits for the copy and
+    gives the array. On the card the copy (as uint8, into pinned memory)
+    runs on ``stream`` after an event on the current stream, so it waits
+    for this volume's finalize only, not for the batches queued after
+    it."""
+    if not binary.is_cuda:
+        array = binary.numpy()
+        return lambda: array
+    small = binary.to(torch.uint8).contiguous()
+    host = torch.empty(small.shape, dtype=torch.uint8, pin_memory=True)
+    stream.wait_stream(torch.cuda.current_stream(binary.device))
+    with torch.cuda.stream(stream):
+        host.copy_(small, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    small.record_stream(stream)
+
+    def wait() -> np.ndarray:
+        done.synchronize()
+        return host.numpy()
+    return wait
+
+
+def predict_many(engine, image_paths: Sequence, output_paths: Sequence,
+                 workers: int = 3, prefetch: int = 4) -> List[np.ndarray]:
+    """Serve several NIfTI files through ``engine.serve_volumes`` with the
+    engine seed for every volume (the noise ``predict_volume`` draws);
+    returns the labelmaps in input order and writes each to its output
+    path (None: not written).
+
+    ``workers`` threads read and preprocess up to ``prefetch`` volumes
+    ahead of the serve loop (gzip, the RAS transpose and the resample
+    release the GIL); one writer thread maps each finished binary to class
+    ids and writes it, off the thread that dispatches the batches."""
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    n = len(image_paths)
+    affines: list = [None] * n
+    out: list = [None] * n
+    side = (torch.cuda.Stream(engine.device)
+            if engine.device.type == "cuda" else None)
+    writes: list = []
+
+    def write(i: int, binary: Callable[[], np.ndarray]) -> None:
+        out[i] = _labelmap(engine, binary(), affines[i], output_paths[i])
+
+    with ThreadPoolExecutor(max_workers=workers) as loader, \
+            ThreadPoolExecutor(max_workers=1) as writer:
+        pending = deque(loader.submit(load_preprocessed, p)
+                        for p in image_paths[:prefetch])
+        submitted = len(pending)
+
+        def stream():
+            nonlocal submitted
+            for i in range(n):
+                vol, affines[i] = pending.popleft().result()
+                if submitted < n:
+                    pending.append(loader.submit(load_preprocessed,
+                                                 image_paths[submitted]))
+                    submitted += 1
+                yield vol
+
+        def on_result(i, logits, binary):
+            writes.append(writer.submit(write, i, _host_copy(binary, side)))
+
+        engine.serve_volumes(stream(), seeds=lambda i: engine.seed,
+                             on_result=on_result)
+        for f in writes:
+            f.result()
+    return out
 
 
 def _output_name(p: str) -> str:
@@ -81,7 +166,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[np.ndarray]:
         out_dir.mkdir(parents=True, exist_ok=True)
         outs = [str(out_dir / _output_name(p)) for p in paths]
     engine = Predictor(**kwargs)
-    return [predict_volume(engine, p, o) for p, o in zip(paths, outs)]
+    if len(paths) == 1:
+        return [predict_volume(engine, paths[0], outs[0])]
+    return predict_many(engine, paths, outs)
 
 
 if __name__ == "__main__":

@@ -141,14 +141,17 @@ def test_predictor_config_handling(tmp_path):
         Predictor(model_path=str(tmp_path / "w"), use_ema=True, **kw)
     with pytest.raises(ValueError, match="ema_params"):
         Predictor(use_ema=True, **kw)
-    # continuous serving raises; save_volumes is the Tester's, and the
-    # Predictor built from a test config drops it
-    with pytest.raises(NotImplementedError, match="continuous"):
+    # continuous and save_volumes are the Tester's: given to a Predictor
+    # they warn, and the Predictor built from a test config drops them
+    with pytest.warns(UserWarning, match="continuous"):
         Predictor(continuous=2, **kw)
     with pytest.warns(UserWarning, match="save_volumes"):
         Predictor(save_volumes=True, **kw)
-    cfg = ROOT / "cfg/amos/test.yaml"
+    cfg = tmp_path / "test.yaml"
+    cfg.write_text((ROOT / "cfg/amos/test.yaml").read_text().replace(
+        "continuous: 0", "continuous: 2"))
     assert load_flat_yaml(cfg)["save_volumes"] is True
+    assert load_flat_yaml(cfg)["continuous"] == 2
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         Predictor.from_config(cfg, model_path=None, **kw)

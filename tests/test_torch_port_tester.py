@@ -6,7 +6,7 @@ JAX package's functions applied to the port's own outputs and labels (the
 random streams of the two packages cannot be matched, so the outputs
 themselves are the port's); ``results.pkl`` holds numpy arrays of the
 keys, lengths, dtypes and shapes the JAX Tester's holds; ``continuous``
-raises; and ``python -m diff_unet_tpu_torch.test`` and ``.predict`` in a
+is stored; and ``python -m diff_unet_tpu_torch.test`` and ``.predict`` in a
 subprocess with ``device=cpu`` (the labelmap holds only class ids, and its
 affine is the one ``predict.py`` computes)."""
 import os
@@ -125,14 +125,15 @@ def test_tester_config_keys(workspace, tmp_path, monkeypatch):
     cwd = tmp_path / "cwd"
     cwd.mkdir()
     monkeypatch.chdir(cwd)
-    with pytest.raises(NotImplementedError, match="continuous"):
-        PortTester(continuous=1, **kw)
     with pytest.raises(ValueError, match="data_path"):
         PortTester(**{**kw, "data_path": None})
     with pytest.raises(ValueError, match="ema_params"):
         PortTester(model_path=str(root / "epoch_4"), use_ema=True, **kw)
     # a construction that fails writes no log directory
     assert not any(cwd.iterdir())
+    # continuous: the Tester stores it (tests/test_torch_port_serving.py
+    # serves with it)
+    assert PortTester(continuous=1, **kw).continuous == 1
 
 
 def _run(module, args, cwd):
