@@ -200,7 +200,30 @@ PyTorch built for CUDA. Phases, each of which must pass:
    190 per validation window batch; a second trainer resumed from
    ``epoch_1.pt`` must end with the same parameters bit for bit; the
    median s/step with the host pipeline against the same step on a
-   resident batch and against phase 5d, and the peak memory.
+   resident batch and against phase 5d, and the peak memory;
+9. W8A8 int8 serving of DiffUNet (run among the phases above, in this
+   order: a right after 3b, b-d after the AMOS serving of 5):
+   a. the s8 instance of the conv kernel against its plain version at
+      every DiffUNet conv of CONV_CASES (N 4, int8 parts and weights over
+      the whole int8 range): the int32 sums and the rescaled bf16 output
+      bit for bit, the statistics within STATS_TOL; times of the kernel,
+      its plain version (a float64 convolution of the int8 values), the
+      bf16 kernel at the same shape and ``torch._int_mm`` on the im2col
+      GEMM's shape (the product alone), and the bound at the int8 peak;
+   b. one AMOS window batch (4 x 96^3, seeded full-width weights) served
+      bf16, int8 with dynamic scales and int8 with static scales
+      calibrated on the CT's first window: s per batch, DDIM
+      window-steps/s, exactly 190 s8 launches and no bf16 conv launch per
+      int8 batch, each int8 answer's distance from bf16 as a fraction of
+      max |y| and its share of differing binary voxels;
+   c. ``Predictor(quantize=True)`` serving the 96x192x192 CT (path
+      ``amos_int8_serve``, 190 s8 launches per window batch);
+   d. the learning check, ``python -m diff_unet_tpu_torch.overfit`` at its
+      defaults (48^3, full width, 401 steps): its trajectory and a final
+      mean dice of at least OVERFIT_DICE_FLOOR; then its ``.npz`` served
+      in bf16, int8 weights-only and int8 calibrated (``quant_calibrate:
+      1``), each int8 mean dice within INT8_DICE_TOL of bf16's, with the
+      share of differing binary voxels.
 
 Serving outputs are checked for shape, finiteness and a binary mask. Each
 path is driven with its kernels' launch counters set to 0 just before it
@@ -254,7 +277,8 @@ ATT_GRAD_TOL = 1e-2
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate, and the operation
 # rate of each type on the unit that the kernels use
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
+                   torch.int8: 1979e12}
 HOLD_CYCLES = 100_000_000     # about 50 ms of the SM clock
 # (tag, part channels, Cout, side, prologue, stats, bias, LeakyReLU) for
 # every distinct 3x3x3 conv of DiffUNet at a 96^3 ROI with sw_batch_size 4
@@ -281,6 +305,22 @@ CONV_CASES = [
     ("no bias (pallas_conv)", [64], 64, 96, False, False, False, False),
 ]
 CONV_REPORT = ("L0 conv_1", torch.bfloat16)   # the kernels line's conv entry
+# phase 9, W8A8 int8 serving: the s8 conv at every DiffUNet conv of
+# CONV_CASES (int8 parts and weights, bf16 out, bias and statistics); the
+# kernels line's s8 entry; s8 conv launches per AMOS window batch (every
+# 3x3x3 conv: 10 in the encoder, 18 in each of the 10 denoiser passes)
+S8_CASES = [c[:4] for c in CONV_CASES[:15]]
+S8_REPORT = "L0 conv_1"
+INT8_PER_BATCH = 10 + 18 * 10
+INT8_REPS = 3
+# the learning check (python -m diff_unet_tpu_torch.overfit at its
+# defaults): the final mean dice must reach OVERFIT_DICE_FLOOR (the JAX
+# example's README records 0.86 at iteration 100 and 1.00 from 300 on a
+# TPU); int8 serving of the trained model, weights-only and calibrated,
+# must keep the mean dice within INT8_DICE_TOL of bf16's, the bound the
+# JAX package's own test holds int8 to (tests/test_end_to_end.py)
+OVERFIT_DICE_FLOOR = 0.8
+INT8_DICE_TOL = 0.02
 # (stage, BW, heads, N, window grid of the padded stage or None when the
 # window is clamped and never shifted) for a 96^3 ROI at sw_batch_size 2
 ATTN_CASES = [
@@ -418,7 +458,7 @@ MIM_CONV_CASES = [
 SMALL_MIM = ((8, 8, 16, 32, 64, 8), 32, 8, 2, 1e-3)
 # the paths whose launches the kernels line reports, in order of choice:
 # this slice's path first
-LAUNCH_ORDER = ("amos_continuous", "amos_attention_continuous",
+LAUNCH_ORDER = ("amos_int8_serve", "overfit_int8", "amos_continuous", "amos_attention_continuous",
                 "btcv_continuous", "amos_test_continuous",
                 "mim_pretrain", "amos_attention_train",
                 "amos_attention_serve", "amos_smooth_train",
@@ -2084,6 +2124,7 @@ def phase_eval_amos(dev: torch.device, work: Path) -> tuple:
     from diff_unet_tpu_torch.engine.engine import Tester
     from diff_unet_tpu_torch.models.model_hub import create_model
     from diff_unet_tpu_torch.ops.conv3d import conv3x3, conv3x3_wgrad
+    from diff_unet_tpu_torch.ops.int8 import conv3x3_int8
     from diff_unet_tpu_torch.utils.weights import export_jax_params, \
         init_random
 
@@ -2191,6 +2232,7 @@ def phase_train_amos_data(dev: torch.device, work: Path,
     Returns the straight run's launches."""
     from diff_unet_tpu_torch.engine.engine import Trainer
     from diff_unet_tpu_torch.ops.conv3d import conv3x3, conv3x3_wgrad
+    from diff_unet_tpu_torch.ops.int8 import conv3x3_int8
 
     t0 = time.perf_counter()
     data = write_amos_set(work / "amos_train",
@@ -2684,6 +2726,7 @@ def step_seconds(trainer, calls: int = None) -> list:
 
 def conv_counts() -> dict:
     from diff_unet_tpu_torch.ops.conv3d import conv3x3, conv3x3_wgrad
+    from diff_unet_tpu_torch.ops.int8 import conv3x3_int8
     return {"conv3x3": conv3x3.launches,
             "conv3x3_dgrad": conv3x3.dgrad_launches,
             "conv3x3_wgrad": conv3x3_wgrad.launches}
@@ -2691,6 +2734,7 @@ def conv_counts() -> dict:
 
 def reset_conv() -> None:
     from diff_unet_tpu_torch.ops.conv3d import conv3x3, conv3x3_wgrad
+    from diff_unet_tpu_torch.ops.int8 import conv3x3_int8
     conv3x3.launches = conv3x3.dgrad_launches = conv3x3_wgrad.launches = 0
 
 
@@ -3300,6 +3344,212 @@ def phase_continuous(dev: torch.device, work: Path, swin: dict,
     return paths
 
 
+def phase_conv_s8(dev: torch.device) -> dict:
+    """The s8 conv kernel against its plain version at every S8_CASES shape
+    (N = CONV_N, random int8 parts and weights over the whole int8 range):
+    the raw int32 sums and the rescaled bf16 output without statistics bit
+    for bit, the statistics within STATS_TOL; times of the kernel, its
+    plain version, the bf16 kernel at the same shape and switches, and
+    ``torch._int_mm`` on the im2col GEMM's shape (the product alone), and
+    the bound at the int8 peak."""
+    from diff_unet_tpu_torch.ops import int8 as q
+    from diff_unet_tpu_torch.ops.conv3d import STATS_TOL, conv3x3
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    report = {}
+    sums = dict(ms=0.0, bf16_ms=0.0, int_mm_ms=0.0, bound_ms=0.0)
+    for tag, chans, cout, side in S8_CASES:
+        shape = (CONV_N, side, side, side)
+        cin = sum(chans)
+        parts = [torch.randint(-127, 128, (*shape, c), generator=g,
+                               device=dev, dtype=torch.int8) for c in chans]
+        wq = torch.randint(-127, 128, (cout, cin, 3, 3, 3), generator=g,
+                           device=dev, dtype=torch.int8)
+        sa = torch.tensor(0.02, device=dev)
+        sw = 1e-4 + 1e-3 * torch.rand((cout,), generator=g, device=dev)
+        b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        acc = q.conv3x3_int8(parts, wq)
+        want = q.conv3x3_int8_plain(parts, wq)
+        raw_exact = torch.equal(acc, want)
+        y = q.conv3x3_int8(parts, wq, sa, sw, b, torch.bfloat16)
+        y_exact = torch.equal(y, q.rescale(want, sa, sw, b, torch.bfloat16))
+        ys, st = q.conv3x3_int8(parts, wq, sa, sw, b, torch.bfloat16,
+                                with_stats=True)
+        _, wst = q._finish(want, sa, sw, b, torch.bfloat16, True)
+        st_err = (st - wst).abs().max().item()
+        st_tol = STATS_TOL * wst.abs().max().item()
+        err = (acc.double() - want.double()).abs().max().item()
+        name = f"conv3x3_int8 {tag} {chans}->{cout} at {CONV_N}x{side}^3"
+        if not (raw_exact and y_exact and torch.equal(ys, y)
+                and st_err <= st_tol):
+            fail(f"{name} disagrees with its plain version: int32 exact "
+                 f"{raw_exact} (max err {err:.3e}), rescaled exact "
+                 f"{y_exact}, stats err {st_err:.3e} (tol {st_tol:.3e})")
+        del acc, want, wst
+        reps = 3 if side == 96 else 10
+        ms = cuda_ms(lambda: q.conv3x3_int8(parts, wq, sa, sw, b,
+                                            torch.bfloat16,
+                                            with_stats=True), reps, 1)
+        plain_ms = cuda_ms(lambda: q._finish(
+            q.conv3x3_int8_plain(parts, wq), sa, sw, b, torch.bfloat16,
+            True), 1, 1)
+        parts_bf = [p.to(torch.bfloat16) for p in parts]
+        w_bf = wq.float() * 1e-3
+        bf16_ms = cuda_ms(lambda: conv3x3(parts_bf, w_bf, b,
+                                          with_stats=True), reps, 1)
+        del parts_bf
+        m, k = CONV_N * side ** 3, -(-27 * cin // 8) * 8
+        a_mat = torch.full((m, k), 3, dtype=torch.int8, device=dev)
+        b_t = torch.full((cout, k), 2, dtype=torch.int8, device=dev)
+        int_mm_ms = cuda_ms(lambda: torch._int_mm(a_mat, b_t.t()), reps, 1)
+        del a_mat, b_t
+        flops = 2.0 * m * cout * 27 * cin
+        bnd = bound(nbytes(*parts, wq, ys, st, sw, b), flops, torch.int8)
+        log(f"{name}: int32 and rescaled bf16 bit for bit, stats err "
+            f"{st_err:.3e} (tol {st_tol:.3e}); kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms bf16 kernel {bf16_ms:.4f} ms "
+            f"torch._int_mm on the im2col GEMM (product alone) "
+            f"{int_mm_ms:.4f} ms bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}), kernel {flops / ms / 1e9:.1f} TOP/s")
+        for key, v in (("ms", ms), ("bf16_ms", bf16_ms),
+                       ("int_mm_ms", int_mm_ms),
+                       ("bound_ms", bnd["bound_ms"])):
+            sums[key] += v
+        if tag == S8_REPORT:
+            report["conv3x3_int8"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bf16_kernel_ms=bf16_ms, int_mm_product_ms=int_mm_ms, **bnd)
+        del parts, y, ys, st
+    log("conv3x3_int8 over the S8_CASES shapes (one each): kernel "
+        f"{sums['ms']:.3f} ms, bf16 kernel {sums['bf16_ms']:.3f} ms, "
+        f"torch._int_mm {sums['int_mm_ms']:.3f} ms, bound "
+        f"{sums['bound_ms']:.3f} ms")
+    return report
+
+
+def phase_int8_window(dev: torch.device) -> None:
+    """One AMOS window batch (sw_batch_size 4 of 96^3 windows of a
+    synthetic 96x192x192 CT, seeded full-width weights, one x_T) through
+    ``ddim_sample`` served bf16, int8 with dynamic scales and int8 with
+    static scales calibrated on the CT's first window: seconds per batch
+    over INT8_REPS (after a warm-up), DDIM window-steps/s, exactly
+    INT8_PER_BATCH s8 launches and no bf16 conv launch per int8 batch, and
+    each int8 answer's largest distance from bf16 as a fraction of max
+    |y| and its share of differing binary voxels."""
+    from diff_unet_tpu_torch.data.synthetic import synthetic_ct
+    from diff_unet_tpu_torch.engine.engine import Predictor
+    from diff_unet_tpu_torch.ops.conv3d import conv3x3
+    from diff_unet_tpu_torch.ops.int8 import conv3x3_int8
+
+    kw = dict(model_path=None, classes=str(ROOT / "cfg/amos/classes.yaml"),
+              device=dev, seed=SEED)
+    bf = Predictor.from_config(ROOT / "cfg/amos/test.yaml", **kw)
+    qp = Predictor.from_config(ROOT / "cfg/amos/test.yaml", quantize=True,
+                               **kw)
+    vol = synthetic_ct(AMOS_BODY, SEED + 5, dev)
+    r = bf._inferer.roi[0]
+    windows = torch.stack([vol[:, y:y + r, x:x + r] for y in (0, r)
+                           for x in (0, r)])
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    noise = torch.randn((len(windows), r, r, r, bf.num_classes),
+                        generator=g, device=dev)
+    steps = bf.seg.sample_steps
+    out = {}
+    for name, pred in (("bf16", bf), ("int8 dynamic", qp),
+                       ("int8 static", qp)):
+        if name == "int8 static":
+            pred.calibrate(vol)
+        with torch.inference_mode():
+            pred.seg.ddim_sample(windows, noise=noise)     # warm-up
+            torch.cuda.synchronize()
+            reset({"conv3x3": conv3x3, "conv3x3_int8": conv3x3_int8})
+            t0 = time.perf_counter()
+            for _ in range(INT8_REPS):
+                y = pred.seg.ddim_sample(windows, noise=noise)
+            torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / INT8_REPS
+        launches = (conv3x3.launches, conv3x3_int8.launches)
+        want = ((INT8_PER_BATCH * INT8_REPS, 0) if name == "bf16"
+                else (0, INT8_PER_BATCH * INT8_REPS))
+        if launches != want or not torch.isfinite(y).all():
+            fail(f"AMOS window batch {name}: (bf16, s8) conv launches "
+                 f"{launches}, predicted {want}; finite "
+                 f"{bool(torch.isfinite(y).all())}")
+        out[name] = y
+        msg = (f"AMOS window batch {name}: {sec:.4f} s, "
+               f"{len(windows) * steps / sec:.2f} DDIM window-steps/s")
+        if name != "bf16":
+            ref = out["bf16"]
+            dist = ((y - ref).abs().max() / ref.abs().max()).item()
+            flips = ((y > 0) != (ref > 0)).float().mean().item()
+            msg += (f", max |y - y_bf16| / max |y_bf16| {dist:.4e}, binary "
+                    f"voxels differing {flips:.4e}")
+        log(msg)
+    del bf, qp, out
+
+
+def phase_overfit(dev: torch.device, work: Path) -> dict:
+    """The learning check at full width (``diff_unet_tpu_torch.overfit``
+    at its defaults): the trajectory, a final mean dice of at least
+    OVERFIT_DICE_FLOOR; then the saved ``.npz`` served by
+    ``Predictor``s in bf16, int8 weights-only and int8 with
+    ``quant_calibrate: 1`` (calibrated on the first case): each int8 mean
+    dice within INT8_DICE_TOL of bf16's, the share of binary voxels that
+    differ, and INT8_PER_BATCH s8 launches per volume (one window each)."""
+    from diff_unet_tpu_torch import overfit
+    from diff_unet_tpu_torch.ops.conv3d import conv3x3
+    from diff_unet_tpu_torch.ops.int8 import conv3x3_int8
+
+    npz = work / "overfit.npz"
+    res = overfit.run(device="cuda", out=str(npz))
+    final = res["trajectory"][-1][2]
+    log(f"overfit: {len(res['losses'])} steps and "
+        f"{len(res['trajectory'])} evaluations in {res['seconds']:.1f} s, "
+        f"trajectory (iter, loss, mean dice) {res['trajectory']}")
+    if not (np.isfinite(res["losses"]).all() and final
+            >= OVERFIT_DICE_FLOOR):
+        fail(f"overfit: final mean dice {final} < {OVERFIT_DICE_FLOOR}")
+    images, _, onehot = overfit.make_cases()
+    base = None
+    counts = {}
+    for name, kw in (("bf16", {}), ("int8 weights-only", {"quantize": True}),
+                     ("int8 calibrated", {"quantize": True,
+                                          "quant_calibrate": 1})):
+        pred = overfit.build_predictor(device=dev, model_path=str(npz), **kw)
+        if kw.get("quant_calibrate"):
+            pred.calibrate(images[0])
+        reset({"conv3x3": conv3x3, "conv3x3_int8": conv3x3_int8})
+        t0 = time.perf_counter()
+        dices, binaries = overfit.evaluate(pred, images, onehot)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        mean = float(np.mean(dices))
+        msg = f"overfit model served {name}: mean dice {mean:.4f} {dices}, " \
+              f"{sec:.3f} s for {len(images)} volumes"
+        if base is None:
+            base = (mean, dices, binaries)
+            if conv3x3.launches != INT8_PER_BATCH * len(images):
+                fail(f"overfit bf16 serving: {conv3x3.launches} conv "
+                     "launches")
+        else:
+            flips = float(np.mean([(a != b).float().mean().item()
+                                   for a, b in zip(binaries, base[2])]))
+            delta = abs(mean - base[0])
+            msg += (f"; |mean dice - bf16| {delta:.4f} (tol "
+                    f"{INT8_DICE_TOL}), max case delta "
+                    f"{max(abs(a - b) for a, b in zip(dices, base[1])):.4f}"
+                    f", binary voxels differing {flips:.4e}")
+            want = (0, INT8_PER_BATCH * len(images))
+            got = (conv3x3.launches, conv3x3_int8.launches)
+            if got != want or delta > INT8_DICE_TOL:
+                fail(f"overfit {name}: (bf16, s8) launches {got}, "
+                     f"predicted {want}; mean dice {mean:.4f} against "
+                     f"bf16 {base[0]:.4f}")
+            counts[name] = conv3x3_int8.launches
+        log(msg)
+    return {"conv3x3_int8": {"overfit_int8": counts["int8 calibrated"]}}
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card, clock_hz = phase_card()
@@ -3319,6 +3569,7 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     from diff_unet_tpu_torch.ops.conv3d import conv3x3, conv3x3_wgrad
+    from diff_unet_tpu_torch.ops.int8 import conv3x3_int8
     from diff_unet_tpu_torch.ops.window_attention import window_attention
     from diff_unet_tpu_torch.ops.window_partition import (
         partition_windows, reverse_windows)
@@ -3328,6 +3579,7 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
     report.update(phase_attention_backward(dev, clock_hz))
     report.update(phase_shift(dev))
     report.update(phase_conv(dev))
+    report.update(phase_conv_s8(dev))
     report.update(phase_conv_backward(dev))
     phase_conv_msd(dev)
     phase_cout32(dev)
@@ -3350,7 +3602,8 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
             "window_partition": partition_windows,
             "window_reverse": reverse_windows}
     paths = {k: {} for k in (*swin, "shift_windows_backward", "conv3x3",
-                             "conv3x3_dgrad", "conv3x3_wgrad")}
+                             "conv3x3_dgrad", "conv3x3_wgrad",
+                             "conv3x3_int8")}
     for k, v in phase_serve(dev, "btcv", swin, SERVE_PER_BATCH).items():
         paths[k].update(v)
     # 10 TwoConv convs in the encoder, 18 in each of the 10 denoiser steps;
@@ -3361,6 +3614,17 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
                              "conv3x3_wgrad": 0}).items():
         paths[k].update(v)
     paths["conv3x3_dgrad"]["amos_serve"] = 0
+    # W8A8 int8 serving: every 3x3x3 conv on the s8 kernel, none in bf16
+    phase_int8_window(dev)
+    for k, v in phase_serve(dev, "amos", {"conv3x3": conv3x3,
+                                          "conv3x3_int8": conv3x3_int8},
+                            {"conv3x3": 0, "conv3x3_int8": INT8_PER_BATCH},
+                            path="amos_int8_serve",
+                            shapes=((96, 192, 192),),
+                            quantize=True).items():
+        paths[k].update(v)
+    for k, v in phase_overfit(dev, work).items():
+        paths[k].update(v)
     # SmoothDiffUNet: the same 190 convs per window batch (its layer-norm
     # denoiser's convs bias-only) on one 96x192x192 volume
     for k, v in phase_serve(dev, "amos", {"conv3x3": conv3x3,
@@ -3461,6 +3725,10 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
             "diff_unet_tpu_torch/csrc/conv3d_wgrad.cu",
             "none: the conv's weight gradient, which the JAX package takes "
             "through flax nn.Conv (jax.value_and_grad)"),
+        "conv3x3_int8": (
+            "diff_unet_tpu_torch/csrc/conv3d.cu",
+            "diff_unet_tpu/ops/int8.py:conv_int8 (XLA, no Pallas kernel; "
+            "its rescale :78 fused as the epilogue)"),
     }
     # launches: the first path of LAUNCH_ORDER on which the kernel ran,
     # this slice's path (continuous serving) first

@@ -77,11 +77,18 @@
 //
 // float32 runs a true-fp32 FFMA implicit GEMM (64x64 tiles, 4x4 per
 // thread, no TF32), with weights as (Cout_pad, K_pad), k = tap * Cin + ci.
+//
+// int8 (conv3d_s8_kernel, the W8A8 serving path, see the s8 section) runs
+// the same implicit GEMM on int8 parts and weights with mma.sync s8 and a
+// dequantize epilogue; it replaces no Pallas kernel (the JAX package's
+// ops/int8.py conv_int8 is XLA).
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -401,6 +408,224 @@ conv3d_f32_kernel(const ConvArgs a) {
     }
   __syncthreads();
   store_and_stats<float, BM, BN, LDC>(a, cs, m0, n0);
+}
+
+// ---------------------------------------------------------------- s8 path
+// W8A8 serving (no Pallas kernel: the JAX package's ops/int8.py conv_int8 +
+// rescale, which XLA compiles): int8 parts, int8 weights, int32 sums, and
+//
+//   out = T(f32(acc) * (sa * sw[co]) + bias[co])       (T bf16 or f32), or
+//   out = acc                                           (T int32, raw)
+//
+// with the statistics of the f32 value, as the bf16 path takes them. The
+// rounding points are the plain version's (ops/int8.py rescale), bit for
+// bit: acc -> f32 by __int2float_rn (round to nearest), the product sa * sw
+// first, then __fmul_rn and __fadd_rn, which nvcc may not contract into an
+// FMA. The activations are quantized before the call (round half to even,
+// in tensor code), so the kernel never rounds to int8 itself.
+//
+// Design: the fp32 path's implicit GEMM (k = tap * cin + ci, 128-row tiles
+// of flat output voxels x 64 output channels), with 64 k a stage (16 bytes
+// of each row per loader thread, the next stage loaded into registers while
+// the current one is multiplied) and mma.sync.m16n8k32 s8 x s8 -> s32 on
+// the tensor cores: 8 warps of 32 x 32 outputs. Both operands sit K-major
+// in shared memory with rows padded to 80 bytes, so the fragment loads
+// (4 bytes at row g, column 4 t) hit 32 distinct banks. What bounds it on
+// an H100: operations at the 64+ channel levels (int8 peak 1979 TOP/s);
+// this first kernel is bounded by its own loads long before that.
+namespace s8 {
+constexpr int BM = 128, BN = 64, BK = 64;
+constexpr int LDS = BK + 16;          // bytes per shared-memory row
+constexpr int LDC = BN + 4;
+constexpr int SMEM_AB = 2 * (BM + BN) * LDS;
+constexpr int SMEM_C = BM * LDC * 4;
+constexpr int SMEM = SMEM_AB > SMEM_C ? SMEM_AB : SMEM_C;
+}  // namespace s8
+
+struct QArgs {
+  ConvArgs c;                   // parts, wt (cout_pad, k_pad) int8, bias, out
+  const float* sa;              // () activation scale, on the device
+  const float* sw;              // (cout) weight scales
+};
+
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// 16 consecutive k of one output row. VEC: every part's channel count is a
+// multiple of 16 and its pointer 16-byte aligned, so the 16 values are one
+// tap and one part (one vector load). Otherwise each is gathered, the tap
+// advanced as the channel wraps.
+template <bool VEC>
+__device__ __forceinline__ uint4 load_a_s8(const ConvArgs& a, const Row& r,
+                                           int k0) {
+  union {
+    uint4 u;
+    int8_t e[16];
+  } v;
+  v.u = make_uint4(0, 0, 0, 0);
+  if (r.vox < 0 || k0 >= a.k_total) return v.u;
+  KPos p = decode_k(a, k0);
+  if (VEC) {
+    if (inside(a, r, p))
+      v.u = *reinterpret_cast<const uint4*>(
+          elem_ptr<int8_t>(a, tap_vox(a, r, p), p.ci));
+    return v.u;
+  }
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    if (k0 + e >= a.k_total) break;
+    if (inside(a, r, p)) v.e[e] = *elem_ptr<int8_t>(a, tap_vox(a, r, p), p.ci);
+    if (++p.ci == a.cin) {
+      p.ci = 0;
+      if (++p.dx > 1) {
+        p.dx = -1;
+        if (++p.dy > 1) {
+          p.dy = -1;
+          ++p.dz;
+        }
+      }
+    }
+  }
+  return v.u;
+}
+
+__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a,
+                                       const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads) conv3d_s8_kernel(const QArgs q) {
+  using namespace s8;
+  const ConvArgs& a = q.c;
+  __shared__ __align__(16) unsigned char smem[SMEM];
+  unsigned char* as = smem;                        // [2][BM][LDS]
+  unsigned char* bs = smem + 2 * BM * LDS;         // [2][BN][LDS]
+  float* cs = reinterpret_cast<float*>(smem);      // [BM][LDC] (epilogue)
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  // loaders: rows lr and lr + 64 of A, row lr of B, 16 bytes at column 16 lc
+  const int lr = t >> 2, lc = t & 3;
+  const Row r0 = decode_row(a, m0 + lr), r1 = decode_row(a, m0 + lr + 64);
+  const int8_t* wt = static_cast<const int8_t*>(a.wt) +
+                     (long long)(n0 + lr) * a.k_pad + lc * 16;
+  // warp (wm, wn) owns rows 32 wm .. +32 and columns 32 wn .. +32
+  const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, tq = lane & 3;
+  int acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  auto store = [&](int buf, const uint4& x0, const uint4& x1,
+                   const uint4& y) {
+    unsigned char* A = as + buf * BM * LDS + lc * 16;
+    *reinterpret_cast<uint4*>(A + lr * LDS) = x0;
+    *reinterpret_cast<uint4*>(A + (lr + 64) * LDS) = x1;
+    *reinterpret_cast<uint4*>(bs + (buf * BN + lr) * LDS + lc * 16) = y;
+  };
+
+  const int kt_n = a.k_pad / BK;
+  uint4 ra0 = load_a_s8<VEC>(a, r0, lc * 16);
+  uint4 ra1 = load_a_s8<VEC>(a, r1, lc * 16);
+  uint4 rb = *reinterpret_cast<const uint4*>(wt);
+  store(0, ra0, ra1, rb);
+  __syncthreads();
+  for (int kt = 0; kt < kt_n; ++kt) {
+    const int cur = kt & 1;
+    const bool more = kt + 1 < kt_n;
+    if (more) {
+      const int k0 = (kt + 1) * BK;
+      ra0 = load_a_s8<VEC>(a, r0, k0 + lc * 16);
+      ra1 = load_a_s8<VEC>(a, r1, k0 + lc * 16);
+      rb = *reinterpret_cast<const uint4*>(wt + k0);
+    }
+    const unsigned char* A = as + cur * BM * LDS;
+    const unsigned char* B = bs + cur * BN * LDS;
+#pragma unroll
+    for (int ks = 0; ks < BK / 32; ++ks) {
+      uint32_t af[2][4], bf[4][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const unsigned char* p =
+            A + (wm * 32 + i * 16 + g) * LDS + ks * 32 + tq * 4;
+        af[i][0] = lds32(p);
+        af[i][1] = lds32(p + 8 * LDS);
+        af[i][2] = lds32(p + 16);
+        af[i][3] = lds32(p + 8 * LDS + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned char* p = B + (wn * 32 + j * 8 + g) * LDS + ks * 32 +
+                                 tq * 4;
+        bf[j][0] = lds32(p);
+        bf[j][1] = lds32(p + 16);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bf[j]);
+    }
+    if (more) store(cur ^ 1, ra0, ra1, rb);
+    __syncthreads();
+  }
+
+  // accumulator (i, j, e): row 32 wm + 16 i + g + 8 (e >> 1), column
+  // 32 wn + 8 j + 2 tq + (e & 1)
+  if constexpr (std::is_same<T, int>::value) {
+    int* ci = reinterpret_cast<int*>(smem);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ci[(wm * 32 + i * 16 + g + 8 * (e >> 1)) * LDC + wn * 32 + j * 8 +
+             2 * tq + (e & 1)] = acc[i][j][e];
+    __syncthreads();
+    int* out = static_cast<int*>(a.out);
+    for (int idx = t; idx < BM * BN; idx += kThreads) {
+      const int r = idx / BN, c = idx - r * BN;
+      const long long m = m0 + r;
+      if (m < a.m_total && n0 + c < a.cout)
+        out[m * a.cout + n0 + c] = ci[r * LDC + c];
+    }
+  } else {
+    const float sa = *q.sa;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int col = wn * 32 + j * 8 + 2 * tq + e1, co = n0 + col;
+        float scale = 0.f, b = 0.f;
+        if (co < a.cout) {
+          scale = __fmul_rn(sa, q.sw[co]);
+          if (a.bias != nullptr) b = a.bias[co];
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e0 = 0; e0 < 2; ++e0)
+            cs[(wm * 32 + i * 16 + g + 8 * e0) * LDC + col] = __fadd_rn(
+                __fmul_rn(__int2float_rn(acc[i][j][2 * e0 + e1]), scale), b);
+      }
+    __syncthreads();
+    store_and_stats<T, BM, BN, LDC>(a, cs, m0, n0);
+  }
 }
 
 // ---------------------------------------------------------------- bf16 path
@@ -1192,5 +1417,80 @@ extern "C" int conv3x3_bf16_forward(
   if (err == cudaSuccess && stats != nullptr)
     err = reduce_stats(a.stats_part, static_cast<float*>(stats), n, cout,
                        a.nzb * a.nyb * a.nxb, 0, 0, s);
+  return (int)err;
+}
+
+// W8A8 int8 (mma.sync s8). Parts and wt are int8; wt is (cout_pad, k_pad)
+// with k = tap * cin + ci, k_pad a multiple of 64 and cout_pad of 64, zero
+// padded. out_kind 0: out is the raw int32 sums (sa, sw, bias, stats
+// unused); 1: float32; 2: bfloat16, each f32(acc) * (sa * sw[co]) +
+// bias[co] with sa a device scalar. stats (n, 2, cout) needs stats_part,
+// (ceil(n * d * h * w / 128) + n, 2, cout) f32 slots. Returns the
+// cudaError_t of the launches (0 on success).
+extern "C" int conv3x3_s8_forward(
+    const void* p0, const void* p1, const void* p2, const void* p3, int c0,
+    int c1, int c2, int c3, int nparts, const void* wt, const void* sa,
+    const void* sw, const void* bias, int out_kind, void* out, void* stats,
+    void* stats_part, int n, int d, int h, int w, int cout, int k_pad,
+    int cout_pad, void* stream) {
+  QArgs q;
+  ConvArgs& a = q.c;
+  memset(&q, 0, sizeof(q));
+  const void* ps[kMaxParts] = {p0, p1, p2, p3};
+  const int cs[kMaxParts] = {c0, c1, c2, c3};
+  if (nparts < 1 || nparts > kMaxParts || out_kind < 0 || out_kind > 2)
+    return (int)cudaErrorInvalidValue;
+  bool vec = true;
+  int off = 0;
+  for (int i = 0; i < kMaxParts; ++i) {
+    const bool used = i < nparts;
+    a.part[i] = used ? ps[i] : ps[0];
+    a.part_c[i] = used ? cs[i] : 0;
+    a.part_off[i] = off;
+    if (used) {
+      vec = vec && cs[i] % 16 == 0 && aligned16(ps[i]);
+      off += cs[i];
+    }
+  }
+  a.nparts = nparts;
+  a.wt = wt;
+  a.bias = static_cast<const float*>(bias);
+  a.out = out;
+  a.stats_part = static_cast<float*>(stats_part);
+  a.n = n;
+  a.d = d;
+  a.h = h;
+  a.w = w;
+  a.cin = off;
+  a.cout = cout;
+  a.k_total = 27 * off;
+  a.k_pad = k_pad;
+  a.spatial = d * h * w;
+  a.m_total = (long long)n * d * h * w;
+  q.sa = static_cast<const float*>(sa);
+  q.sw = static_cast<const float*>(sw);
+  if (a.m_total == 0) return (int)cudaSuccess;
+  if (k_pad % s8::BK || k_pad < a.k_total || cout_pad % s8::BN ||
+      cout_pad < cout || (stats == nullptr) != (stats_part == nullptr) ||
+      (out_kind == 0 && stats != nullptr) ||
+      (out_kind != 0 && (sa == nullptr || sw == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)((a.m_total + s8::BM - 1) / s8::BM),
+                  cout_pad / s8::BN);
+  auto launch = [&](auto kernel) { kernel<<<grid, kThreads, 0, s>>>(q); };
+  if (out_kind == 0)
+    vec ? launch(conv3d_s8_kernel<int, true>)
+        : launch(conv3d_s8_kernel<int, false>);
+  else if (out_kind == 1)
+    vec ? launch(conv3d_s8_kernel<float, true>)
+        : launch(conv3d_s8_kernel<float, false>);
+  else
+    vec ? launch(conv3d_s8_kernel<__nv_bfloat16, true>)
+        : launch(conv3d_s8_kernel<__nv_bfloat16, false>);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && stats != nullptr)
+    err = reduce_stats(a.stats_part, static_cast<float*>(stats), n, cout, 0,
+                       a.spatial, s8::BM, s);
   return (int)err;
 }

@@ -27,6 +27,13 @@ best-checkpoint gate, ``epoch_{n}.pt`` every ``save_freq`` and resume from
 run on ``device`` (default ``cuda``) and raise where there is no card
 unless the caller asks for ``device="cpu"``.
 
+``quantize`` serves ``diff_unet`` W8A8 int8 (``ops/int8.py``): the
+Predictor records the int8 kernels at build and ``calibrate(volume)``
+records static activation scales from the first ``quant_calibrate`` ROI
+windows of a volume; the Tester calibrates on its first validation case
+when ``quant_calibrate`` > 0; otherwise each conv takes a dynamic scale
+over its window batch. Training raises on it, as in the JAX engine.
+
 Precision follows ``use_amp``: true computes in bf16 with float32
 parameters, float32 norm/softmax statistics and a float32 DDIM state and
 loss. The engine turns TF32 off for both cuBLAS matmuls and cuDNN
@@ -71,12 +78,10 @@ from diff_unet_tpu_torch.utils.weights import init_random
 
 # Config keys of the JAX engine that concern logging services, the TPU
 # mesh and compile cache, or only training; the engines accept and ignore
-# them (the Trainer consumes its training keys itself). ``quant_calibrate``
-# is read only under ``quantize``, which raises.
+# them (the Trainer consumes its training keys itself).
 _IGNORED_KEYS = frozenset((
     "data_name", "losses", "loss_combine", "wandb_name", "use_cache",
-    "mode", "compile_cache", "num_devices", "spatial_shards",
-    "quant_calibrate", "noise_ratio",
+    "mode", "compile_cache", "num_devices", "spatial_shards", "noise_ratio",
 ))
 # keys of the shared test configs that only the Tester reads
 TESTER_KEYS = ("save_volumes", "continuous")
@@ -118,7 +123,8 @@ class Engine:
                  features: Optional[Sequence[int]] = None,
                  use_amp: bool = True, seed: int = 123,
                  sw_mode: str = "constant", pack: Optional[int] = None,
-                 quantize: bool = False, model_path: Optional[str] = None,
+                 quantize: bool = False, quant_calibrate: int = 0,
+                 model_path: Optional[str] = None,
                  use_ema: bool = False, epoch: Optional[int] = None,
                  project_name: Optional[str] = None,
                  log_dir: str = "logs", use_wandb: bool = False,
@@ -131,9 +137,6 @@ class Engine:
         if pack not in (None, 1):
             raise ValueError("channel packing (pack > 1) is a TPU layout; "
                              "the port runs unpacked")
-        if quantize:
-            raise NotImplementedError("W8A8 inference is not ported yet "
-                                      "(ROADMAP.md, int8 inference)")
         if use_wandb:
             raise NotImplementedError("wandb logging is not ported")
         if use_ema and model_path is None:
@@ -164,11 +167,14 @@ class Engine:
                             else {i + 1: str(i + 1) for i in range(13)})
         self.num_classes = len(self.class_names)
         self.dtype = torch.bfloat16 if use_amp else None
+        self.quantize = bool(quantize)
+        self.quant_calibrate = int(quant_calibrate)
+        self._act_calibrated = False
 
         self.module = create_model(
             model_name, out_channels=self.num_classes, image_size=image_size,
             spatial_size=spatial_size, feature_size=feature_size,
-            features=features, dtype=self.dtype)
+            features=features, dtype=self.dtype, quantize=self.quantize)
         init_random(self.module, seed)
         self.epoch = epoch or 0
         if model_path is not None:
@@ -246,6 +252,32 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # ---- W8A8 serving preparation ----
+    def _offline_quantize(self, calibration_images=None) -> None:
+        """Record the module's int8 kernels, and static activation scales
+        when calibration window batches are given (``engine/quantize.py``,
+        noise from the engine seed); each call starts again from the float
+        weights, so a later ``calibrate`` re-records everything."""
+        from diff_unet_tpu_torch.engine.quantize import \
+            quantize_inference_params
+        quantize_inference_params(self, calibration_images, seed=self.seed)
+        self._act_calibrated = calibration_images is not None
+
+    def _calibration_windows(self, volume: torch.Tensor
+                             ) -> List[torch.Tensor]:
+        """The first ``quant_calibrate`` (at least one) ROI windows of a
+        volume (D, H, W, 1), zero-padded to the ROI, as one window batch."""
+        roi = self._inferer.roi
+        volume = torch.as_tensor(volume).to(self.device, torch.float32)
+        pads = [max(0, r - s) for r, s in zip(roi, volume.shape[:3])]
+        if any(pads):
+            volume = torch.nn.functional.pad(
+                volume, (0, 0, 0, pads[2], 0, pads[1], 0, pads[0]))
+        starts = self._inferer._starts(tuple(volume.shape[:3]))
+        starts = starts[:max(1, self.quant_calibrate)]
+        return [torch.stack([volume[d:d + roi[0], h:h + roi[1], w:w + roi[2]]
+                             for d, h, w in starts])]
+
     # ---- inference ----
     @torch.inference_mode()
     def infer(self, volume: torch.Tensor
@@ -322,6 +354,18 @@ class Predictor(Engine):
     def __init__(self, **kwargs) -> None:
         super().__init__(**kwargs)
         self.module.eval().requires_grad_(False)
+        if self.quantize:
+            # weights only; calibrate(volume) records static scales
+            self._offline_quantize()
+
+    def calibrate(self, volume: torch.Tensor) -> None:
+        """Record static activation scales from a representative volume
+        (D, H, W, 1): its first ``quant_calibrate`` windows (at least
+        one)."""
+        if not self.quantize:
+            raise ValueError("calibrate() needs quantize=True")
+        self.quant_calibrate = max(self.quant_calibrate, 1)
+        self._offline_quantize(self._calibration_windows(volume))
 
     @classmethod
     def from_config(cls, path, **overrides) -> "Predictor":
@@ -365,6 +409,13 @@ class Tester(Engine):
         self.logger = MetricLogger(log_dir=log_dir)
         self.logger.start_case_table(self.class_names)
         self.log_dir = Path("logs") / log_dir
+        if self.quantize:
+            calib = None
+            if self.quant_calibrate > 0:
+                batch = next(iter(self.dataloader["val"]))
+                calib = self._calibration_windows(
+                    torch.from_numpy(batch["image"][0]))
+            self._offline_quantize(calib)
 
     @classmethod
     def from_config(cls, path, **overrides) -> "Tester":
@@ -535,6 +586,9 @@ class Trainer(Engine):
                  t_sampler: str = "uniform", model_name: str = "diff_unet",
                  model_path: Optional[str] = None, log_dir: str = "logs",
                  **kwargs) -> None:
+        if kwargs.get("quantize"):
+            raise ValueError("quantize=true is an inference-only option "
+                             "(use it with test.py / predict.py)")
         if train_data is None and kwargs.get("data_path") is None:
             raise ValueError("Trainer needs data_path (a directory holding "
                              "a Decathlon dataset.json) or train_data (an "

@@ -4,7 +4,10 @@
 Channel-last (NDHWC); LeakyReLU slope 0.1; instance norm (the denoiser
 also layer norm, ``norm="layer"``); default features (64, 64, 128, 256,
 512, 64). Every 3x3x3 conv runs on the conv kernel through ``TwoConv``
-(``ops/conv3d.py``). Submodule names follow the flax scopes.
+(``ops/conv3d.py``), or with ``quantize`` W8A8 on its s8 instance
+(``ops/int8.py``), as are the UpCat transposed convs; the 1x1 logits conv
+stays float, as in the JAX package. Submodule names follow the flax
+scopes.
 """
 from __future__ import annotations
 
@@ -24,15 +27,18 @@ class BasicUNetEncoder(nn.Module):
 
     def __init__(self, features: Sequence[int] = DEFAULT_FEATURES,
                  in_channels: int = 1, negative_slope: float = 0.1,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 quantize: bool = False):
         super().__init__()
         fea = tuple(features)
         self.conv_0 = TwoConv(in_channels, fea[0], use_temb=False,
-                              negative_slope=negative_slope, dtype=dtype)
+                              negative_slope=negative_slope, dtype=dtype,
+                              quantize=quantize)
         for i in range(1, 5):
             self.add_module(f"down_{i}", Down(
                 fea[i - 1], fea[i], use_temb=False,
-                negative_slope=negative_slope, dtype=dtype))
+                negative_slope=negative_slope, dtype=dtype,
+                quantize=quantize))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         outs = [self.conv_0([x])]
@@ -51,10 +57,12 @@ class BasicUNetDenoiser(nn.Module):
     def __init__(self, out_channels: int, in_channels: int,
                  features: Sequence[int] = DEFAULT_FEATURES,
                  negative_slope: float = 0.1, norm: str = "instance",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 quantize: bool = False):
         super().__init__()
         fea = tuple(features)
-        kw = dict(negative_slope=negative_slope, norm=norm, dtype=dtype)
+        kw = dict(negative_slope=negative_slope, norm=norm, dtype=dtype,
+                  quantize=quantize)
         self.temb = TimestepEmbedder(dtype=dtype)
         self.conv_0 = TwoConv(in_channels, fea[0], **kw)
         for i in range(1, 5):

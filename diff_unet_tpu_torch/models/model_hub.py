@@ -1,7 +1,8 @@
 """Model factory and model types (counterpart of
 ``diff_unet_tpu/models/model_hub.py``): every model family of the JAX
-package's factory; its ``pack``, ``remat`` and ``quantize`` switches are
-not ported."""
+package's factory, with its ``quantize`` switch for ``diff_unet`` (W8A8
+int8 serving); its ``pack`` and ``remat`` switches are TPU layout and
+memory work and are not ported."""
 from __future__ import annotations
 
 import enum
@@ -46,17 +47,30 @@ def create_model(model_name: str, *, in_channels: int = 1,
                  out_channels: int, image_size: int = 96,
                  spatial_size: int = 96, feature_size: int = 48,
                  features: Optional[Sequence[int]] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 quantize: bool = False):
     """Build a model module by name. ``features`` sets the six level
     widths of DiffUNet and SmoothDiffUNet (default (64, 64, 128, 256, 512,
     64)) and the level widths of AttentionDiffUNet (default (32, 64, 128,
     256, 512)); SmoothDiffUNet's smoothing weights take the (spatial_size,
-    image_size, image_size) window's shape."""
+    image_size, image_size) window's shape. ``quantize`` builds DiffUNet
+    for W8A8 int8 serving; the JAX package also quantizes DiffSwinUNETR's
+    UNETR blocks, which the port does not yet (ROADMAP.md queue 1), and no
+    other family."""
+    if quantize and model_name not in ("diff_unet", "diff_swin_unetr"):
+        raise ValueError(
+            f"quantize=True is only supported for diff_unet and "
+            f"diff_swin_unetr (got {model_name}); W8A8 int8 inference "
+            "covers their conv stacks (ops/int8.py)")
+    if quantize and model_name == "diff_swin_unetr":
+        raise NotImplementedError(
+            "quantize=True for diff_swin_unetr (its int8 UNETR blocks) is "
+            "not ported yet (ROADMAP.md queue 1, int8 UNETR blocks)")
     kw = {"features": tuple(features)} if features else {}
     if model_name == "diff_unet":
         from diff_unet_tpu_torch.models.diff_unet import DiffUNet
         return DiffUNet(out_channels=out_channels, in_channels=in_channels,
-                        dtype=dtype, **kw)
+                        dtype=dtype, quantize=quantize, **kw)
     if model_name == "smooth_diff_unet":
         from diff_unet_tpu_torch.models.smooth_diff_unet import \
             SmoothDiffUNet

@@ -6,14 +6,16 @@ Counterparts of ``flax.linen`` ``Dense``/``Conv``/``ConvTranspose``/
 ``BatchStatsNorm``, flax's default ``nn.LayerNorm`` over channels
 (``ChannelLayerNorm``), and the DiffUNet blocks ``ConvNormAct``,
 ``TwoConv``, ``Down``, ``UpCat`` with instance or layer norm and
-LeakyReLU), and ``scale_shift_relu``, the batch norm's per-channel affine
-and ReLU on a conv's output. Parameters
+LeakyReLU, and their W8A8 int8 execution, ``quantize``), and
+``scale_shift_relu``, the batch norm's per-channel affine and ReLU on a
+conv's output. Parameters
 are float32; ``dtype`` is the compute dtype (bf16 under ``use_amp``), to
 which inputs and weights are cast at each call, as flax does. ``None``
 computes in the promoted dtype of input and weights.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -23,6 +25,8 @@ from torch import nn
 
 from diff_unet_tpu_torch.ops.conv3d import _acc_dtype, conv3x3, \
     norm_affine_from_stats
+from diff_unet_tpu_torch.ops.int8 import act_scale, conv3x3_int8, \
+    deconv2_int8, quantize_act, quantize_kernel
 
 TEMB_DIM = 128
 TEMB_FEATURES = 512
@@ -358,26 +362,93 @@ class ChannelLayerNorm(nn.Module):
             self.dtype or x.dtype)
 
 
+# ---- W8A8 int8 state (the JAX package's flax "quant" collection) ----
+#
+# A quantized conv keeps its recorded state in non-persistent buffers named
+# after the JAX package's sow names: ``wq`` (the int8 kernel, in the float
+# kernel's layout), ``sw`` (its (Cout,) float32 scales) and ``sa`` (the
+# static activation scale) on ``ConvNormAct``; ``up_wq``, ``up_sw`` and
+# ``up_sa`` on ``UpCat`` for its transposed conv. Checkpoints never carry
+# them. Unrecorded, each forward quantizes the kernel and takes a dynamic
+# scale in the graph; ``engine/quantize.py`` records them.
+
+
+def _quant_init(mod: nn.Module, prefix: str) -> None:
+    for name in ("wq", "sw", "sa"):
+        mod.register_buffer(prefix + name, None, persistent=False)
+    # while calibrating: {prefix: max dynamic scale seen}, else None
+    mod.calibration = None
+
+
+def quant_weights(mod: nn.Module, prefix: str, weight: torch.Tensor,
+                  out_axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recorded (int8 kernel, scales), or the kernel quantized now."""
+    wq = getattr(mod, prefix + "wq")
+    if wq is not None:
+        return wq, getattr(mod, prefix + "sw")
+    return quantize_kernel(weight, out_axis)
+
+
+def quant_act_scale(mod: nn.Module, prefix: str,
+                    parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The recorded static scale, or the dynamic one of these parts (one
+    scale over their concat), which a calibration pass keeps the max of."""
+    sa = getattr(mod, prefix + "sa")
+    if sa is not None:
+        return sa
+    sa = act_scale(parts)
+    if mod.calibration is not None:
+        seen = mod.calibration.get(prefix)
+        mod.calibration[prefix] = sa if seen is None else torch.maximum(
+            seen, sa)
+    return sa
+
+
+def quant_sites(module: nn.Module):
+    """(owner, prefix, float kernel, Cout axis) of every int8 conv of
+    ``module``."""
+    for m in module.modules():
+        if isinstance(m, ConvNormAct) and m.quantize:
+            yield m, "", m.conv.weight, 0
+        elif isinstance(m, UpCat) and m.quantize:
+            yield m, "up_", m.upsample.weight, 1
+
+
 class ConvNormAct(nn.Module):
     """Conv3D(k3, same, bias) -> norm -> LeakyReLU, unfused (MONAI 'NDA'
     order); ``norm`` is "instance" (``InstanceNorm``) or "layer"
     (``ChannelLayerNorm``), both in scope ``norm``. ``TwoConv`` runs these
     parameters through the conv kernel; this composition is the reference
-    it is held against."""
+    it is held against. ``quantize`` adds the int8 state (``wq``, ``sw``,
+    ``sa``) and ``conv_int8``."""
 
     def __init__(self, in_features: int, features: int,
                  negative_slope: float = 0.1, norm: str = "instance",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 quantize: bool = False):
         super().__init__()
         if norm not in NORMS:
             raise NotImplementedError(f"norm {norm!r} (ported: {NORMS})")
         self.negative_slope = negative_slope
+        self.quantize = quantize
         self.conv = Conv(in_features, features, 3, dtype=dtype)
         self.norm = (InstanceNorm if norm == "instance"
                      else ChannelLayerNorm)(features, dtype=dtype)
+        if quantize:
+            _quant_init(self, "")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.leaky_relu(self.norm(self.conv(x)), self.negative_slope)
+
+    def conv_int8(self, parts: Sequence[torch.Tensor],
+                  out_dtype: torch.dtype):
+        """W8A8 conv of the parts' concat: one activation scale over all
+        parts, each quantized in its dtype; (y in ``out_dtype``, its (N,
+        2, Cout) statistics)."""
+        wq, sw = quant_weights(self, "", self.conv.weight, 0)
+        sa = quant_act_scale(self, "", parts)
+        return conv3x3_int8([quantize_act(p, sa) for p in parts], wq, sa, sw,
+                            self.conv.bias, out_dtype, with_stats=True)
 
 
 class TwoConv(nn.Module):
@@ -394,21 +465,34 @@ class TwoConv(nn.Module):
     voxel over the channels, which neither the kernel's statistics nor its
     per-(sample, channel) prologue can give: each conv runs with its bias
     only, and ``layer_norm_act`` takes the norm, the activation and the
-    FiLM add in tensor code, rounded where the JAX package rounds."""
+    FiLM add in tensor code, rounded where the JAX package rounds.
+
+    ``quantize`` (inference, instance norm) runs both convs W8A8 on the s8
+    conv kernel (``ConvNormAct.conv_int8``), as the JAX package's quantized
+    ``ConvNormAct`` does: conv_0 (with statistics) -> norm, LeakyReLU and
+    FiLM add materialized in the compute dtype -> one activation scale ->
+    conv_1 (with statistics) -> norm -> LeakyReLU. The input parts are
+    quantized in their promoted dtype, as the JAX package quantizes their
+    concat, uncast."""
 
     def __init__(self, in_features: int, features: int, use_temb: bool = True,
                  negative_slope: float = 0.1, norm: str = "instance",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 quantize: bool = False):
         super().__init__()
+        if quantize and norm != "instance":
+            raise NotImplementedError("W8A8 int8 runs the instance-norm "
+                                      "TwoConv only")
         self.dtype = dtype
         self.negative_slope = negative_slope
         self.norm = norm
+        self.quantize = quantize
         self.conv_0 = ConvNormAct(in_features, features, negative_slope,
-                                  norm, dtype=dtype)
+                                  norm, dtype=dtype, quantize=quantize)
         self.temb_proj = (Dense(TEMB_FEATURES, features, dtype=dtype)
                           if use_temb else None)
         self.conv_1 = ConvNormAct(features, features, negative_slope, norm,
-                                  dtype=dtype)
+                                  dtype=dtype, quantize=quantize)
 
     def forward(self, parts: Union[torch.Tensor, List[torch.Tensor]],
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -416,11 +500,18 @@ class TwoConv(nn.Module):
             parts = [parts]
         c0, c1 = self.conv_0, self.conv_1
         slope = self.negative_slope
-        dt = _compute_dtype(self.dtype, parts[0], c0.conv.weight)
-        parts = [p.to(dt).contiguous() for p in parts]
         film = None
         if self.temb_proj is not None and temb is not None:
             film = self.temb_proj(swish(temb))
+        if self.quantize:
+            # quantized in the parts' promoted dtype, the JAX concat's, and
+            # computed in ``dtype`` or that one, as the JAX rescale outputs
+            pdt = functools.reduce(torch.promote_types,
+                                   [p.dtype for p in parts])
+            return self._forward_int8([p.to(pdt) for p in parts], film,
+                                      self.dtype or pdt)
+        dt = _compute_dtype(self.dtype, parts[0], c0.conv.weight)
+        parts = [p.to(dt).contiguous() for p in parts]
         if self.norm == "layer":
             y0 = conv3x3(parts, c0.conv.weight, c0.conv.bias)
             u = layer_norm_act(y0, c0.norm.weight, c0.norm.bias, slope, film)
@@ -441,16 +532,34 @@ class TwoConv(nn.Module):
              + b1.to(dt)[:, None, None, None])
         return F.leaky_relu(y, slope)
 
+    def _forward_int8(self, parts, film, dt):
+        c0, c1 = self.conv_0, self.conv_1
+        slope = self.negative_slope
+        count = math.prod(parts[0].shape[1:4])
+
+        def norm_act(conv, y, stats):
+            # InstanceNorm's affine rounded to the compute dtype, applied in it
+            a, b = norm_affine_from_stats(stats, conv.norm.weight,
+                                          conv.norm.bias, count)
+            return F.leaky_relu(y * a.to(dt)[:, None, None, None]
+                                + b.to(dt)[:, None, None, None], slope)
+
+        u = norm_act(c0, *c0.conv_int8(parts, dt))
+        if film is not None:
+            u = u + film.to(dt)[:, None, None, None]
+        return norm_act(c1, *c1.conv_int8([u], dt))
+
 
 class Down(nn.Module):
     """2x max-pool, then TwoConv (scope ``convs``)."""
 
     def __init__(self, in_features: int, features: int, use_temb: bool = True,
                  negative_slope: float = 0.1, norm: str = "instance",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 quantize: bool = False):
         super().__init__()
         self.convs = TwoConv(in_features, features, use_temb, negative_slope,
-                             norm, dtype=dtype)
+                             norm, dtype=dtype, quantize=quantize)
 
     def forward(self, x: torch.Tensor,
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -461,20 +570,34 @@ class Down(nn.Module):
 class UpCat(nn.Module):
     """2x transposed conv (scope ``upsample``), replicate-pad to the skip's
     shape where it has odd edges, then TwoConv over [skip, upsampled]
-    (scope ``convs``)."""
+    (scope ``convs``). ``quantize`` runs the transposed conv W8A8
+    (``deconv2_int8``, state ``up_wq``, ``up_sw``, ``up_sa``) and the
+    TwoConv quantized."""
 
     def __init__(self, in_features: int, skip_features: int,
                  up_features: int, features: int, use_temb: bool = True,
                  negative_slope: float = 0.1, norm: str = "instance",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 quantize: bool = False):
         super().__init__()
+        self.quantize = quantize
         self.upsample = ConvTranspose(in_features, up_features, dtype=dtype)
         self.convs = TwoConv(skip_features + up_features, features, use_temb,
-                             negative_slope, norm, dtype=dtype)
+                             negative_slope, norm, dtype=dtype,
+                             quantize=quantize)
+        if quantize:
+            _quant_init(self, "up_")
 
     def forward(self, x: torch.Tensor, x_skip: torch.Tensor,
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x0 = self.upsample(x)
+        if self.quantize:
+            up = self.upsample
+            wq, sw = quant_weights(self, "up_", up.weight, 1)
+            sa = quant_act_scale(self, "up_", [x])
+            x0 = deconv2_int8(quantize_act(x, sa), wq, sa, sw, up.bias,
+                              _compute_dtype(up.dtype, x, up.weight))
+        else:
+            x0 = self.upsample(x)
         pads = [s - u for s, u in zip(x_skip.shape[1:4], x0.shape[1:4])]
         if any(pads):
             x0 = F.pad(x0.permute(0, 4, 1, 2, 3),

@@ -89,6 +89,11 @@ CONSUMER_THREADS = 256
 CHUNK = 16
 MIN_CTAS = 2 * 132                 # two CTAs for each SM of an H100
 F32_TILE_ROWS = 64                 # output voxels of a float32 kernel tile
+# the int8 kernel's geometry (csrc/conv3d.cu, namespace s8): tiles of
+# S8_TILE_ROWS output voxels x S8_BN output channels, K in stages of S8_K
+S8_TILE_ROWS = 128
+S8_BN = 64
+S8_K = 64
 Prologue = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
                  Optional[float]]
 
@@ -245,15 +250,16 @@ class ConvPlan:
 
 
 def stats_slots(n: int, dims: Sequence[int],
-                plan: Optional[ConvPlan] = None) -> int:
+                plan: Optional[ConvPlan] = None,
+                rows: int = F32_TILE_ROWS) -> int:
     """Slots of the statistics' partial sums (each ``2 * Cout`` floats):
-    one per brick of the bfloat16 ``plan``; in float32 (no plan) one per
-    segment of a sample in a tile of ``F32_TILE_ROWS`` voxels, segment
-    (tile t, sample s) in slot t + s. The kernel adds sample s's slots up
-    in order."""
+    one per brick of the bfloat16 ``plan``; in float32 (no plan; int8 with
+    ``rows`` = ``S8_TILE_ROWS``) one per segment of a sample in a tile of
+    ``rows`` voxels, segment (tile t, sample s) in slot t + s. The kernel
+    adds sample s's slots up in order."""
     if plan is not None:
         return plan.grid[0]
-    return _cdiv(n * dims[0] * dims[1] * dims[2], F32_TILE_ROWS) + n
+    return _cdiv(n * dims[0] * dims[1] * dims[2], rows) + n
 
 
 def conv_plan(n: int, dims: Sequence[int], chans: Sequence[int], cout: int,
@@ -467,6 +473,19 @@ def pack_weight_f32(weight: torch.Tensor) -> torch.Tensor:
     return w
 
 
+def pack_weight_s8(wq: torch.Tensor) -> torch.Tensor:
+    """The s8 kernel's layout (``ops/int8.py``): (Cout_pad, K_pad) int8,
+    k = tap * Cin + ci, K padded to a multiple of ``S8_K`` and Cout of
+    ``S8_BN`` with zeros; each 64-k stage of an output channel is one
+    K-major row of the kernel's B tile."""
+    cout, cin = wq.shape[:2]
+    k = 27 * cin
+    w = torch.zeros((_cdiv(cout, S8_BN) * S8_BN, _cdiv(k, S8_K) * S8_K),
+                    dtype=torch.int8, device=wq.device)
+    w[:cout, :k] = wq.permute(0, 2, 3, 4, 1).reshape(cout, k)
+    return w
+
+
 # (id(weight), transposed) -> (weakref to the weight, key, packed weights)
 _PACKED: dict = {}
 
@@ -476,8 +495,9 @@ def packed_weight(weight: torch.Tensor, dtype: torch.dtype,
                   transposed: bool = False) -> torch.Tensor:
     """``weight`` in the kernel's layout for ``dtype`` (``pack_weight``
     with Cout blocks of ``bn`` for bfloat16, ``pack_weight_f32`` for
-    float32), on ``device``; with ``transposed``, the dgrad weights
-    ``flip_weight(weight)`` instead, kept beside the forward pack. The
+    float32, ``pack_weight_s8`` for an int8 ``weight``), on ``device``;
+    with ``transposed``, the dgrad weights ``flip_weight(weight)``
+    instead, kept beside the forward pack. The
     result is kept while the weight tensor lives and reused while its
     storage, version counter (bumped by every in-place update), dtype,
     device and ``bn`` stay the same. Inference tensors have no version
@@ -494,8 +514,12 @@ def packed_weight(weight: torch.Tensor, dtype: torch.dtype,
     w = weight.detach().to(device, dtype)
     if transposed:
         w = flip_weight(w)
-    packed = pack_weight(w, bn) if dtype == torch.bfloat16 \
-        else pack_weight_f32(w)
+    if dtype == torch.int8:
+        packed = pack_weight_s8(w)
+    elif dtype == torch.bfloat16:
+        packed = pack_weight(w, bn)
+    else:
+        packed = pack_weight_f32(w)
     if key is not None:
         _PACKED[slot] = (
             weakref.ref(weight, lambda _: _PACKED.pop(slot, None)), key,
@@ -522,18 +546,20 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _check_parts(parts: Sequence[torch.Tensor]) -> list:
+def _check_parts(parts: Sequence[torch.Tensor],
+                 dtypes: Tuple[torch.dtype, ...] = (torch.float32,
+                                                    torch.bfloat16)) -> list:
     """The parts' channel counts, after checking that they are CUDA
-    tensors of one supported dtype and (N, D, H, W) and contiguous."""
+    tensors of one of ``dtypes`` and (N, D, H, W) and contiguous."""
     if not parts or len(parts) > MAX_PARTS:
         raise ValueError(f"conv3x3 takes 1 to {MAX_PARTS} parts, got "
                          f"{len(parts)}")
     x0 = parts[0]
     _native.require_cuda(x0, "parts[0]")
     dt, dev = x0.dtype, x0.device
-    if dt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"parts dtype {dt} not supported (float32 or "
-                        "bfloat16)")
+    if dt not in dtypes:
+        raise TypeError(f"parts dtype {dt} not supported "
+                        f"({', '.join(map(str, dtypes))})")
     if x0.dim() != 5:
         raise ValueError(f"parts must be (N, D, H, W, C), got "
                          f"{tuple(x0.shape)}")

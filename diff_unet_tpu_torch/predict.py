@@ -14,11 +14,14 @@ continuous window batching (``predict_many``): loader threads read and
 preprocess the next volumes while the card runs the current batches, and
 a writer thread writes each labelmap as soon as its volume is finished.
 ``key=value`` arguments override the config; ``device=cpu`` runs on the
-CPU (the default is the card).
+CPU (the default is the card). ``quantize=true`` serves W8A8 int8, and
+``quant_calibrate=N`` first records static activation scales from the
+first N windows of the first input.
 """
 from __future__ import annotations
 
 import glob as globlib
+import itertools
 from pathlib import Path
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -55,11 +58,21 @@ def _labelmap(engine, binary: np.ndarray, affine: np.ndarray,
     return labels
 
 
+def _needs_calibration(engine) -> bool:
+    """``quant_calibrate`` > 0 under ``quantize`` and no static scales
+    recorded yet: a datalist-free Predictor calibrates on the first volume
+    it serves (the Tester on its first validation case)."""
+    return (engine.quantize and engine.quant_calibrate > 0
+            and not engine._act_calibrated)
+
+
 def predict_volume(engine, image_path, output_path=None) -> np.ndarray:
     """Serve one NIfTI file; returns the labelmap (D, H, W) int16 on the
     preprocessed (RAS, resampled) grid, written to ``output_path`` when
     given."""
     vol, affine = load_preprocessed(image_path)
+    if _needs_calibration(engine):
+        engine.calibrate(vol)
     _, binarized = engine.infer(vol)
     return _labelmap(engine, binarized.cpu().numpy(), affine, output_path)
 
@@ -130,10 +143,17 @@ def predict_many(engine, image_paths: Sequence, output_paths: Sequence,
                     submitted += 1
                 yield vol
 
+        volumes = stream()
+        if _needs_calibration(engine):
+            # calibrate on the first served volume, then serve it first
+            first = next(volumes)
+            engine.calibrate(first)
+            volumes = itertools.chain([first], volumes)
+
         def on_result(i, logits, binary):
             writes.append(writer.submit(write, i, _host_copy(binary, side)))
 
-        engine.serve_volumes(stream(), seeds=lambda i: engine.seed,
+        engine.serve_volumes(volumes, seeds=lambda i: engine.seed,
                              on_result=on_result)
         for f in writes:
             f.result()

@@ -11,6 +11,7 @@ train step of its training path, on the card.
     python -m diff_unet_tpu_torch.profile_batch smooth_serve [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch smooth_train [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch attention_serve [--out FILE]
+    python -m diff_unet_tpu_torch.profile_batch int8_serve [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch attention_train [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch mim_train [--out FILE]
 
@@ -27,8 +28,9 @@ the same way. ``mim_train`` profiles one HybridMIM pretraining step of
 
 The others build the ``Predictor`` of ``cfg/<data>/test.yaml`` (``swin_unetr``:
 the BTCV config with that model; ``smooth_serve``, ``attention_serve``:
-the AMOS config with ``smooth_diff_unet`` or ``attention_diff_unet``)
-with seeded random weights and run what
+the AMOS config with ``smooth_diff_unet`` or ``attention_diff_unet``;
+``int8_serve``: the AMOS config with ``quantize``, W8A8 int8 with dynamic
+scales) with seeded random weights and run what
 it runs for each window batch: the image embedding and the DDIM loop over
 ``sw_batch_size`` windows of the ROI, or the plain model's one forward
 (stitching excluded). After two warm-up batches it times three batches without the
@@ -41,8 +43,8 @@ top device kernels by summed device time; ``--out`` gets the whole
 ``TwoConv`` blocks (DiffUNet, SmoothDiffUNet; AttentionDiffUNet also from
 ``ConvBNReLU2`` and ``UpConv``) it also counts the 3x3x3 conv operations
 of a batch (forward hooks on the blocks' outputs) and sets them beside
-the conv kernel's device time and the peak of the compute dtype (bf16, or
-float32 FFMA). Needs a CUDA card; it fails without one.
+the conv kernel's device time and the peak of the compute dtype (bf16,
+float32 FFMA, or int8 for a quantized model). Needs a CUDA card; it fails without one.
 """
 from __future__ import annotations
 
@@ -56,7 +58,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 # H100 SXM, dense (NVIDIA data sheet): bf16 tensor cores, float32 FFMA
-PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
+                   torch.int8: 1979e12}
 
 
 def _device_us(evt, self_only: bool) -> float:
@@ -73,7 +76,8 @@ def _device_us(evt, self_only: bool) -> float:
 _CONFIGS = {"btcv": ("btcv", {}), "amos": ("amos", {}), "msd": ("msd", {}),
             "swin_unetr": ("btcv", {"model_name": "swin_unetr"}),
             "smooth": ("amos", {"model_name": "smooth_diff_unet"}),
-            "attention": ("amos", {"model_name": "attention_diff_unet"})}
+            "attention": ("amos", {"model_name": "attention_diff_unet"}),
+            "int8": ("amos", {"quantize": True})}
 
 
 def _window_batch(dev: torch.device, data: str):
@@ -156,6 +160,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("data", choices=(
         "amos", "btcv", "swin_unetr", "smooth_serve", "attention_serve",
+        "int8_serve",
         *(f"{k}_train" for k in _TRAIN), "mim_train"))
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--top", type=int, default=25)
@@ -244,7 +249,8 @@ def main() -> None:
         per = ("forward, dgrad and wgrad" if train else
                f"{conv_flops[0] / pred.sw_batch_size / 1e12:.3f} per "
                "window")
-        dt = (torch.bfloat16 if pred.dtype == torch.bfloat16
+        dt = (torch.int8 if getattr(pred, "quantize", False)
+              else torch.bfloat16 if pred.dtype == torch.bfloat16
               else torch.float32)
         print(f"3x3x3 conv work per {args.data} unit: "
               f"{conv_flops[0] / 1e12:.3f} TFLOP ({per}); conv kernels "

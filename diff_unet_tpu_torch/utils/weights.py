@@ -14,6 +14,10 @@ Port submodules carry the flax scope names, so a flax path
 - LayerNorm / InstanceNorm / BatchStatsNorm scale -> weight
 - relative_position_bias_table, SmoothLayer weights (D, H, W, C),
   FFParser weight_real / weight_imag  -> as is
+
+``load_jax_quant`` carries a JAX ``quant`` collection (the W8A8 state that
+``diff_unet_tpu/engine/quantize.py`` records) into a quantized port model's
+int8 buffers (``ops/blocks.py``), with the same kernel conversions.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from torch import nn
 from diff_unet_tpu_torch.models.smooth_diff_unet import FFParser, \
     SmoothLayer
 from diff_unet_tpu_torch.ops.blocks import BatchStatsNorm, \
-    ChannelLayerNorm, Conv, ConvTranspose, Dense, InstanceNorm, LayerNorm
+    ChannelLayerNorm, Conv, ConvTranspose, Dense, InstanceNorm, LayerNorm, \
+    quant_sites
 from diff_unet_tpu_torch.ops.swin import WindowAttention
 
 NORM_MODULES = (LayerNorm, ChannelLayerNorm, InstanceNorm, BatchStatsNorm)
@@ -152,3 +157,55 @@ def export_jax_params(module: nn.Module, grads: bool = False
             node = node.setdefault(k, {})
         node[key] = np.ascontiguousarray(arr)
     return {"params": tree}
+
+
+def load_jax_quant(module: nn.Module, quant: Mapping) -> nn.Module:
+    """Fill the int8 state of a ``quantize=True`` module from a flax
+    ``quant`` collection (with or without the top-level ``"quant"`` key):
+    ``wq`` = (int8 DHWIO kernel, (Cout,) scales) and ``sa`` of each
+    quantized ``ConvNormAct`` scope, ``up_wq`` and ``up_sa`` of each
+    ``UpCat``. Every int8 conv needs its kernel; the activation scales are
+    all there (calibrated) or none (dynamic). Raises on a key without a
+    counterpart and on a missing one."""
+    if set(quant.keys()) == {"quant"}:
+        quant = quant["quant"]
+    names = {id(m): n for n, m in module.named_modules()}
+    sites = {(names[id(o)], prefix): (o, w)
+             for o, prefix, w, _ in quant_sites(module)}
+    for (_, prefix), (owner, _) in sites.items():
+        setattr(owner, prefix + "sa", None)
+    seen = {"wq": set(), "sa": set()}
+    for path, value in _flatten(quant):
+        scope, leaf = ".".join(path[:-1]), path[-1]
+        prefix = "up_" if leaf.startswith("up_") else ""
+        kind = leaf[len(prefix):]
+        if kind not in seen or (scope, prefix) not in sites:
+            raise KeyError(f"flax quant entry {'/'.join(path)} has no "
+                           "counterpart in the module")
+        owner, weight = sites[(scope, prefix)]
+        dev = weight.device
+        if kind == "sa":
+            setattr(owner, leaf, torch.tensor(float(np.asarray(value)),
+                                              dtype=torch.float32,
+                                              device=dev))
+        else:
+            kq, sw = (np.asarray(v) for v in value)
+            kq = (kq.transpose(4, 3, 0, 1, 2) if prefix == "" else
+                  kq[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2))
+            if kq.shape != tuple(weight.shape) or kq.dtype != np.int8:
+                raise ValueError(f"{'/'.join(path)}: int8 kernel {kq.dtype} "
+                                 f"{kq.shape} for the module's "
+                                 f"{tuple(weight.shape)}")
+            setattr(owner, prefix + "wq", torch.from_numpy(
+                np.ascontiguousarray(kq)).to(dev))
+            setattr(owner, prefix + "sw", torch.tensor(
+                np.asarray(sw, np.float32), device=dev))
+        seen[kind].add((scope, prefix))
+    missing = sorted(set(sites) - seen["wq"])
+    if missing:
+        raise KeyError(f"int8 kernels missing from the flax quant tree: "
+                       f"{missing[:8]}")
+    if seen["sa"] and seen["sa"] != set(sites):
+        raise KeyError("activation scales missing from the flax quant "
+                       f"tree: {sorted(set(sites) - seen['sa'])[:8]}")
+    return module
