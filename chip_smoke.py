@@ -203,19 +203,26 @@ PyTorch built for CUDA. Phases, each of which must pass:
    resident batch and against phase 5d, and the peak memory;
 9. W8A8 int8 serving of DiffUNet (run among the phases above, in this
    order: a right after 3b, b-d after the AMOS serving of 5):
-   a. the s8 instance of the conv kernel against its plain version at
-      every DiffUNet conv of CONV_CASES (N 4, int8 parts and weights over
-      the whole int8 range): the int32 sums and the rescaled bf16 output
-      bit for bit, the statistics within STATS_TOL; times of the kernel,
-      its plain version (a float64 convolution of the int8 values), the
-      bf16 kernel at the same shape and ``torch._int_mm`` on the im2col
-      GEMM's shape (the product alone), and the bound at the int8 peak;
+   a. the s8 instance of the wgmma conv kernel: first its quantize on
+      load value by value (an identity conv over every finite bf16 value,
+      TMA-staged and gathered, and random float32, at S8_QUANT_SCALES,
+      with and without a prologue, against ``quantize_input``); then
+      against its plain version at every DiffUNet conv of CONV_CASES (N
+      4, int8 weights over the whole int8 range) with int8 parts, float
+      parts quantized on load (bf16; the stems also float32) and bf16 y
+      through a random norm prologue: the int32 sums and the rescaled bf16
+      output bit for bit, the statistics within STATS_TOL; times of each
+      mode, the plain version (``quantize_input``, then a float64
+      convolution of the int8 values), the bf16 kernel at the same shape
+      and ``torch._int_mm`` on the im2col GEMM's shape (the product
+      alone), and each mode's bound at the int8 peak;
    b. one AMOS window batch (4 x 96^3, seeded full-width weights) served
       bf16, int8 with dynamic scales and int8 with static scales
       calibrated on the CT's first window: s per batch, DDIM
-      window-steps/s, exactly 190 s8 launches and no bf16 conv launch per
-      int8 batch, each int8 answer's distance from bf16 as a fraction of
-      max |y| and its share of differing binary voxels;
+      window-steps/s, exactly 190 s8 launches, no bf16 conv launch and no
+      weight packed again per timed int8 batch, each int8 answer's
+      distance from bf16 as a fraction of max |y| and its share of
+      differing binary voxels;
    c. ``Predictor(quantize=True)`` serving the 96x192x192 CT (path
       ``amos_int8_serve``, 190 s8 launches per window batch);
    d. the learning check, ``python -m diff_unet_tpu_torch.overfit`` at its
@@ -312,6 +319,9 @@ CONV_REPORT = ("L0 conv_1", torch.bfloat16)   # the kernels line's conv entry
 S8_CASES = [c[:4] for c in CONV_CASES[:15]]
 S8_REPORT = "L0 conv_1"
 INT8_PER_BATCH = 10 + 18 * 10
+# the activation scales of the quantizer's exhaustive check: quotients from
+# far beyond the clamp to a few units, over several binades of the scale
+S8_QUANT_SCALES = (3.0e-3, 0.0173, 0.25, 3.7, 97.0)
 INT8_REPS = 3
 # the learning check (python -m diff_unet_tpu_torch.overfit at its
 # defaults): the final mean dice must reach OVERFIT_DICE_FLOOR (the JAX
@@ -338,7 +348,9 @@ PARTITION_CASES = [("stage1", 48, 48, 7), ("stage2", 24, 96, 7),
 ATTN_GRAD_CASES = [("stage1", 343, 3, 343, True), ("stage2", 64, 6, 343, True),
                    ("stage3", 8, 12, 343, True), ("stage4", 1, 24, 216, False)]
 TRAIN_STEPS = 8
-# the bf16 kernels that must not spill (substrings of their mangled names)
+# the bf16 kernels that must not spill (substrings of their mangled names;
+# "conv3d_wgmma" covers the conv's s8 instances, conv3d_wgmma_kernel<S8Op,
+# ...>, which share its register budget)
 BF16_KERNELS = ("conv3d_wgmma", "attn_fwd_bf16", "attn_bwd_bf16",
                 "conv3d_wgrad_wgmma")
 # per window batch of BTCV serving (1 embed + 10 denoiser Swin passes of 4
@@ -3344,86 +3356,213 @@ def phase_continuous(dev: torch.device, work: Path, swin: dict,
     return paths
 
 
-def phase_conv_s8(dev: torch.device) -> dict:
-    """The s8 conv kernel against its plain version at every S8_CASES shape
-    (N = CONV_N, random int8 parts and weights over the whole int8 range):
-    the raw int32 sums and the rescaled bf16 output without statistics bit
-    for bit, the statistics within STATS_TOL; times of the kernel, its
-    plain version, the bf16 kernel at the same shape and switches, and
-    ``torch._int_mm`` on the im2col GEMM's shape (the product alone), and
-    the bound at the int8 peak."""
+def check_s8_quantizer(dev: torch.device) -> None:
+    """The s8 kernel's quantize on load, value by value: a conv whose
+    kernel is the identity at the centre tap returns each quantized input
+    value as its int32 sum. Every finite bf16 bit pattern (64 channels by
+    TMA into the staging ring, and 16 channels gathered) and 2^20 random
+    float32 values (gathered), at S8_QUANT_SCALES, with and without a
+    random prologue, must give ``quantize_input``'s int8 values exactly."""
     from diff_unet_tpu_torch.ops import int8 as q
-    from diff_unet_tpu_torch.ops.conv3d import STATS_TOL, conv3x3
 
-    g = torch.Generator(device=dev).manual_seed(SEED + 16)
-    report = {}
-    sums = dict(ms=0.0, bf16_ms=0.0, int_mm_ms=0.0, bound_ms=0.0)
-    for tag, chans, cout, side in S8_CASES:
-        shape = (CONV_N, side, side, side)
-        cin = sum(chans)
-        parts = [torch.randint(-127, 128, (*shape, c), generator=g,
-                               device=dev, dtype=torch.int8) for c in chans]
-        wq = torch.randint(-127, 128, (cout, cin, 3, 3, 3), generator=g,
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32, device=dev)
+    allbf = bits.to(torch.int16).view(torch.bfloat16)
+    allbf = torch.where(torch.isfinite(allbf), allbf, torch.zeros_like(allbf))
+    f32 = torch.randn(2 ** 20, generator=g, device=dev) * 30.0
+    inputs = [("all bf16 values, 64 channels",
+               allbf.reshape(1, 4, 16, 16, 64)),
+              ("all bf16 values, 16 channels",
+               allbf.reshape(1, 16, 16, 16, 16)),
+              ("random float32, 16 channels",
+               f32.reshape(16, 16, 16, 16, 16))]
+    checked = 0
+    for name, x in inputs:
+        n, c = x.shape[0], x.shape[-1]
+        wq = torch.zeros((c, c, 3, 3, 3), dtype=torch.int8, device=dev)
+        wq[torch.arange(c), torch.arange(c), 1, 1, 1] = 1
+        for sa in S8_QUANT_SCALES:
+            sa = torch.tensor(sa, device=dev)
+            pro = tuple((torch.randn((n, c), generator=g, device=dev) * sd
+                         + mu).to(x.dtype)
+                        for mu, sd in ((1.0, 0.5), (0.0, 2.0), (0.0, 1.0))
+                        ) + (0.1,)
+            for pr in (None, pro):
+                got = q.conv3x3_int8([x], wq, sa, None, None, torch.int32,
+                                     prologue=pr)
+                want = q.quantize_input([x], sa, pr)[0].to(torch.int32)
+                if not torch.equal(got, want):
+                    bad = (got != want).sum().item()
+                    fail(f"s8 quantize on load, {name}, sa {sa.item():g}, "
+                         f"prologue {pr is not None}: {bad} values differ "
+                         "from quantize_input")
+                checked += x.numel()
+    log(f"s8 quantize on load: {checked} values (every finite bf16 value "
+        f"in both paths, random float32) at scales {S8_QUANT_SCALES}, with "
+        "and without a prologue, equal quantize_input bit for bit")
+
+
+def check_int8_deconv(dev: torch.device) -> None:
+    """The UpCat transposed conv at the AMOS L0 and L3 shapes (N 4):
+    ``deconv2_int8`` on the card (one ``torch._int_mm``, the rescale on its
+    compact output, then the scatter) against its plain version (a float64
+    transposed conv of the int8 values, then the rescale), the raw int32
+    sums and the rescaled bf16 output bit for bit."""
+    from diff_unet_tpu_torch.ops import int8 as q
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    for cin, cout, side in ((128, 64, 48), (512, 256, 6)):
+        xq = torch.randint(-127, 128, (CONV_N, side, side, side, cin),
+                           generator=g, device=dev, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (cin, cout, 2, 2, 2), generator=g,
                            device=dev, dtype=torch.int8)
         sa = torch.tensor(0.02, device=dev)
         sw = 1e-4 + 1e-3 * torch.rand((cout,), generator=g, device=dev)
         b = 0.1 * torch.randn((cout,), generator=g, device=dev)
-        acc = q.conv3x3_int8(parts, wq)
-        want = q.conv3x3_int8_plain(parts, wq)
-        raw_exact = torch.equal(acc, want)
-        y = q.conv3x3_int8(parts, wq, sa, sw, b, torch.bfloat16)
-        y_exact = torch.equal(y, q.rescale(want, sa, sw, b, torch.bfloat16))
-        ys, st = q.conv3x3_int8(parts, wq, sa, sw, b, torch.bfloat16,
-                                with_stats=True)
-        _, wst = q._finish(want, sa, sw, b, torch.bfloat16, True)
-        st_err = (st - wst).abs().max().item()
-        st_tol = STATS_TOL * wst.abs().max().item()
-        err = (acc.double() - want.double()).abs().max().item()
+        want = q.deconv2_int8_plain(xq, wq)
+        raw = torch.equal(q.deconv2_int8(xq, wq), want)
+        y = torch.equal(q.deconv2_int8(xq, wq, sa, sw, b, torch.bfloat16),
+                        q.rescale(want, sa, sw, b, torch.bfloat16))
+        if not (raw and y):
+            fail(f"deconv2_int8 {cin}->{cout} at {CONV_N}x{side}^3: int32 "
+                 f"exact {raw}, rescaled bf16 exact {y}")
+    log("deconv2_int8 at the L0 and L3 UpCat shapes: int32 and rescaled "
+        "bf16 bit for bit")
+
+
+def phase_conv_s8(dev: torch.device) -> dict:
+    """The s8 conv kernel against its plain version at every S8_CASES shape
+    (N = CONV_N, int8 weights over the whole int8 range) in its three input
+    modes: int8 parts over the whole int8 range; float parts with ``sa``,
+    quantized on load (bf16; the stems also float32, the main path's
+    dtype there); and bf16 y through a random norm prologue (a and b
+    rounded to bf16, a film, slope 0.1) with a static ``sa``. In each mode
+    the raw int32 sums and the rescaled bf16 output bit for bit against
+    the plain version (``quantize_input``, then a float64 convolution of
+    the int8 values), the statistics within STATS_TOL; times of each mode
+    and of its plain version (with its statistics), the bf16 kernel at the same shape and switches, and
+    ``torch._int_mm`` on the im2col GEMM's shape (the product alone), and
+    each mode's bound at the int8 peak (its own input bytes)."""
+    from diff_unet_tpu_torch.ops import int8 as q
+    from diff_unet_tpu_torch.ops.conv3d import STATS_TOL, conv3x3
+
+    check_s8_quantizer(dev)
+    check_int8_deconv(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    report = {}
+    sums = dict(ms=0.0, float_ms=0.0, prologue_ms=0.0, bf16_ms=0.0,
+                int_mm_ms=0.0, bound_ms=0.0, prologue_bound_ms=0.0)
+    for tag, chans, cout, side in S8_CASES:
+        shape = (CONV_N, side, side, side)
+        cin = sum(chans)
         name = f"conv3x3_int8 {tag} {chans}->{cout} at {CONV_N}x{side}^3"
-        if not (raw_exact and y_exact and torch.equal(ys, y)
-                and st_err <= st_tol):
-            fail(f"{name} disagrees with its plain version: int32 exact "
-                 f"{raw_exact} (max err {err:.3e}), rescaled exact "
-                 f"{y_exact}, stats err {st_err:.3e} (tol {st_tol:.3e})")
-        del acc, want, wst
+        wq = torch.randint(-127, 128, (cout, cin, 3, 3, 3), generator=g,
+                           device=dev, dtype=torch.int8)
+        sw = 1e-4 + 1e-3 * torch.rand((cout,), generator=g, device=dev)
+        b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        m, k = CONV_N * side ** 3, -(-27 * cin // 8) * 8
+        flops = 2.0 * m * cout * 27 * cin
         reps = 3 if side == 96 else 10
-        ms = cuda_ms(lambda: q.conv3x3_int8(parts, wq, sa, sw, b,
-                                            torch.bfloat16,
-                                            with_stats=True), reps, 1)
-        plain_ms = cuda_ms(lambda: q._finish(
-            q.conv3x3_int8_plain(parts, wq), sa, sw, b, torch.bfloat16,
-            True), 1, 1)
-        parts_bf = [p.to(torch.bfloat16) for p in parts]
+        int8_parts = [torch.randint(-127, 128, (*shape, c), generator=g,
+                                    device=dev, dtype=torch.int8)
+                      for c in chans]
+        modes = [("int8 parts", int8_parts, None, None)]
+        for fdt in ((torch.float32, torch.bfloat16) if tag in STEMS
+                    else (torch.bfloat16,)):
+            x = [(2.0 * torch.randn((*shape, c), generator=g, device=dev))
+                 .to(fdt) for c in chans]
+            modes.append((f"{str(fdt)[6:]} parts", x, q.act_scale(x), None))
+        y = [torch.randn((*shape, c), generator=g, device=dev)
+             .to(torch.bfloat16) for c in chans]
+        pro = tuple((torch.randn((CONV_N, cin), generator=g, device=dev) * sd
+                     + mu).to(torch.bfloat16)
+                    for mu, sd in ((1.0, 0.3), (0.0, 0.3), (0.0, 0.2))
+                    ) + (0.1,)
+        modes.append(("bf16 y + prologue", y,
+                      torch.tensor(3.0 / 127, device=dev), pro))
+        times = {}
+        for mode, parts, sa, pr in modes:
+            kw = dict(prologue=pr)
+            if sa is None:
+                acc = q.conv3x3_int8(parts, wq)
+                sa = torch.tensor(0.02, device=dev)
+            else:
+                acc = q.conv3x3_int8(parts, wq, sa, None, None, torch.int32,
+                                     **kw)
+            want = q.conv3x3_int8_plain(parts, wq, sa, pr)
+            raw_exact = torch.equal(acc, want)
+            err = (acc.double() - want.double()).abs().max().item()
+            yk = q.conv3x3_int8(parts, wq, sa, sw, b, torch.bfloat16, **kw)
+            y_exact = torch.equal(yk, q.rescale(want, sa, sw, b,
+                                                torch.bfloat16))
+            ys, st = q.conv3x3_int8(parts, wq, sa, sw, b, torch.bfloat16,
+                                    with_stats=True, **kw)
+            _, wst = q._finish(want, sa, sw, b, torch.bfloat16, True)
+            st_err = (st - wst).abs().max().item()
+            st_tol = STATS_TOL * wst.abs().max().item()
+            if not (raw_exact and y_exact and torch.equal(ys, yk)
+                    and st_err <= st_tol):
+                fail(f"{name} ({mode}) disagrees with its plain version: "
+                     f"int32 exact {raw_exact} (max err {err:.3e}), "
+                     f"rescaled exact {y_exact}, stats err {st_err:.3e} "
+                     f"(tol {st_tol:.3e})")
+            del acc, want, wst, yk
+            ms = cuda_ms(lambda: q.conv3x3_int8(parts, wq, sa, sw, b,
+                                                torch.bfloat16,
+                                                with_stats=True, **kw),
+                         reps, 1)
+            bnd = bound(nbytes(*parts, wq, ys, st, sw, b,
+                               *(pr or ())[:3]), flops, torch.int8)
+            plain_ms = cuda_ms(lambda: q._finish(
+                q.conv3x3_int8_plain(parts, wq, sa, pr), sa, sw, b,
+                torch.bfloat16, True), 1, 1)
+            times[mode] = (ms, bnd, err, plain_ms)
+            log(f"{name} {mode}: int32 and rescaled bf16 bit for bit, "
+                f"stats err {st_err:.3e} (tol {st_tol:.3e}); kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+                f"{flops / ms / 1e9:.1f} TOP/s")
+            del ys, st
+        parts_bf = [p.to(torch.bfloat16) for p in int8_parts]
         w_bf = wq.float() * 1e-3
         bf16_ms = cuda_ms(lambda: conv3x3(parts_bf, w_bf, b,
                                           with_stats=True), reps, 1)
         del parts_bf
-        m, k = CONV_N * side ** 3, -(-27 * cin // 8) * 8
         a_mat = torch.full((m, k), 3, dtype=torch.int8, device=dev)
         b_t = torch.full((cout, k), 2, dtype=torch.int8, device=dev)
         int_mm_ms = cuda_ms(lambda: torch._int_mm(a_mat, b_t.t()), reps, 1)
         del a_mat, b_t
-        flops = 2.0 * m * cout * 27 * cin
-        bnd = bound(nbytes(*parts, wq, ys, st, sw, b), flops, torch.int8)
-        log(f"{name}: int32 and rescaled bf16 bit for bit, stats err "
-            f"{st_err:.3e} (tol {st_tol:.3e}); kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms bf16 kernel {bf16_ms:.4f} ms "
-            f"torch._int_mm on the im2col GEMM (product alone) "
-            f"{int_mm_ms:.4f} ms bound {bnd['bound_ms']:.4f} ms "
-            f"({bnd['bound_by']}), kernel {flops / ms / 1e9:.1f} TOP/s")
-        for key, v in (("ms", ms), ("bf16_ms", bf16_ms),
-                       ("int_mm_ms", int_mm_ms),
-                       ("bound_ms", bnd["bound_ms"])):
+        fmode = f"{'float32' if tag in STEMS else 'bfloat16'} parts"
+        log(f"{name}: bf16 kernel {bf16_ms:.4f} ms, torch._int_mm on the im2col GEMM (product alone) "
+            f"{int_mm_ms:.4f} ms; s8 kernel / bf16 kernel: int8 parts "
+            f"{times['int8 parts'][0] / bf16_ms:.3f}, {fmode} "
+            f"{times[fmode][0] / bf16_ms:.3f}, prologue "
+            f"{times['bf16 y + prologue'][0] / bf16_ms:.3f}")
+        for key, v in (("ms", times["int8 parts"][0]),
+                       ("float_ms", times[fmode][0]),
+                       ("prologue_ms", times["bf16 y + prologue"][0]),
+                       ("bf16_ms", bf16_ms), ("int_mm_ms", int_mm_ms),
+                       ("bound_ms", times["int8 parts"][1]["bound_ms"]),
+                       ("prologue_bound_ms",
+                        times["bf16 y + prologue"][1]["bound_ms"])):
             sums[key] += v
         if tag == S8_REPORT:
+            # the kernels line: the main path's mode at this conv (bf16
+            # parts quantized on load, dynamic scales), the others beside
+            ms, bnd, err, plain_ms = times[fmode]
             report["conv3x3_int8"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                int8_parts_ms=times["int8 parts"][0],
+                prologue_ms=times["bf16 y + prologue"][0],
+                prologue_bound_ms=times["bf16 y + prologue"][1]["bound_ms"],
                 bf16_kernel_ms=bf16_ms, int_mm_product_ms=int_mm_ms, **bnd)
-        del parts, y, ys, st
-    log("conv3x3_int8 over the S8_CASES shapes (one each): kernel "
-        f"{sums['ms']:.3f} ms, bf16 kernel {sums['bf16_ms']:.3f} ms, "
-        f"torch._int_mm {sums['int_mm_ms']:.3f} ms, bound "
-        f"{sums['bound_ms']:.3f} ms")
+        del int8_parts, modes, y, parts
+    log("conv3x3_int8 over the S8_CASES shapes (one each): kernel int8 "
+        f"parts {sums['ms']:.3f} ms, float parts {sums['float_ms']:.3f} "
+        f"ms, bf16 y + prologue {sums['prologue_ms']:.3f} ms; bf16 kernel "
+        f"{sums['bf16_ms']:.3f} ms, torch._int_mm {sums['int_mm_ms']:.3f} "
+        f"ms, bound {sums['bound_ms']:.3f} ms (prologue mode "
+        f"{sums['prologue_bound_ms']:.3f})")
     return report
 
 
@@ -3433,12 +3572,13 @@ def phase_int8_window(dev: torch.device) -> None:
     ``ddim_sample`` served bf16, int8 with dynamic scales and int8 with
     static scales calibrated on the CT's first window: seconds per batch
     over INT8_REPS (after a warm-up), DDIM window-steps/s, exactly
-    INT8_PER_BATCH s8 launches and no bf16 conv launch per int8 batch, and
-    each int8 answer's largest distance from bf16 as a fraction of max
+    INT8_PER_BATCH s8 launches and no bf16 conv launch per int8 batch, no
+    weight packed again in the timed batches (``packed_weight.packs``),
+    and each int8 answer's largest distance from bf16 as a fraction of max
     |y| and its share of differing binary voxels."""
     from diff_unet_tpu_torch.data.synthetic import synthetic_ct
     from diff_unet_tpu_torch.engine.engine import Predictor
-    from diff_unet_tpu_torch.ops.conv3d import conv3x3
+    from diff_unet_tpu_torch.ops.conv3d import conv3x3, packed_weight
     from diff_unet_tpu_torch.ops.int8 import conv3x3_int8
 
     kw = dict(model_path=None, classes=str(ROOT / "cfg/amos/classes.yaml"),
@@ -3463,17 +3603,20 @@ def phase_int8_window(dev: torch.device) -> None:
             pred.seg.ddim_sample(windows, noise=noise)     # warm-up
             torch.cuda.synchronize()
             reset({"conv3x3": conv3x3, "conv3x3_int8": conv3x3_int8})
+            packs = packed_weight.packs
             t0 = time.perf_counter()
             for _ in range(INT8_REPS):
                 y = pred.seg.ddim_sample(windows, noise=noise)
             torch.cuda.synchronize()
         sec = (time.perf_counter() - t0) / INT8_REPS
         launches = (conv3x3.launches, conv3x3_int8.launches)
+        packs = packed_weight.packs - packs
         want = ((INT8_PER_BATCH * INT8_REPS, 0) if name == "bf16"
                 else (0, INT8_PER_BATCH * INT8_REPS))
-        if launches != want or not torch.isfinite(y).all():
+        if launches != want or packs or not torch.isfinite(y).all():
             fail(f"AMOS window batch {name}: (bf16, s8) conv launches "
-                 f"{launches}, predicted {want}; finite "
+                 f"{launches}, predicted {want}; weight packs in the timed "
+                 f"batches {packs} (0: packed once); finite "
                  f"{bool(torch.isfinite(y).all())}")
         out[name] = y
         msg = (f"AMOS window batch {name}: {sec:.4f} s, "
@@ -3726,9 +3869,11 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
             "none: the conv's weight gradient, which the JAX package takes "
             "through flax nn.Conv (jax.value_and_grad)"),
         "conv3x3_int8": (
-            "diff_unet_tpu_torch/csrc/conv3d.cu",
+            "diff_unet_tpu_torch/csrc/conv3d.cu (conv3d_wgmma_kernel<S8Op>: "
+            "wgmma s8 on the TMA halo, quantize on load)",
             "diff_unet_tpu/ops/int8.py:conv_int8 (XLA, no Pallas kernel; "
-            "its rescale :78 fused as the epilogue)"),
+            "its quantize_act :43 fused as the prologue, its rescale :78 "
+            "as the epilogue)"),
     }
     # launches: the first path of LAUNCH_ORDER on which the kernel ran,
     # this slice's path (continuous serving) first

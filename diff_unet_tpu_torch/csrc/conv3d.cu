@@ -78,10 +78,25 @@
 // float32 runs a true-fp32 FFMA implicit GEMM (64x64 tiles, 4x4 per
 // thread, no TF32), with weights as (Cout_pad, K_pad), k = tap * Cin + ci.
 //
-// int8 (conv3d_s8_kernel, the W8A8 serving path, see the s8 section) runs
-// the same implicit GEMM on int8 parts and weights with mma.sync s8 and a
-// dequantize epilogue; it replaces no Pallas kernel (the JAX package's
-// ops/int8.py conv_int8 is XLA).
+// int8 (the W8A8 serving path) runs the same kernel, templated on the
+// operand type (S8Op against Bf16Op): chunks of 32 int8 channels in the
+// same two 16-byte planes a voxel (the 12,800-byte halo tile and the
+// (chunk, dz) weight stage keep their bf16 sizes), wgmma.mma_async
+// m64nBNk32 s32.s8.s8 into int32 accumulators (for 8-bit types both
+// operands K-major in shared memory, as the tile and the pack are), int32
+// split partials, and the dequantize epilogue f32(acc) * (sa * sw) + bias
+// (or the raw int32 sums). It takes int8 parts (TMA or gathered), or float
+// parts that its producer warps quantize on load, as ops/int8.py's
+// quantize_act rounds them, after the norm prologue where one is given:
+// bf16 parts whose channels are multiples of 32 come by TMA into a staging
+// ring of 8-channel quarter chunks, the rest is gathered. It replaces no
+// Pallas kernel (the JAX package's ops/int8.py conv_int8 + rescale are
+// XLA). What bounds it: with int8 parts the same 54*Cin operations per
+// output at twice the bf16 rate, from the same shared-memory bytes per MMA;
+// with float parts the producer warps' quantize, which meets each value
+// once for every brick halo that holds it (400 halo voxels a 128-voxel
+// brick) on 96 threads of the CTA, about 12 instructions a value (23 with
+// the prologue).
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -410,225 +425,7 @@ conv3d_f32_kernel(const ConvArgs a) {
   store_and_stats<float, BM, BN, LDC>(a, cs, m0, n0);
 }
 
-// ---------------------------------------------------------------- s8 path
-// W8A8 serving (no Pallas kernel: the JAX package's ops/int8.py conv_int8 +
-// rescale, which XLA compiles): int8 parts, int8 weights, int32 sums, and
-//
-//   out = T(f32(acc) * (sa * sw[co]) + bias[co])       (T bf16 or f32), or
-//   out = acc                                           (T int32, raw)
-//
-// with the statistics of the f32 value, as the bf16 path takes them. The
-// rounding points are the plain version's (ops/int8.py rescale), bit for
-// bit: acc -> f32 by __int2float_rn (round to nearest), the product sa * sw
-// first, then __fmul_rn and __fadd_rn, which nvcc may not contract into an
-// FMA. The activations are quantized before the call (round half to even,
-// in tensor code), so the kernel never rounds to int8 itself.
-//
-// Design: the fp32 path's implicit GEMM (k = tap * cin + ci, 128-row tiles
-// of flat output voxels x 64 output channels), with 64 k a stage (16 bytes
-// of each row per loader thread, the next stage loaded into registers while
-// the current one is multiplied) and mma.sync.m16n8k32 s8 x s8 -> s32 on
-// the tensor cores: 8 warps of 32 x 32 outputs. Both operands sit K-major
-// in shared memory with rows padded to 80 bytes, so the fragment loads
-// (4 bytes at row g, column 4 t) hit 32 distinct banks. What bounds it on
-// an H100: operations at the 64+ channel levels (int8 peak 1979 TOP/s);
-// this first kernel is bounded by its own loads long before that.
-namespace s8 {
-constexpr int BM = 128, BN = 64, BK = 64;
-constexpr int LDS = BK + 16;          // bytes per shared-memory row
-constexpr int LDC = BN + 4;
-constexpr int SMEM_AB = 2 * (BM + BN) * LDS;
-constexpr int SMEM_C = BM * LDC * 4;
-constexpr int SMEM = SMEM_AB > SMEM_C ? SMEM_AB : SMEM_C;
-}  // namespace s8
-
-struct QArgs {
-  ConvArgs c;                   // parts, wt (cout_pad, k_pad) int8, bias, out
-  const float* sa;              // () activation scale, on the device
-  const float* sw;              // (cout) weight scales
-};
-
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// 16 consecutive k of one output row. VEC: every part's channel count is a
-// multiple of 16 and its pointer 16-byte aligned, so the 16 values are one
-// tap and one part (one vector load). Otherwise each is gathered, the tap
-// advanced as the channel wraps.
-template <bool VEC>
-__device__ __forceinline__ uint4 load_a_s8(const ConvArgs& a, const Row& r,
-                                           int k0) {
-  union {
-    uint4 u;
-    int8_t e[16];
-  } v;
-  v.u = make_uint4(0, 0, 0, 0);
-  if (r.vox < 0 || k0 >= a.k_total) return v.u;
-  KPos p = decode_k(a, k0);
-  if (VEC) {
-    if (inside(a, r, p))
-      v.u = *reinterpret_cast<const uint4*>(
-          elem_ptr<int8_t>(a, tap_vox(a, r, p), p.ci));
-    return v.u;
-  }
-#pragma unroll
-  for (int e = 0; e < 16; ++e) {
-    if (k0 + e >= a.k_total) break;
-    if (inside(a, r, p)) v.e[e] = *elem_ptr<int8_t>(a, tap_vox(a, r, p), p.ci);
-    if (++p.ci == a.cin) {
-      p.ci = 0;
-      if (++p.dx > 1) {
-        p.dx = -1;
-        if (++p.dy > 1) {
-          p.dy = -1;
-          ++p.dz;
-        }
-      }
-    }
-  }
-  return v.u;
-}
-
-__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(kThreads) conv3d_s8_kernel(const QArgs q) {
-  using namespace s8;
-  const ConvArgs& a = q.c;
-  __shared__ __align__(16) unsigned char smem[SMEM];
-  unsigned char* as = smem;                        // [2][BM][LDS]
-  unsigned char* bs = smem + 2 * BM * LDS;         // [2][BN][LDS]
-  float* cs = reinterpret_cast<float*>(smem);      // [BM][LDC] (epilogue)
-
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  // loaders: rows lr and lr + 64 of A, row lr of B, 16 bytes at column 16 lc
-  const int lr = t >> 2, lc = t & 3;
-  const Row r0 = decode_row(a, m0 + lr), r1 = decode_row(a, m0 + lr + 64);
-  const int8_t* wt = static_cast<const int8_t*>(a.wt) +
-                     (long long)(n0 + lr) * a.k_pad + lc * 16;
-  // warp (wm, wn) owns rows 32 wm .. +32 and columns 32 wn .. +32
-  const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, tq = lane & 3;
-  int acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  auto store = [&](int buf, const uint4& x0, const uint4& x1,
-                   const uint4& y) {
-    unsigned char* A = as + buf * BM * LDS + lc * 16;
-    *reinterpret_cast<uint4*>(A + lr * LDS) = x0;
-    *reinterpret_cast<uint4*>(A + (lr + 64) * LDS) = x1;
-    *reinterpret_cast<uint4*>(bs + (buf * BN + lr) * LDS + lc * 16) = y;
-  };
-
-  const int kt_n = a.k_pad / BK;
-  uint4 ra0 = load_a_s8<VEC>(a, r0, lc * 16);
-  uint4 ra1 = load_a_s8<VEC>(a, r1, lc * 16);
-  uint4 rb = *reinterpret_cast<const uint4*>(wt);
-  store(0, ra0, ra1, rb);
-  __syncthreads();
-  for (int kt = 0; kt < kt_n; ++kt) {
-    const int cur = kt & 1;
-    const bool more = kt + 1 < kt_n;
-    if (more) {
-      const int k0 = (kt + 1) * BK;
-      ra0 = load_a_s8<VEC>(a, r0, k0 + lc * 16);
-      ra1 = load_a_s8<VEC>(a, r1, k0 + lc * 16);
-      rb = *reinterpret_cast<const uint4*>(wt + k0);
-    }
-    const unsigned char* A = as + cur * BM * LDS;
-    const unsigned char* B = bs + cur * BN * LDS;
-#pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {
-      uint32_t af[2][4], bf[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const unsigned char* p =
-            A + (wm * 32 + i * 16 + g) * LDS + ks * 32 + tq * 4;
-        af[i][0] = lds32(p);
-        af[i][1] = lds32(p + 8 * LDS);
-        af[i][2] = lds32(p + 16);
-        af[i][3] = lds32(p + 8 * LDS + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const unsigned char* p = B + (wn * 32 + j * 8 + g) * LDS + ks * 32 +
-                                 tq * 4;
-        bf[j][0] = lds32(p);
-        bf[j][1] = lds32(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bf[j]);
-    }
-    if (more) store(cur ^ 1, ra0, ra1, rb);
-    __syncthreads();
-  }
-
-  // accumulator (i, j, e): row 32 wm + 16 i + g + 8 (e >> 1), column
-  // 32 wn + 8 j + 2 tq + (e & 1)
-  if constexpr (std::is_same<T, int>::value) {
-    int* ci = reinterpret_cast<int*>(smem);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          ci[(wm * 32 + i * 16 + g + 8 * (e >> 1)) * LDC + wn * 32 + j * 8 +
-             2 * tq + (e & 1)] = acc[i][j][e];
-    __syncthreads();
-    int* out = static_cast<int*>(a.out);
-    for (int idx = t; idx < BM * BN; idx += kThreads) {
-      const int r = idx / BN, c = idx - r * BN;
-      const long long m = m0 + r;
-      if (m < a.m_total && n0 + c < a.cout)
-        out[m * a.cout + n0 + c] = ci[r * LDC + c];
-    }
-  } else {
-    const float sa = *q.sa;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e1 = 0; e1 < 2; ++e1) {
-        const int col = wn * 32 + j * 8 + 2 * tq + e1, co = n0 + col;
-        float scale = 0.f, b = 0.f;
-        if (co < a.cout) {
-          scale = __fmul_rn(sa, q.sw[co]);
-          if (a.bias != nullptr) b = a.bias[co];
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int e0 = 0; e0 < 2; ++e0)
-            cs[(wm * 32 + i * 16 + g + 8 * e0) * LDC + col] = __fadd_rn(
-                __fmul_rn(__int2float_rn(acc[i][j][2 * e0 + e1]), scale), b);
-      }
-    __syncthreads();
-    store_and_stats<T, BM, BN, LDC>(a, cs, m0, n0);
-  }
-}
-
-// ---------------------------------------------------------------- bf16 path
+// ---------------------------------------------------- wgmma path (bf16, s8)
 namespace hw {
 // A CTA: two consumer warpgroups, one output z slice of 8 x 8 voxels each,
 // and one producer warpgroup; its brick is 2 x 8 x 8 voxels.
@@ -638,29 +435,42 @@ constexpr int kHaloThreads = 96;         // producer threads on the halo
 constexpr int BZ = 2, BY = 8, BX = 8;    // output brick (z, y, x)
 constexpr int HZ = BZ + 2, HY = BY + 2, HX = BX + 2;
 constexpr int HVOX = HZ * HY * HX;       // halo voxels
-constexpr int PLANE = HVOX * 16;         // bytes of one 8-channel plane
-constexpr int HALO_BYTES = 2 * PLANE;
-constexpr int KC = 16;                   // channels per chunk
+constexpr int PLANE = HVOX * 16;         // bytes of one 16-byte-a-voxel plane
+constexpr int HALO_BYTES = 2 * PLANE;    // a chunk: 32 bytes of K a voxel
 constexpr int kGather = 2;               // gathered voxels in flight
-// ring stages: the halo (HS chunks), the weights (WS (chunk, dz) slabs)
-constexpr int HS = 2, WS = 3;
+constexpr int HS = 2;                    // halo ring stages
 // gathered voxels per producer thread (each fills one plane of its
 // voxels), rounded up to whole batches
 constexpr int kHaloItems =
     (HVOX + kHaloThreads / 2 * kGather - 1) / (kHaloThreads / 2 * kGather) *
     kGather;
-template <int BN>
+// Where a chunk's halo comes from: gathered by the producer warps; by TMA
+// straight into the ring; or (s8 from bf16 parts) by TMA into a staging
+// ring of kStSlots quarter chunks (8 bf16 channels, 16 bytes a voxel),
+// which the producer warps quantize into the ring's int8 planes.
+enum Src { kGathered, kTma, kStaged };
+constexpr int kStSlots = 4;
+template <int BN, int SRC>
 struct Cfg {
+  // two CTAs share an SM at BN 64 (the staged instance too: one CTA an SM
+  // with three weight stages and eight staging slots measured slower at
+  // every AMOS shape on an H100)
+  static constexpr bool kTwoPerSm = BN == 64;
+  // weight ring stages: where two CTAs share an SM, the staging ring takes
+  // the third one's room
+  static constexpr int WS = SRC == kStaged && kTwoPerSm ? 2 : 3;
   // the rings, then the epilogue's own buffers (the rings fill for the
   // next brick meanwhile): the staged output and the statistics' reduction
-  static constexpr bool kTwoPerSm = BN == 64;       // two CTAs share an SM
-  static constexpr int W_BYTES = 9 * KC * BN * 2;    // one (chunk, dz) stage
+  static constexpr int ST_BYTES = SRC == kStaged ? kStSlots * PLANE : 0;
+  static constexpr int W_BYTES = 9 * 32 * BN;        // one (chunk, dz) stage
   static constexpr int LDO = BN + 8;                 // staged output row
   static constexpr int OFF_W = HS * HALO_BYTES;
-  static constexpr int OFF_STAGE = OFF_W + WS * W_BYTES;
+  static constexpr int OFF_ST = OFF_W + WS * W_BYTES;
+  static constexpr int OFF_STAGE = OFF_ST + ST_BYTES;
   static constexpr int OFF_RED = OFF_STAGE + 64 * BZ * LDO * 2;
   static constexpr int OFF_BAR = OFF_RED + kConsumers / 32 * 2 * BN * 4;
-  static constexpr int NBAR = 3 * HS + 2 * WS;
+  static constexpr int NBAR =
+      3 * HS + 2 * WS + (SRC == kStaged ? 2 * kStSlots : 0);
   static constexpr int SMEM = OFF_BAR + NBAR * 8 + 16;
   static_assert(!kTwoPerSm || 2 * (SMEM + 1024) <= 228 * 1024, "2 CTAs/SM");
   static_assert(SMEM <= 227 * 1024, "shared memory");
@@ -668,20 +478,23 @@ struct Cfg {
 }  // namespace hw
 
 struct WArgs {
-  CUtensorMap map[kMaxParts];   // box {8, 10, 10, 4, 1} of each part (TMA)
-  const __nv_bfloat16* part[kMaxParts];
+  CUtensorMap map[kMaxParts];   // one 5-D map of each part (TMA)
+  const void* part[kMaxParts];
   int part_c[kMaxParts];
   int part_off[kMaxParts];
   int nparts;
-  const __nv_bfloat16* wt;      // (cout_pad / BN, nchunk, 27, 2, BN, 8)
+  const void* wt;               // (cout_pad / BN, nchunk, 27, 2, BN, 16 B)
   const float* bias;            // (cout) or null
   const float* pro_scale;       // (n, cin) or null: no prologue
   const float* pro_shift;
   const float* pro_const;       // or null
   float pro_slope, act_slope;
-  __nv_bfloat16* out;           // (n, d, h, w, cout)
+  const float* sa;              // s8: () activation scale, or null (raw)
+  const float* sw;              // s8: (cout) weight scales
+  int out_kind;                 // 0 int32 sums (s8), 1 float32, 2 bf16
+  void* out;                    // (n, d, h, w, cout)
   float* stats_part;            // (nbricks, 2, cout) slots, or null
-  float* partial;               // split > 1: (tiles, split, 256, BN / 2)
+  void* partial;                // split > 1: (tiles, split, 256, BN / 2)
   int* counter;                 // split > 1: (tiles), zeroed
   int n, d, h, w, cin, cout, nchunk, split, per_split, nzb, nyb, nxb;
   int nbricks;                  // n * nzb * nyb * nxb
@@ -751,7 +564,93 @@ __device__ __forceinline__ void wgmma_bf16<128>(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d += A * B for one m64nBNk32 step of int8 operands into int32 sums. For
+// 8-bit types wgmma has no transpose: both operands are K-major in shared
+// memory, as the halo tile and the weight pack are (a k32 step spans the
+// two 16-byte planes, the descriptors' leading-byte offset).
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int* d, uint64_t da, uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int* d, uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int* d, uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The operand types of the wgmma kernel: KC channels a chunk (two planes
+// of KC / 2, 16 bytes a voxel each), the MMA and its accumulator.
+struct Bf16Op {
+  static constexpr bool kS8 = false;
+  static constexpr int KC = 16;
+  using Acc = float;
+  using Acc4 = float4;
+  template <int BN>
+  __device__ static void mma(float* d, uint64_t da, uint64_t db) {
+    wgmma_bf16<BN>(d, da, db);
+  }
+};
+struct S8Op {
+  static constexpr bool kS8 = true;
+  static constexpr int KC = 32;
+  using Acc = int;
+  using Acc4 = int4;
+  template <int BN>
+  __device__ static void mma(int* d, uint64_t da, uint64_t db) {
+    wgmma_s8<BN>(d, da, db);
+  }
+};
+
 // Index of the barriers in shared memory.
+template <int WS>
 struct Bars {
   uint32_t base;
   __device__ uint32_t halo_full(int s) const { return base + 8 * s; }
@@ -765,7 +664,13 @@ struct Bars {
     return base + 8 * (3 * hw::HS + s);
   }
   __device__ uint32_t w_empty(int s) const {
-    return base + 8 * (3 * hw::HS + hw::WS + s);
+    return base + 8 * (3 * hw::HS + WS + s);
+  }
+  __device__ uint32_t st_full(int s) const {
+    return base + 8 * (3 * hw::HS + 2 * WS + s);
+  }
+  __device__ uint32_t st_empty(int s) const {
+    return base + 8 * (3 * hw::HS + 2 * WS + hw::kStSlots + s);
   }
 };
 
@@ -784,6 +689,29 @@ __device__ __forceinline__ Brick decode_brick(const WArgs& a, int i) {
   return b;
 }
 
+// Whether halo voxel v of brick b lies in the volume.
+__device__ __forceinline__ bool halo_inside(const WArgs& a, const Brick& b,
+                                            int v, long long* vox) {
+  using namespace hw;
+  const int hz = v / (HY * HX), r = v - hz * HY * HX, hy = r / HX;
+  const int gz = b.z0 - 1 + hz, gy = b.y0 - 1 + hy,
+            gx = b.x0 - 1 + r - hy * HX;
+  if ((unsigned)gz >= (unsigned)a.d || (unsigned)gy >= (unsigned)a.h ||
+      (unsigned)gx >= (unsigned)a.w)
+    return false;
+  *vox = (((long long)b.n * a.d + gz) * a.h + gy) * a.w + gx;
+  return true;
+}
+
+// The part that holds concat channel c.
+__device__ __forceinline__ int part_of(const WArgs& a, int c) {
+  int pi = 0;
+#pragma unroll
+  for (int i = 1; i < kMaxParts; ++i)
+    if (i < a.nparts && c >= a.part_off[i]) pi = i;
+  return pi;
+}
+
 __device__ __forceinline__ float prologue_f(const WArgs& a, float v, float sc,
                                             float sh, float cs) {
   float u = v * sc + sh;
@@ -791,17 +719,300 @@ __device__ __forceinline__ float prologue_f(const WArgs& a, float v, float sc,
   return u + cs;
 }
 
-// The producer warpgroup. Its last warp streams the weights: for each
-// 16-channel chunk of this CTA's split, three (dz) stages of 9 taps. The
-// other three warps bring each chunk's halo tile (TMA, or gathered where
-// TMA cannot map a part), apply the prologue to the arrived tile and mark
-// it ready. The two streams wait on nothing of each other.
-template <int BN, bool TMA>
-__device__ void produce(const WArgs& a, unsigned char* smem,
-                        const Bars& bar, int cb, int j0, int j1) {
+// v rounded to T and back (ATen computes T's arithmetic in float and
+// rounds each result to T).
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+// x[0..3] rounded to T, two at a time (cvt.rn.bf16x2.f32: the scalar
+// conversion runs on the slow conversion pipe).
+template <typename T>
+__device__ __forceinline__ void round4(float* x) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x[e], x[e + 1]);
+      x[e] = __low2float(h);
+      x[e + 1] = __high2float(h);
+    }
+  }
+}
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// The activation scale as the quantizer divides by it: s = T(sa) and r =
+// RN(1 / s) (bf16 parts, quantize4).
+struct QScale {
+  float s, r;
+};
+template <typename T>
+__device__ __forceinline__ QScale qscale(float sa) {
+  const float s = round_to<T>(sa);
+  return QScale{s, __frcp_rn(s)};
+}
+// A per-(sample, channel) prologue row of four channels: a, b, c.
+struct Pro4 {
+  float sc[4], sh[4], cs[4];
+};
+__device__ __forceinline__ Pro4 load_pro4(const WArgs& a, int i, int n) {
+  Pro4 p;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const bool real = e < n;
+    p.sc[e] = real ? a.pro_scale[i + e] : 0.f;
+    p.sh[e] = real ? a.pro_shift[i + e] : 0.f;
+    p.cs[e] = real && a.pro_const ? a.pro_const[i + e] : 0.f;
+  }
+  return p;
+}
+
+// ops/int8.py's quantize_input for four values x of type T, packed as four
+// int8 bytes (x[0] lowest). With PRO the prologue T(T(T(x a) + b)
+// LeakyReLU) + c), each operation in float and rounded to T, as the tensor
+// code rounds it; then clamp(rint(T(x / s)), -127, 127): the float
+// quotient rounded once (IEEE division), round half to even. float32 parts
+// divide with __fdiv_rn (s > 0). For bf16 parts the quotient is RN(x r) corrected
+// once by the exact remainder x - q s (an FMA), 3 instructions instead of
+// the division's 10, and still the correctly rounded x / s: x and s have
+// 8-bit significands, so an inexact x / s lies at least 2^-9 ulp from any
+// midpoint of two floats (its distance is a nonzero integer over
+// m_s 2^25, m_s < 2^8), and never on one, while the corrected quotient
+// is within about 2^-22 ulp of x / s (r = RN(1 / s) within 2^-24
+// relative, the first quotient within 1.5 ulp, the remainder exact), so
+// both round alike. (24-bit float32 operands can come within 2^-25 ulp of
+// a midpoint: there the correction can round the wrong way.) The first
+// quotient is held to +-256 first (beyond, x r may overflow to inf and the
+// correction to NaN, and any value there clamps to +-127 all the same).
+// The rint is the sum with 1.5 * 2^23 (in [2^23, 2^24) floats are the
+// integers, rounded half to even), whose low byte is the int8. The
+// intrinsics keep nvcc from contracting a product and a sum into an FMA,
+// which would round once where ATen rounds twice.
+template <typename T, bool PRO>
+__device__ __forceinline__ uint32_t quantize4(float* x, const Pro4& p,
+                                              float slope, QScale qs) {
+  if constexpr (PRO) {
+    float m[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = __fmul_rn(x[e], p.sc[e]);
+    round4<T>(x);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = __fadd_rn(x[e], p.sh[e]);
+    round4<T>(x);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) m[e] = __fmul_rn(x[e], slope);
+    round4<T>(m);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      x[e] = __fadd_rn(x[e] > 0.f ? x[e] : m[e], p.cs[e]);
+    round4<T>(x);
+  }
+  if constexpr (std::is_same<T, float>::value) {
+    // +-0 / s is +-0: zeros (the stems' padding channels) skip the division
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      x[e] = x[e] == 0.f ? x[e] : __fdiv_rn(x[e], qs.s);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float q0 = fminf(fmaxf(__fmul_rn(x[e], qs.r), -256.f), 256.f);
+      x[e] = __fmaf_rn(__fmaf_rn(-q0, qs.s, x[e]), qs.r, q0);
+    }
+    round4<T>(x);
+  }
+  uint32_t b[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    b[e] = __float_as_uint(
+        __fadd_rn(fminf(fmaxf(x[e], -127.f), 127.f), 12582912.f));
+  return __byte_perm(__byte_perm(b[0], b[1], 0x0040),
+                     __byte_perm(b[2], b[3], 0x0040), 0x5410);
+}
+
+// One quarter of an s8 chunk (channels c0 .. c0 + 7), arrived by TMA in
+// the staging slot st as 8 bf16 a voxel, quantized into its 8 bytes of
+// each voxel's row of the halo ring (dst: the plane, offset to the
+// quarter's half of the row): 4 channels of a voxel a thread, their
+// prologue row in registers. The halo outside the volume stays 0 (TMA
+// fills it with zeros, which the prologue would move), as the JAX package
+// pads the quantized input with zeros.
+template <bool PRO>
+__device__ __forceinline__ void quantize_quarter(const WArgs& a,
+                                                 const Brick& b,
+                                                 const unsigned char* st,
+                                                 unsigned char* dst, int c0,
+                                                 QScale qs, int pt) {
   using namespace hw;
-  using C = Cfg<BN>;
+  const int g = pt & 1;
+  Pro4 p{};
+  if constexpr (PRO) p = load_pro4(a, b.n * a.cin + c0 + 4 * g, 4);
+#pragma unroll 2
+  for (int v = pt >> 1; v < HVOX; v += kHaloThreads / 2) {
+    long long vox;
+    uint32_t out = 0;
+    if (halo_inside(a, b, v, &vox)) {
+      const uint2 u = *reinterpret_cast<const uint2*>(st + v * 16 + g * 8);
+      float x[4] = {__uint_as_float(u.x << 16),
+                    __uint_as_float(u.x & 0xffff0000u),
+                    __uint_as_float(u.y << 16),
+                    __uint_as_float(u.y & 0xffff0000u)};
+      out = quantize4<__nv_bfloat16, PRO>(x, p, a.pro_slope, qs);
+    }
+    *reinterpret_cast<uint32_t*>(dst + v * 16 + g * 4) = out;
+  }
+}
+
+// One chunk's bf16 halo gathered by the producer warps into the ring's
+// layout: each thread fills one 16-byte plane row (8 channels) of its
+// voxels. The loads of kGather voxels are issued before their stores, so
+// their latencies overlap (more would cost registers, and with them the
+// second CTA on the SM). Where the chunk's second plane is all padding
+// (Cin <= 16 j + 8: the stems) every thread gathers the first plane and
+// the second is zero-filled.
+__device__ __forceinline__ void gather_chunk(const WArgs& a, const Brick& b,
+                                             unsigned char* halo, int j,
+                                             int pt) {
+  using namespace hw;
+  constexpr int KC = Bf16Op::KC;
+  const bool one_plane = KC * j + 8 >= a.cin;
+  const int q = one_plane ? 0 : pt & 1;
+  const int first = one_plane ? pt : pt >> 1;
+  const int step = one_plane ? kHaloThreads : kHaloThreads / 2;
+  if (one_plane) {
+    for (int v = pt; v < HVOX; v += kHaloThreads)
+      *reinterpret_cast<uint4*>(halo + PLANE + v * 16) =
+          make_uint4(0, 0, 0, 0);
+  }
+  for (int k0 = 0; k0 < kHaloItems; k0 += kGather) {
+    union {
+      uint4 u;
+      __nv_bfloat16 e[8];
+    } val[kGather];
+#pragma unroll
+    for (int k = 0; k < kGather; ++k) {
+      const int v = first + (k0 + k) * step;
+      val[k].u = make_uint4(0, 0, 0, 0);
+      long long vox;
+      if (v >= HVOX || !halo_inside(a, b, v, &vox)) continue;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int c = KC * j + 8 * q + e;
+        if (c >= a.cin) break;
+        const int pi = part_of(a, c);
+        val[k].e[e] = static_cast<const __nv_bfloat16*>(
+            a.part[pi])[vox * a.part_c[pi] + (c - a.part_off[pi])];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kGather; ++k) {
+      const int v = first + (k0 + k) * step;
+      if (v >= HVOX) break;
+      *reinterpret_cast<uint4*>(halo + q * PLANE + v * 16) = val[k].u;
+    }
+  }
+}
+
+// One s8 chunk's halo gathered by the producer warps: 4 channels of a
+// voxel a thread (their prologue row in registers, as quantize_quarter
+// keeps it), TIn values quantized as quantize_quarter quantizes them (int8
+// parts as they are); voxels outside the volume and channels past cin are
+// 0. Where the chunk's second plane is all padding (Cin <= 32 j + 16: the
+// stems) every thread works on the first and the second is zero-filled; a
+// thread whose four channels are all padding writes zeros (the one-channel
+// stem: three threads of four).
+template <typename TIn, bool PRO>
+__device__ __forceinline__ void gather_chunk_s8(const WArgs& a,
+                                                const Brick& b,
+                                                unsigned char* halo, int j,
+                                                QScale qs, int pt) {
+  using namespace hw;
+  constexpr int KC = S8Op::KC;
+  const bool one_plane = KC * j + KC / 2 >= a.cin;
+  const int g = pt & 3;
+  const int q = one_plane ? 0 : (pt >> 2) & 1;
+  const int first = one_plane ? pt >> 2 : pt >> 3;
+  const int step = one_plane ? kHaloThreads / 4 : kHaloThreads / 8;
+  const int c0 = KC * j + KC / 2 * q + 4 * g;
+  if (one_plane) {
+    for (int v = pt; v < HVOX; v += kHaloThreads)
+      *reinterpret_cast<uint4*>(halo + PLANE + v * 16) =
+          make_uint4(0, 0, 0, 0);
+  }
+  const int nreal = max(0, min(4, a.cin - c0));
+  Pro4 p{};
+  if constexpr (PRO) p = load_pro4(a, b.n * a.cin + c0, nreal);
+#pragma unroll 1
+  for (int v = first; v < HVOX; v += step) {
+    long long vox;
+    uint32_t out = 0;
+    if (nreal > 0 && halo_inside(a, b, v, &vox)) {
+      TIn x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + e, pi = part_of(a, c);
+        x[e] = TIn{};
+        if (e < nreal)
+          x[e] = static_cast<const TIn*>(
+              a.part[pi])[vox * a.part_c[pi] + (c - a.part_off[pi])];
+      }
+      if constexpr (std::is_same<TIn, int8_t>::value) {
+        out = __byte_perm(__byte_perm(x[0], x[1], 0x0040),
+                          __byte_perm(x[2], x[3], 0x0040), 0x5410);
+      } else {
+        float f[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[e] = to_float(x[e]);
+        out = quantize4<TIn, PRO>(f, p, a.pro_slope, qs);
+        // channels past cin stay 0 (the prologue would move them)
+        if (nreal < 4) out &= 0xffffffffu >> (8 * (4 - nreal));
+      }
+    }
+    *reinterpret_cast<uint32_t*>(halo + q * PLANE + v * 16 + 4 * g) = out;
+  }
+}
+
+// The producer warpgroup. Its last warp streams the weights (lane 0: for
+// each chunk of this CTA's split, three (dz) stages of 9 taps) and, from
+// bf16 parts into s8, the staging ring (lane 1: each chunk's four quarters,
+// as far ahead as the ring has room). The other three warps bring each
+// chunk's halo tile (module comment: by TMA, quantized from the staging
+// ring, or gathered), apply the bf16 prologue to the arrived tile and mark
+// it ready. The streams wait on nothing of each other but the ring slots.
+template <class Op, int BN, int SRC, typename TIn>
+__device__ void produce(const WArgs& a, unsigned char* smem,
+                        const Bars<hw::Cfg<BN, SRC>::WS>& bar, int cb, int j0,
+                        int j1) {
+  using namespace hw;
+  using C = Cfg<BN, SRC>;
+  constexpr int KC = Op::KC, KP = KC / 2;
+  constexpr int WS = C::WS;
   const int pt = threadIdx.x - kConsumers;
+  if (SRC == kStaged && pt == kHaloThreads + 1) {
+    // quarter u of the walk (brick, chunk, channels 8 (u % 4) ..) into
+    // slot u % kStSlots once its last quarter is quantized
+    int u = 0;
+    for (int brick = blockIdx.x; brick < a.nbricks; brick += gridDim.x) {
+      const Brick b = decode_brick(a, brick);
+      for (int j = j0; j < j1; ++j) {
+        const int pi = part_of(a, KC * j);
+        for (int k = 0; k < 4; ++k, ++u) {
+          const int su = u % kStSlots;
+          mbar_wait(bar.st_empty(su), ((u / kStSlots) & 1) ^ 1);
+          mbar_expect_tx(bar.st_full(su), PLANE);
+          tma_load_5d(smem_u32(smem + C::OFF_ST + su * PLANE), &a.map[pi],
+                      bar.st_full(su), KC * j - a.part_off[pi] + 8 * k,
+                      b.x0 - 1, b.y0 - 1, b.z0 - 1, b.n);
+        }
+      }
+    }
+    return;
+  }
   if (pt >= kHaloThreads) {
     if (pt != kHaloThreads) return;
     int wit = 0;
@@ -812,15 +1023,19 @@ __device__ void produce(const WArgs& a, unsigned char* smem,
           mbar_wait(bar.w_empty(ws), ((wit / WS) & 1) ^ 1);
           mbar_expect_tx(bar.w_full(ws), C::W_BYTES);
           bulk_load(smem_u32(smem + C::OFF_W + ws * C::W_BYTES),
-                    a.wt + (((long long)cb * a.nchunk + j) * 27 + dz * 9) *
-                               (2 * BN * 8),
+                    static_cast<const unsigned char*>(a.wt) +
+                        (((long long)cb * a.nchunk + j) * 27 + dz * 9) *
+                            (32LL * BN),
                     C::W_BYTES, bar.w_full(ws));
         }
       }
     }
     return;
   }
-  const int p = pt & 1;                 // the plane (8 channels) it fills
+  const int p = pt & 1;                 // the plane it fills
+  QScale qs{0.f, 0.f};                  // s8 from float parts
+  if constexpr (Op::kS8 && !std::is_same<TIn, int8_t>::value)
+    qs = qscale<TIn>(*a.sa);
   int hit = 0;
   for (int brick = blockIdx.x; brick < a.nbricks; brick += gridDim.x) {
     const Brick b = decode_brick(a, brick);
@@ -828,114 +1043,75 @@ __device__ void produce(const WArgs& a, unsigned char* smem,
       const int hs = hit % HS;
       const uint32_t hpar = (hit / HS) & 1;
       unsigned char* halo = smem + hs * HALO_BYTES;
-      if (TMA) {
+      if constexpr (SRC == kTma) {
         if (pt == 0) {
           mbar_wait(bar.halo_empty(hs), hpar ^ 1);
           mbar_expect_tx(bar.halo_full(hs), HALO_BYTES);
-          int pi = 0;
-#pragma unroll
-          for (int i = 1; i < kMaxParts; ++i)
-            if (i < a.nparts && KC * j >= a.part_off[i]) pi = i;
+          const int pi = part_of(a, KC * j);
           const int cl = KC * j - a.part_off[pi];
           for (int q = 0; q < 2; ++q)
             tma_load_5d(smem_u32(halo + q * PLANE), &a.map[pi],
-                        bar.halo_full(hs), cl + 8 * q, b.x0 - 1, b.y0 - 1,
+                        bar.halo_full(hs), cl + KP * q, b.x0 - 1, b.y0 - 1,
                         b.z0 - 1, b.n);
         }
-      } else {
-        // the loads of kGather voxels are issued before their stores, so
-        // their latencies overlap (more would cost registers, and with them
-        // the second CTA on the SM). Where the chunk's second plane is all
-        // padding (Cin <= 16 j + 8: the stems) every thread gathers the
-        // first plane and the second is zero-filled.
-        const bool one_plane = KC * j + 8 >= a.cin;
-        const int q = one_plane ? 0 : p;
-        const int first = one_plane ? pt : pt >> 1;
-        const int step = one_plane ? kHaloThreads : kHaloThreads / 2;
+        mbar_wait(bar.halo_full(hs), hpar);
+      } else if constexpr (SRC == kStaged) {
         mbar_wait(bar.halo_empty(hs), hpar ^ 1);
-        if (one_plane) {
-          for (int v = pt; v < HVOX; v += kHaloThreads)
-            *reinterpret_cast<uint4*>(halo + PLANE + v * 16) =
-                make_uint4(0, 0, 0, 0);
+        for (int k = 0; k < 4; ++k) {
+          const int u = 4 * hit + k, su = u % kStSlots;
+          mbar_wait(bar.st_full(su), (u / kStSlots) & 1);
+          unsigned char* dst = halo + (k >> 1) * PLANE + (k & 1) * 8;
+          if (a.pro_scale)
+            quantize_quarter<true>(a, b, smem + C::OFF_ST + su * PLANE, dst,
+                                   KC * j + 8 * k, qs, pt);
+          else
+            quantize_quarter<false>(a, b, smem + C::OFF_ST + su * PLANE,
+                                    dst, KC * j + 8 * k, qs, pt);
+          mbar_arrive(bar.st_empty(su));
         }
-        for (int k0 = 0; k0 < kHaloItems; k0 += kGather) {
-          union {
-            uint4 u;
-            __nv_bfloat16 e[8];
-          } val[kGather];
-#pragma unroll
-          for (int k = 0; k < kGather; ++k) {
-            const int v = first + (k0 + k) * step;
-            const int hz = v / (HY * HX), r = v - hz * HY * HX, hy = r / HX;
-            const int gz = b.z0 - 1 + hz, gy = b.y0 - 1 + hy,
-                      gx = b.x0 - 1 + r - hy * HX;
-            val[k].u = make_uint4(0, 0, 0, 0);
-            if (v >= HVOX || (unsigned)gz >= (unsigned)a.d ||
-                (unsigned)gy >= (unsigned)a.h || (unsigned)gx >= (unsigned)a.w)
-              continue;
-            const long long vox =
-                (((long long)b.n * a.d + gz) * a.h + gy) * a.w + gx;
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              const int c = KC * j + 8 * q + e;
-              if (c >= a.cin) break;
-              const __nv_bfloat16* base = a.part[0];
-              int pc = a.part_c[0], po = 0;
-#pragma unroll
-              for (int i = 1; i < kMaxParts; ++i) {
-                if (i < a.nparts && c >= a.part_off[i]) {
-                  base = a.part[i];
-                  pc = a.part_c[i];
-                  po = a.part_off[i];
-                }
-              }
-              val[k].e[e] = base[vox * pc + (c - po)];
-            }
-          }
-#pragma unroll
-          for (int k = 0; k < kGather; ++k) {
-            const int v = first + (k0 + k) * step;
-            if (v >= HVOX) break;
-            *reinterpret_cast<uint4*>(halo + q * PLANE + v * 16) = val[k].u;
-          }
-        }
+      } else {
+        mbar_wait(bar.halo_empty(hs), hpar ^ 1);
+        if constexpr (Op::kS8) {
+          if (a.pro_scale)
+            gather_chunk_s8<TIn, true>(a, b, halo, j, qs, pt);
+          else
+            gather_chunk_s8<TIn, false>(a, b, halo, j, qs, pt);
+        } else
+          gather_chunk(a, b, halo, j, pt);
       }
-      if (TMA) mbar_wait(bar.halo_full(hs), hpar);
-      if (a.pro_scale) {
-        // other threads gathered the voxels this one rewrites
-        if (!TMA)
-          asm volatile("bar.sync 2, %0;" ::"n"(kHaloThreads) : "memory");
-        // the prologue, once per value of the arrived tile; padding
-        // channels (c >= cin) get scale, shift and const 0 and stay 0
-        const int c0 = KC * j + 8 * p, k0 = b.n * a.cin + c0;
-        float sc[8], sh[8], cs[8];
+      if constexpr (!Op::kS8) {
+        if (a.pro_scale) {
+          // other threads gathered the voxels this one rewrites
+          if (SRC == kGathered)
+            asm volatile("bar.sync 2, %0;" ::"n"(kHaloThreads) : "memory");
+          // the prologue, once per value of the arrived tile; padding
+          // channels (c >= cin) get scale, shift and const 0 and stay 0
+          const int c0 = KC * j + 8 * p, k0 = b.n * a.cin + c0;
+          float sc[8], sh[8], cs[8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const bool real = c0 + e < a.cin;
-          sc[e] = real ? a.pro_scale[k0 + e] : 0.f;
-          sh[e] = real ? a.pro_shift[k0 + e] : 0.f;
-          cs[e] = real && a.pro_const ? a.pro_const[k0 + e] : 0.f;
-        }
+          for (int e = 0; e < 8; ++e) {
+            const bool real = c0 + e < a.cin;
+            sc[e] = real ? a.pro_scale[k0 + e] : 0.f;
+            sh[e] = real ? a.pro_shift[k0 + e] : 0.f;
+            cs[e] = real && a.pro_const ? a.pro_const[k0 + e] : 0.f;
+          }
 #pragma unroll 3
-        for (int v = pt >> 1; v < HVOX; v += kHaloThreads / 2) {
-          const int hz = v / (HY * HX), r = v - hz * HY * HX, hy = r / HX;
-          const int gz = b.z0 - 1 + hz, gy = b.y0 - 1 + hy,
-                    gx = b.x0 - 1 + r - hy * HX;
-          // the halo outside the volume stays 0
-          if ((unsigned)gz >= (unsigned)a.d || (unsigned)gy >= (unsigned)a.h ||
-              (unsigned)gx >= (unsigned)a.w)
-            continue;
-          union {
-            uint4 u;
-            __nv_bfloat16 e[8];
-          } val;
-          uint4* q = reinterpret_cast<uint4*>(halo + p * PLANE + v * 16);
-          val.u = *q;
+          for (int v = pt >> 1; v < HVOX; v += kHaloThreads / 2) {
+            long long vox;
+            // the halo outside the volume stays 0
+            if (!halo_inside(a, b, v, &vox)) continue;
+            union {
+              uint4 u;
+              __nv_bfloat16 e[8];
+            } val;
+            uint4* q = reinterpret_cast<uint4*>(halo + p * PLANE + v * 16);
+            val.u = *q;
 #pragma unroll
-          for (int e = 0; e < 8; ++e)
-            val.e[e] = __float2bfloat16(prologue_f(
-                a, __bfloat162float(val.e[e]), sc[e], sh[e], cs[e]));
-          *q = val.u;
+            for (int e = 0; e < 8; ++e)
+              val.e[e] = __float2bfloat16(prologue_f(
+                  a, __bfloat162float(val.e[e]), sc[e], sh[e], cs[e]));
+            *q = val.u;
+          }
         }
       }
       fence_async_smem();
@@ -944,19 +1120,48 @@ __device__ void produce(const WArgs& a, unsigned char* smem,
   }
 }
 
+// The value of output column co from its sum: bf16, acc + bias then the
+// LeakyReLU; s8, the dequantize f32(acc) * (sa * sw[co]) + bias[co]
+// (ops/int8.py rescale: __int2float_rn, the product sa * sw first,
+// __fmul_rn and __fadd_rn, which nvcc may not contract into an FMA).
+struct ColumnEpi {
+  float scale, bias;
+};
+template <class Op>
+__device__ __forceinline__ ColumnEpi column_epi(const WArgs& a, float sa,
+                                                int co) {
+  ColumnEpi c{0.f, 0.f};
+  if (co < a.cout) {
+    if (a.bias) c.bias = a.bias[co];
+    if (Op::kS8 && a.sw) c.scale = __fmul_rn(sa, a.sw[co]);
+  }
+  return c;
+}
+__device__ __forceinline__ float epi_value(const WArgs& a, float acc,
+                                           const ColumnEpi& c) {
+  const float v = acc + c.bias;
+  return v >= 0.f ? v : v * a.act_slope;
+}
+__device__ __forceinline__ float epi_value(const WArgs&, int acc,
+                                           const ColumnEpi& c) {
+  return __fadd_rn(__fmul_rn(__int2float_rn(acc), c.scale), c.bias);
+}
+
 // One CTA walks the bricks blockIdx.x, blockIdx.x + gridDim.x, ... of
 // the volume (each 2 x 8 x 8 voxels of one sample) for output channels
 // [cb * BN, cb * BN + BN) and channel chunks [j0, j1) of blockIdx.z's
 // split; its producers run ahead into the next brick while the consumers
 // finish the last one.
-template <int BN, bool TMA>
+template <class Op, int BN, int SRC, typename TIn>
 __global__ void __launch_bounds__(hw::kCtaThreads,
-                                  hw::Cfg<BN>::kTwoPerSm ? 2 : 1)
+                                  hw::Cfg<BN, SRC>::kTwoPerSm ? 2 : 1)
 conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
   using namespace hw;
-  using C = Cfg<BN>;
+  using C = Cfg<BN, SRC>;
+  using Acc = typename Op::Acc;
+  using Acc4 = typename Op::Acc4;
   extern __shared__ __align__(1024) unsigned char smem[];
-  const Bars bar{smem_u32(smem + C::OFF_BAR)};
+  const Bars<C::WS> bar{smem_u32(smem + C::OFF_BAR)};
   int* last_flag = reinterpret_cast<int*>(smem + C::OFF_BAR + C::NBAR * 8);
   const int t = threadIdx.x;
   const int cb = blockIdx.y, split = blockIdx.z;
@@ -968,15 +1173,21 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
       mbar_init(bar.halo_ready(s), kHaloThreads);
       mbar_init(bar.halo_empty(s), kConsumers / 32);
     }
-    for (int s = 0; s < WS; ++s) {
+    for (int s = 0; s < C::WS; ++s) {
       mbar_init(bar.w_full(s), 1);
       mbar_init(bar.w_empty(s), kConsumers / 32);
+    }
+    if (SRC == kStaged) {
+      for (int s = 0; s < kStSlots; ++s) {
+        mbar_init(bar.st_full(s), 1);
+        mbar_init(bar.st_empty(s), kHaloThreads);
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
   if (t >= kConsumers) {
-    produce<BN, TMA>(a, smem, bar, cb, j0, j1);
+    produce<Op, BN, SRC, TIn>(a, smem, bar, cb, j0, j1);
     return;
   }
 
@@ -986,19 +1197,19 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
   int wit = 0, hit = 0;
   for (int brick = blockIdx.x; brick < a.nbricks; brick += gridDim.x) {
     const Brick b = decode_brick(a, brick);
-    float acc[BN / 2];
+    Acc acc[BN / 2];
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
     int prev_ws = -1, prev_hs = -1;
     for (int j = j0; j < j1; ++j, ++hit) {
       const int hs = hit % HS;
       const uint32_t hpar = (hit / HS) & 1;
-      if (TMA) mbar_wait(bar.halo_full(hs), hpar);
+      if (SRC == kTma) mbar_wait(bar.halo_full(hs), hpar);
       mbar_wait(bar.halo_ready(hs), hpar);
       const uint32_t hbase = halo0 + hs * HALO_BYTES;
       for (int dz = 0; dz < 3; ++dz, ++wit) {
-        const int ws = wit % WS;
-        mbar_wait(bar.w_full(ws), (wit / WS) & 1);
+        const int ws = wit % C::WS;
+        mbar_wait(bar.w_full(ws), (wit / C::WS) & 1);
         const uint32_t wbase = w0 + ws * C::W_BYTES;
         wgmma_fence();
 #pragma unroll
@@ -1009,7 +1220,7 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
               HX * 16);
           const uint64_t db = smem_desc(wbase + tap * (2 * BN * 16), BN * 16,
                                         128);
-          wgmma_bf16<BN>(acc, da, db);
+          Op::template mma<BN>(acc, da, db);
         }
         wgmma_commit();
         wgmma_wait<1>();
@@ -1034,13 +1245,19 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
     consumers_sync();
 
     if (a.split > 1) {
+      // partial tiles (f32, or int32 whose sum is exact in any order)
       const long long tile = (long long)cb * a.nbricks + brick;
-      float* mine = a.partial +
-                    ((tile * a.split + split) * kConsumers + t) * (BN / 2);
+      Acc* mine = static_cast<Acc*>(a.partial) +
+                  ((tile * a.split + split) * kConsumers + t) * (BN / 2);
 #pragma unroll
-      for (int i = 0; i < BN / 2; i += 4)
-        *reinterpret_cast<float4*>(mine + i) =
-            make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+      for (int i = 0; i < BN / 2; i += 4) {
+        Acc4 v4;
+        v4.x = acc[i];
+        v4.y = acc[i + 1];
+        v4.z = acc[i + 2];
+        v4.w = acc[i + 3];
+        *reinterpret_cast<Acc4*>(mine + i) = v4;
+      }
       __threadfence();
       consumers_sync();
       if (t == 0) {
@@ -1053,13 +1270,14 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
       __threadfence();
       // the runs in split order, this CTA's own included, so the sum does
       // not depend on which CTA came last
-      const float* runs =
-          a.partial + (tile * a.split * kConsumers + t) * (BN / 2);
+      const Acc* runs = static_cast<const Acc*>(a.partial) +
+                        (tile * a.split * kConsumers + t) * (BN / 2);
 #pragma unroll
       for (int i = 0; i < BN / 2; i += 4) {
-        float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+        Acc4 sum;
+        sum.x = sum.y = sum.z = sum.w = 0;
         for (int s = 0; s < a.split; ++s) {
-          const float4 v = __ldcg(reinterpret_cast<const float4*>(
+          const Acc4 v = __ldcg(reinterpret_cast<const Acc4*>(
               runs + (long long)s * kConsumers * (BN / 2) + i));
           sum.x += v.x;
           sum.y += v.y;
@@ -1080,33 +1298,60 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
     const int zo = b.z0 + wg, xo = b.x0 + (lane >> 2), yo = b.y0 + 2 * w4;
     const bool in_zx = zo < a.d && xo < a.w;
     const bool valid0 = in_zx && yo < a.h, valid1 = in_zx && yo + 1 < a.h;
+    // the flat output voxel of row0 (row0 + 8 is the next y)
+    auto vox0 = [&]() {
+      return (((long long)b.n * a.d + zo) * a.h + yo) * a.w + xo;
+    };
     __nv_bfloat16* staged =
         reinterpret_cast<__nv_bfloat16*>(smem + C::OFF_STAGE);  // [128][LDO]
     const int row0 = wg * 64 + 16 * w4 + (lane >> 2);
-    // bias, LeakyReLU, the bf16 output staged; the statistics of the f32
-    // values summed over the warp's 16 rows of each column by shuffles.
-    // The gathered-halo instance reduces each column as it goes (fewer
-    // live registers, which it needs for two CTAs an SM without spills);
-    // the TMA instance keeps the partial sums and reduces them together.
+    // bf16 instances always write bf16: their epilogue has no branch on it
+    const int out_kind = Op::kS8 ? a.out_kind : 2;
+    if (Op::kS8 && out_kind == 0) {
+      // the raw int32 sums, straight from the registers
+      int* out = static_cast<int*>(a.out) + vox0() * a.cout;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int co = cb * BN + 8 * (i / 4) + 2 * (lane & 3) + (i & 1);
+        const bool valid = (i & 2) ? valid1 : valid0;
+        if (valid && co < a.cout)
+          out[((i & 2) ? (long long)a.w * a.cout : 0) + co] = (int)acc[i];
+      }
+      continue;
+    }
+    // the output value (bias, LeakyReLU; s8 the dequantize), the bf16
+    // output staged (float32 stored straight from the registers); the
+    // statistics of the f32 values summed over the warp's 16 rows of each
+    // column by shuffles. The gathered-halo instance reduces each column as
+    // it goes (fewer live registers, which it needs for two CTAs an SM
+    // without spills); the others keep the partial sums and reduce them
+    // together.
+    constexpr bool kKeep = SRC != kGathered;
     float* red = reinterpret_cast<float*>(smem + C::OFF_RED);  // [warps][2][BN]
-    float sum[TMA ? BN / 4 : 1], sq[TMA ? BN / 4 : 1];
+    float sum[kKeep ? BN / 4 : 1], sq[kKeep ? BN / 4 : 1];
+    const float sa = Op::kS8 && a.sa ? *a.sa : 0.f;
 #pragma unroll
     for (int jj = 0; jj < BN / 8; ++jj) {
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const int col = 8 * jj + 2 * (lane & 3) + q, co = cb * BN + col;
-        const float bias = (a.bias && co < a.cout) ? a.bias[co] : 0.f;
-        float v0 = acc[4 * jj + q] + bias, v1 = acc[4 * jj + 2 + q] + bias;
-        v0 = v0 >= 0.f ? v0 : v0 * a.act_slope;
-        v1 = v1 >= 0.f ? v1 : v1 * a.act_slope;
-        staged[row0 * C::LDO + col] = __float2bfloat16(v0);
-        staged[(row0 + 8) * C::LDO + col] = __float2bfloat16(v1);
+        const ColumnEpi ce = column_epi<Op>(a, sa, co);
+        float v0 = epi_value(a, acc[4 * jj + q], ce),
+              v1 = epi_value(a, acc[4 * jj + 2 + q], ce);
+        if (out_kind == 2) {
+          staged[row0 * C::LDO + col] = __float2bfloat16(v0);
+          staged[(row0 + 8) * C::LDO + col] = __float2bfloat16(v1);
+        } else if (co < a.cout) {
+          float* out = static_cast<float*>(a.out) + vox0() * a.cout + co;
+          if (valid0) out[0] = v0;
+          if (valid1) out[(long long)a.w * a.cout] = v1;
+        }
         v0 = valid0 ? v0 : 0.f;
         v1 = valid1 ? v1 : 0.f;
-        const int k = TMA ? 2 * jj + q : 0;
+        const int k = kKeep ? 2 * jj + q : 0;
         sum[k] = v0 + v1;
         sq[k] = v0 * v0 + v1 * v1;
-        if (!TMA && a.stats_part) {
+        if (!kKeep && a.stats_part) {
 #pragma unroll
           for (int m = 4; m < 32; m <<= 1) {
             sum[0] += __shfl_xor_sync(0xffffffffu, sum[0], m);
@@ -1119,7 +1364,7 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
         }
       }
     }
-    if (TMA && a.stats_part) {
+    if (kKeep && a.stats_part) {
 #pragma unroll
       for (int k = 0; k < BN / 4; ++k) {
 #pragma unroll
@@ -1151,15 +1396,17 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
       a.stats_part[(2 * (long long)brick) * a.cout + co] = s;
       a.stats_part[(2 * (long long)brick + 1) * a.cout + co] = s2;
     }
+    if (out_kind != 2) continue;
     // 16-byte stores of 8 channels, consecutive threads along a voxel's row
     const bool vec = a.cout % 8 == 0;
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
     for (int idx = t; idx < 64 * BZ * (BN / 8); idx += kConsumers) {
       const int r = idx / (BN / 8), cc = (idx % (BN / 8)) * 8;
       const int z = b.z0 + r / 64, y = b.y0 + (r % 64) / 8, x = b.x0 + r % 8;
       const int co = cb * BN + cc;
       if (z >= a.d || y >= a.h || x >= a.w || co >= a.cout) continue;
       __nv_bfloat16* dst =
-          a.out + ((((long long)b.n * a.d + z) * a.h + y) * a.w + x) * a.cout +
+          out + ((((long long)b.n * a.d + z) * a.h + y) * a.w + x) * a.cout +
           co;
       const __nv_bfloat16* src = staged + r * C::LDO + cc;
       if (vec) {
@@ -1174,7 +1421,7 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
 // stats[n, :, co] from the slots of sample n, summed in slot order: 32
 // groups of a block each add every 32nd slot, then one thread adds the
 // groups in order. Sample n's slots are [lo, hi]: bricks n * per ..
-// n * per + per - 1 (bf16, bm 0), or the segments t + n of the 64-row
+// n * per + per - 1 (wgmma, bm 0), or the segments t + n of the 64-row
 // tiles t that hold its rows (fp32, bm 64).
 constexpr int kReduceGroups = 32;
 __global__ void __launch_bounds__(32 * kReduceGroups)
@@ -1225,11 +1472,11 @@ cudaError_t reduce_stats(const float* part, float* stats, int n, int cout,
 // the bricks. A small grid gets a CTA for each brick instead: its few
 // waves would leave SMs idle in the last one.
 constexpr int kPersistWaves = 8;
-template <int BN, bool TMA>
+template <class Op, int BN, int SRC, typename TIn>
 cudaError_t launch_wgmma(const WArgs& a, int ncb, cudaStream_t s) {
-  using C = hw::Cfg<BN>;
+  using C = hw::Cfg<BN, SRC>;
   static int sms = 0;
-  auto kernel = conv3d_wgmma_kernel<BN, TMA>;
+  auto kernel = conv3d_wgmma_kernel<Op, BN, SRC, TIn>;
   if (sms == 0) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -1253,6 +1500,84 @@ cudaError_t launch_wgmma(const WArgs& a, int ncb, cudaStream_t s) {
   const dim3 grid((unsigned)ctas, ncb, a.split);
   kernel<<<grid, hw::kCtaThreads, C::SMEM, s>>>(a);
   return cudaGetLastError();
+}
+
+// The wgmma kernels' common arguments: the parts (tensor maps with a box
+// of `box` channels of `type`, elem bytes each, where tma), weights,
+// geometry and split. Returns cudaSuccess or cudaErrorInvalidValue.
+cudaError_t setup_wgmma(WArgs& a, const void* const* ps, const int* cs,
+                        int nparts, int kc, int tma, int elem,
+                        CUtensorMapDataType type, int box, const void* wt,
+                        const void* bias, void* out, void* stats,
+                        void* stats_part, void* partial, void* counter,
+                        int n, int d, int h, int w, int cout, int bn,
+                        int nchunk, int split, int per_split) {
+  memset(&a, 0, sizeof(a));
+  if (nparts < 1 || nparts > kMaxParts || (bn != 64 && bn != 128))
+    return cudaErrorInvalidValue;
+  int off = 0;
+  for (int i = 0; i < nparts; ++i) {
+    a.part[i] = ps[i];
+    a.part_c[i] = cs[i];
+    a.part_off[i] = off;
+    off += cs[i];
+    if (tma && (cs[i] % kc || !aligned16(ps[i])))
+      return cudaErrorInvalidValue;
+  }
+  for (int i = nparts; i < kMaxParts; ++i) a.part_off[i] = off;
+  a.nparts = nparts;
+  a.wt = wt;
+  a.bias = static_cast<const float*>(bias);
+  a.pro_slope = a.act_slope = 1.f;
+  a.out = out;
+  a.stats_part = static_cast<float*>(stats_part);
+  a.partial = partial;
+  a.counter = static_cast<int*>(counter);
+  a.n = n;
+  a.d = d;
+  a.h = h;
+  a.w = w;
+  a.cin = off;
+  a.cout = cout;
+  a.nchunk = nchunk;
+  a.split = split;
+  a.per_split = per_split;
+  a.nzb = (d + hw::BZ - 1) / hw::BZ;
+  a.nyb = (h + hw::BY - 1) / hw::BY;
+  a.nxb = (w + hw::BX - 1) / hw::BX;
+  a.nbricks = n * a.nzb * a.nyb * a.nxb;
+  if (nchunk * kc < off || split < 1 || per_split < 1 ||
+      (long long)split * per_split < nchunk ||
+      (split > 1 && (partial == nullptr || counter == nullptr)) ||
+      (stats == nullptr) != (stats_part == nullptr))
+    return cudaErrorInvalidValue;
+  if (tma && (long long)n * d * h * w > 0) {
+    EncodeTiledFn encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorSymbolNotFound;
+    for (int i = 0; i < nparts; ++i) {
+      const cuuint64_t c = (cuuint64_t)cs[i];
+      const cuuint64_t dims[5] = {c, (cuuint64_t)w, (cuuint64_t)h,
+                                  (cuuint64_t)d, (cuuint64_t)n};
+      const cuuint64_t strides[4] = {c * elem, c * elem * w,
+                                     c * elem * w * h, c * elem * w * h * d};
+      const cuuint32_t boxd[5] = {(cuuint32_t)box, hw::HX, hw::HY, hw::HZ, 1};
+      const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+      const CUresult r = encode(
+          &a.map[i], type, 5, const_cast<void*>(ps[i]), dims, strides, boxd,
+          unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+    }
+  }
+  return cudaSuccess;
+}
+
+template <class Op, int SRC, typename TIn>
+cudaError_t launch_bn(const WArgs& a, int bn, cudaStream_t s) {
+  const int ncb = (a.cout + bn - 1) / bn;
+  return bn == 64 ? launch_wgmma<Op, 64, SRC, TIn>(a, ncb, s)
+                  : launch_wgmma<Op, 128, SRC, TIn>(a, ncb, s);
 }
 
 }  // namespace
@@ -1339,158 +1664,83 @@ extern "C" int conv3x3_bf16_forward(
     void* counter, int n, int d, int h, int w, int cout, int bn, int nchunk,
     int split, int per_split, int tma, void* stream) {
   WArgs a;   // holds four 64-byte-aligned tensor maps
-  memset(&a, 0, sizeof(a));
   const void* ps[kMaxParts] = {p0, p1, p2, p3};
   const int cs[kMaxParts] = {c0, c1, c2, c3};
-  if (nparts < 1 || nparts > kMaxParts || (bn != 64 && bn != 128))
-    return (int)cudaErrorInvalidValue;
-  int off = 0;
-  for (int i = 0; i < nparts; ++i) {
-    a.part[i] = static_cast<const __nv_bfloat16*>(ps[i]);
-    a.part_c[i] = cs[i];
-    a.part_off[i] = off;
-    off += cs[i];
-    if (tma && (cs[i] % hw::KC || !aligned16(ps[i])))
-      return (int)cudaErrorInvalidValue;
-  }
-  for (int i = nparts; i < kMaxParts; ++i) a.part_off[i] = off;
-  a.nparts = nparts;
-  a.wt = static_cast<const __nv_bfloat16*>(wt);
-  a.bias = static_cast<const float*>(bias);
+  cudaError_t err = setup_wgmma(
+      a, ps, cs, nparts, Bf16Op::KC, tma, 2, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      8, wt, bias, out, stats, stats_part, partial, counter, n, d, h, w,
+      cout, bn, nchunk, split, per_split);
+  if (err != cudaSuccess) return (int)err;
   a.pro_scale = static_cast<const float*>(pro_scale);
   a.pro_shift = static_cast<const float*>(pro_shift);
   a.pro_const = static_cast<const float*>(pro_const);
   a.pro_slope = pro_slope;
   a.act_slope = act_slope;
-  a.out = static_cast<__nv_bfloat16*>(out);
-  a.stats_part = static_cast<float*>(stats_part);
-  a.partial = static_cast<float*>(partial);
-  a.counter = static_cast<int*>(counter);
-  a.n = n;
-  a.d = d;
-  a.h = h;
-  a.w = w;
-  a.cin = off;
-  a.cout = cout;
-  a.nchunk = nchunk;
-  a.split = split;
-  a.per_split = per_split;
-  a.nzb = (d + hw::BZ - 1) / hw::BZ;
-  a.nyb = (h + hw::BY - 1) / hw::BY;
-  a.nxb = (w + hw::BX - 1) / hw::BX;
-  a.nbricks = n * a.nzb * a.nyb * a.nxb;
+  a.out_kind = 2;
   if ((long long)n * d * h * w == 0) return (int)cudaSuccess;
-  if (nchunk * hw::KC < off || split < 1 || per_split < 1 ||
-      (long long)split * per_split < nchunk ||
-      (split > 1 && (partial == nullptr || counter == nullptr)) ||
-      (stats == nullptr) != (stats_part == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (tma) {
-    EncodeTiledFn encode = encode_tiled();
-    if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-    for (int i = 0; i < nparts; ++i) {
-      const cuuint64_t c = (cuuint64_t)cs[i];
-      const cuuint64_t dims[5] = {c, (cuuint64_t)w, (cuuint64_t)h,
-                                  (cuuint64_t)d, (cuuint64_t)n};
-      const cuuint64_t strides[4] = {c * 2, c * 2 * w, c * 2 * w * h,
-                                     c * 2 * w * h * d};
-      const cuuint32_t box[5] = {8, hw::HX, hw::HY, hw::HZ, 1};
-      const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-      const CUresult r = encode(
-          &a.map[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
-          const_cast<void*>(ps[i]), dims, strides, box, unit,
-          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-      if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
-    }
-  }
-  const int ncb = (cout + bn - 1) / bn;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (bn == 64)
-    err = tma ? launch_wgmma<64, true>(a, ncb, s)
-              : launch_wgmma<64, false>(a, ncb, s);
-  else
-    err = tma ? launch_wgmma<128, true>(a, ncb, s)
-              : launch_wgmma<128, false>(a, ncb, s);
+  err = tma ? launch_bn<Bf16Op, hw::kTma, __nv_bfloat16>(a, bn, s)
+            : launch_bn<Bf16Op, hw::kGathered, __nv_bfloat16>(a, bn, s);
   if (err == cudaSuccess && stats != nullptr)
     err = reduce_stats(a.stats_part, static_cast<float*>(stats), n, cout,
                        a.nzb * a.nyb * a.nxb, 0, 0, s);
   return (int)err;
 }
 
-// W8A8 int8 (mma.sync s8). Parts and wt are int8; wt is (cout_pad, k_pad)
-// with k = tap * cin + ci, k_pad a multiple of 64 and cout_pad of 64, zero
-// padded. out_kind 0: out is the raw int32 sums (sa, sw, bias, stats
-// unused); 1: float32; 2: bfloat16, each f32(acc) * (sa * sw[co]) +
-// bias[co] with sa a device scalar. stats (n, 2, cout) needs stats_part,
-// (ceil(n * d * h * w / 128) + n, 2, cout) f32 slots. Returns the
-// cudaError_t of the launches (0 on success).
+// W8A8 int8 (wgmma s8) on the bf16 kernel's design. in_kind 0: int8 parts;
+// 1 bfloat16 and 2 float32 parts, quantized on load with the activation
+// scale sa (a device scalar), after the prologue where pro_scale is given
+// ((n, cin) rows of a, b and c, rounded to the parts' type, and the slope).
+// wt is packed as (cout_pad / bn, nchunk, 27, 2, bn, 16) int8 with nchunk =
+// ceil(cin / 32), zero padded. out_kind 0: out is the raw int32 sums (sw,
+// bias, stats unused); 1 float32, 2 bfloat16: f32(acc) * (sa * sw[co]) +
+// bias[co]. tma 1: every part's channels are a multiple of 32 and its
+// pointer 16-byte aligned (int8 or bfloat16 parts), 0: gathered. split,
+// partial, counter, stats and stats_part as for bfloat16 (the partials are
+// int32). Returns the cudaError_t of the launches (0 on success).
 extern "C" int conv3x3_s8_forward(
     const void* p0, const void* p1, const void* p2, const void* p3, int c0,
-    int c1, int c2, int c3, int nparts, const void* wt, const void* sa,
-    const void* sw, const void* bias, int out_kind, void* out, void* stats,
-    void* stats_part, int n, int d, int h, int w, int cout, int k_pad,
-    int cout_pad, void* stream) {
-  QArgs q;
-  ConvArgs& a = q.c;
-  memset(&q, 0, sizeof(q));
+    int c1, int c2, int c3, int nparts, int in_kind, const void* wt,
+    const void* sa, const void* sw, const void* bias, const void* pro_scale,
+    const void* pro_shift, const void* pro_const, float pro_slope,
+    int out_kind, void* out, void* stats, void* stats_part, void* partial,
+    void* counter, int n, int d, int h, int w, int cout, int bn, int nchunk,
+    int split, int per_split, int tma, void* stream) {
+  WArgs a;
   const void* ps[kMaxParts] = {p0, p1, p2, p3};
   const int cs[kMaxParts] = {c0, c1, c2, c3};
-  if (nparts < 1 || nparts > kMaxParts || out_kind < 0 || out_kind > 2)
+  if (in_kind < 0 || in_kind > 2 || out_kind < 0 || out_kind > 2 ||
+      (in_kind == 2 && tma) || (out_kind == 0 && stats != nullptr) ||
+      (out_kind != 0 && (sa == nullptr || sw == nullptr)) ||
+      (in_kind != 0 && sa == nullptr) ||
+      (pro_scale != nullptr && (in_kind == 0 || pro_shift == nullptr)))
     return (int)cudaErrorInvalidValue;
-  bool vec = true;
-  int off = 0;
-  for (int i = 0; i < kMaxParts; ++i) {
-    const bool used = i < nparts;
-    a.part[i] = used ? ps[i] : ps[0];
-    a.part_c[i] = used ? cs[i] : 0;
-    a.part_off[i] = off;
-    if (used) {
-      vec = vec && cs[i] % 16 == 0 && aligned16(ps[i]);
-      off += cs[i];
-    }
-  }
-  a.nparts = nparts;
-  a.wt = wt;
-  a.bias = static_cast<const float*>(bias);
-  a.out = out;
-  a.stats_part = static_cast<float*>(stats_part);
-  a.n = n;
-  a.d = d;
-  a.h = h;
-  a.w = w;
-  a.cin = off;
-  a.cout = cout;
-  a.k_total = 27 * off;
-  a.k_pad = k_pad;
-  a.spatial = d * h * w;
-  a.m_total = (long long)n * d * h * w;
-  q.sa = static_cast<const float*>(sa);
-  q.sw = static_cast<const float*>(sw);
-  if (a.m_total == 0) return (int)cudaSuccess;
-  if (k_pad % s8::BK || k_pad < a.k_total || cout_pad % s8::BN ||
-      cout_pad < cout || (stats == nullptr) != (stats_part == nullptr) ||
-      (out_kind == 0 && stats != nullptr) ||
-      (out_kind != 0 && (sa == nullptr || sw == nullptr)))
-    return (int)cudaErrorInvalidValue;
+  cudaError_t err = setup_wgmma(
+      a, ps, cs, nparts, S8Op::KC, tma, in_kind == 1 ? 2 : 1,
+      in_kind == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                   : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      in_kind == 1 ? 8 : 16, wt, bias, out, stats, stats_part, partial,
+      counter, n, d, h, w, cout, bn, nchunk, split, per_split);
+  if (err != cudaSuccess) return (int)err;
+  a.sa = static_cast<const float*>(sa);
+  a.sw = static_cast<const float*>(sw);
+  a.pro_scale = static_cast<const float*>(pro_scale);
+  a.pro_shift = static_cast<const float*>(pro_shift);
+  a.pro_const = static_cast<const float*>(pro_const);
+  a.pro_slope = pro_slope;
+  a.out_kind = out_kind;
+  if ((long long)n * d * h * w == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)((a.m_total + s8::BM - 1) / s8::BM),
-                  cout_pad / s8::BN);
-  auto launch = [&](auto kernel) { kernel<<<grid, kThreads, 0, s>>>(q); };
-  if (out_kind == 0)
-    vec ? launch(conv3d_s8_kernel<int, true>)
-        : launch(conv3d_s8_kernel<int, false>);
-  else if (out_kind == 1)
-    vec ? launch(conv3d_s8_kernel<float, true>)
-        : launch(conv3d_s8_kernel<float, false>);
+  if (in_kind == 0)
+    err = tma ? launch_bn<S8Op, hw::kTma, int8_t>(a, bn, s)
+              : launch_bn<S8Op, hw::kGathered, int8_t>(a, bn, s);
+  else if (in_kind == 1)
+    err = tma ? launch_bn<S8Op, hw::kStaged, __nv_bfloat16>(a, bn, s)
+              : launch_bn<S8Op, hw::kGathered, __nv_bfloat16>(a, bn, s);
   else
-    vec ? launch(conv3d_s8_kernel<__nv_bfloat16, true>)
-        : launch(conv3d_s8_kernel<__nv_bfloat16, false>);
-  cudaError_t err = cudaGetLastError();
+    err = launch_bn<S8Op, hw::kGathered, float>(a, bn, s);
   if (err == cudaSuccess && stats != nullptr)
-    err = reduce_stats(a.stats_part, static_cast<float*>(stats), n, cout, 0,
-                       a.spatial, s8::BM, s);
+    err = reduce_stats(a.stats_part, static_cast<float*>(stats), n, cout,
+                       a.nzb * a.nyb * a.nxb, 0, 0, s);
   return (int)err;
 }

@@ -84,6 +84,9 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void reg_fence(float& v) {
   asm volatile("" : "+f"(v)::"memory");
 }
+__device__ __forceinline__ void reg_fence(int& v) {
+  asm volatile("" : "+r"(v)::"memory");
+}
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;

@@ -109,8 +109,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.conv3x3_f32_forward.restype = i
     lib.conv3x3_bf16_forward.argtypes = conv_head + [p, p] + [i] * 10 + [p]
     lib.conv3x3_bf16_forward.restype = i
-    lib.conv3x3_s8_forward.argtypes = ([p] * 4 + [i] * 5 + [p] * 4
-                                       + [i, p, p, p] + [i] * 7 + [p])
+    lib.conv3x3_s8_forward.argtypes = ([p] * 4 + [i] * 6 + [p] * 7
+                                       + [f, i] + [p] * 5 + [i] * 10 + [p])
     lib.conv3x3_s8_forward.restype = i
     lib.conv3x3_wgrad.argtypes = ([p] * 5 + [i] * 5 + [p] * 3 + [f]
                                   + [p] * 2 + [i] * 12 + [p])

@@ -25,8 +25,9 @@ from torch import nn
 
 from diff_unet_tpu_torch.ops.conv3d import _acc_dtype, conv3x3, \
     norm_affine_from_stats
-from diff_unet_tpu_torch.ops.int8 import act_scale, conv3x3_int8, \
-    deconv2_int8, quantize_act, quantize_kernel
+from diff_unet_tpu_torch.ops.int8 import QUANT_ON_LOAD, act_scale, \
+    apply_prologue, conv3x3_int8, deconv2_int8, quantize_act, \
+    quantize_input, quantize_kernel
 
 TEMB_DIM = 128
 TEMB_FEATURES = 512
@@ -441,14 +442,22 @@ class ConvNormAct(nn.Module):
         return F.leaky_relu(self.norm(self.conv(x)), self.negative_slope)
 
     def conv_int8(self, parts: Sequence[torch.Tensor],
-                  out_dtype: torch.dtype):
+                  out_dtype: torch.dtype, prologue=None):
         """W8A8 conv of the parts' concat: one activation scale over all
-        parts, each quantized in its dtype; (y in ``out_dtype``, its (N,
-        2, Cout) statistics)."""
+        parts, each quantized in its dtype by the s8 kernel as it loads
+        them, after the norm ``prologue`` (a, b, film, slope) where one is
+        given (which needs a recorded scale: a dynamic one is the abs-max
+        of the parts as given); (y in ``out_dtype``, its (N, 2, Cout)
+        statistics). float64 parts (the CPU's exact parity dtype, which
+        the kernel does not take) are quantized here first, as the JAX
+        block quantizes before ``conv_int8``: the int8 input stands at the
+        conv's boundary, where the parity tests read it."""
         wq, sw = quant_weights(self, "", self.conv.weight, 0)
         sa = quant_act_scale(self, "", parts)
-        return conv3x3_int8([quantize_act(p, sa) for p in parts], wq, sa, sw,
-                            self.conv.bias, out_dtype, with_stats=True)
+        if parts[0].dtype not in QUANT_ON_LOAD:
+            parts, prologue = quantize_input(parts, sa, prologue), None
+        return conv3x3_int8(parts, wq, sa, sw, self.conv.bias, out_dtype,
+                            with_stats=True, prologue=prologue)
 
 
 class TwoConv(nn.Module):
@@ -470,10 +479,13 @@ class TwoConv(nn.Module):
     ``quantize`` (inference, instance norm) runs both convs W8A8 on the s8
     conv kernel (``ConvNormAct.conv_int8``), as the JAX package's quantized
     ``ConvNormAct`` does: conv_0 (with statistics) -> norm, LeakyReLU and
-    FiLM add materialized in the compute dtype -> one activation scale ->
-    conv_1 (with statistics) -> norm -> LeakyReLU. The input parts are
-    quantized in their promoted dtype, as the JAX package quantizes their
-    concat, uncast."""
+    FiLM add in the compute dtype -> one activation scale -> conv_1 (with
+    statistics) -> norm -> LeakyReLU. The kernel quantizes each conv's
+    input as it loads it; with a recorded (static) scale on conv_1 the
+    norm, LeakyReLU and FiLM add run there too, as its prologue, and their
+    output is never written; a dynamic scale is the abs-max of that output,
+    so it is materialized first. The input parts are quantized in their
+    promoted dtype, as the JAX package quantizes their concat, uncast."""
 
     def __init__(self, in_features: int, features: int, use_temb: bool = True,
                  negative_slope: float = 0.1, norm: str = "instance",
@@ -537,17 +549,22 @@ class TwoConv(nn.Module):
         slope = self.negative_slope
         count = math.prod(parts[0].shape[1:4])
 
-        def norm_act(conv, y, stats):
-            # InstanceNorm's affine rounded to the compute dtype, applied in it
+        def affine(conv, stats):
+            # InstanceNorm's affine rounded to the compute dtype, applied in
+            # it (with the FiLM add) by apply_prologue or the kernel
             a, b = norm_affine_from_stats(stats, conv.norm.weight,
                                           conv.norm.bias, count)
-            return F.leaky_relu(y * a.to(dt)[:, None, None, None]
-                                + b.to(dt)[:, None, None, None], slope)
+            return a.to(dt), b.to(dt)
 
-        u = norm_act(c0, *c0.conv_int8(parts, dt))
-        if film is not None:
-            u = u + film.to(dt)[:, None, None, None]
-        return norm_act(c1, *c1.conv_int8([u], dt))
+        y0, st0 = c0.conv_int8(parts, dt)
+        pro = (*affine(c0, st0), None if film is None else film.to(dt),
+               slope)
+        if c1.sa is None:
+            # a dynamic scale is the abs-max of u: materialize it
+            y1, st1 = c1.conv_int8(apply_prologue([y0], pro), dt)
+        else:
+            y1, st1 = c1.conv_int8([y0], dt, prologue=pro)
+        return apply_prologue([y1], (*affine(c1, st1), None, slope))[0]
 
 
 class Down(nn.Module):

@@ -80,20 +80,17 @@ WGRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 # a fraction of each gradient's max |g|: in bfloat16 the Function rounds g
 # to bf16 before both products, where autograd keeps it in float32
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-# the bfloat16 kernel's geometry (csrc/conv3d.cu, namespace hw): a CTA
-# owns a (z, y, x) brick of output voxels of one sample, one z slice for
-# each of its two consumer warpgroups, and takes the input in chunks of
-# CHUNK channels; grids under MIN_CTAS CTAs split the chunks
+# the wgmma kernel's geometry (csrc/conv3d.cu, namespace hw): a CTA owns a
+# (z, y, x) brick of output voxels of one sample, one z slice for each of
+# its two consumer warpgroups, and takes the input in chunks of CHUNK
+# bfloat16 or CHUNK_S8 int8 channels (32 bytes of K a voxel either way);
+# grids under MIN_CTAS CTAs split the chunks
 BRICK = (2, 8, 8)
 CONSUMER_THREADS = 256
 CHUNK = 16
+CHUNK_S8 = 32
 MIN_CTAS = 2 * 132                 # two CTAs for each SM of an H100
 F32_TILE_ROWS = 64                 # output voxels of a float32 kernel tile
-# the int8 kernel's geometry (csrc/conv3d.cu, namespace s8): tiles of
-# S8_TILE_ROWS output voxels x S8_BN output channels, K in stages of S8_K
-S8_TILE_ROWS = 128
-S8_BN = 64
-S8_K = 64
 Prologue = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
                  Optional[float]]
 
@@ -202,7 +199,8 @@ def _cdiv(a: int, b: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ConvPlan:
-    """Launch plan of the bfloat16 kernel for one conv: the work is
+    """Launch plan of the wgmma kernel (bfloat16 or int8) for one conv:
+    the work is
     ``grid`` = (bricks, Cout blocks of ``bn``, ``split``) tiles, tile
     (brick, block, s) taking the channel chunks ``chunks(s)``. The kernel
     gives a small grid a CTA for each tile and runs a large one on
@@ -213,10 +211,11 @@ class ConvPlan:
     cin: int
     cout: int
     bn: int                        # output channels per CTA: 64 or 128
-    nchunk: int                    # ceil(cin / CHUNK)
+    nchunk: int                    # ceil(cin / chunk)
     split: int                     # CTAs that share one output tile
     per_split: int                 # chunks per split (the last may be short)
     tma: bool                      # halo by TMA (else gathered)
+    chunk: int = CHUNK             # channels a chunk: CHUNK, int8 CHUNK_S8
 
     @property
     def blocks(self) -> Tuple[int, int, int]:
@@ -242,7 +241,8 @@ class ConvPlan:
                      min(self.nchunk, (s + 1) * self.per_split))
 
     def workspace(self) -> Tuple[int, int]:
-        """(f32 partial-tile elements, int32 counters) for split > 1."""
+        """(partial-tile elements, f32 or int32 for int8, and int32
+        counters) for split > 1."""
         if self.split == 1:
             return 0, 0
         tiles = self.grid[0] * self.grid[1]
@@ -253,24 +253,25 @@ def stats_slots(n: int, dims: Sequence[int],
                 plan: Optional[ConvPlan] = None,
                 rows: int = F32_TILE_ROWS) -> int:
     """Slots of the statistics' partial sums (each ``2 * Cout`` floats):
-    one per brick of the bfloat16 ``plan``; in float32 (no plan; int8 with
-    ``rows`` = ``S8_TILE_ROWS``) one per segment of a sample in a tile of
-    ``rows`` voxels, segment (tile t, sample s) in slot t + s. The kernel
-    adds sample s's slots up in order."""
+    one per brick of the wgmma kernel's ``plan``; in float32 (no plan) one
+    per segment of a sample in a tile of ``rows`` voxels, segment (tile t,
+    sample s) in slot t + s. The kernel adds sample s's slots up in
+    order."""
     if plan is not None:
         return plan.grid[0]
     return _cdiv(n * dims[0] * dims[1] * dims[2], rows) + n
 
 
 def conv_plan(n: int, dims: Sequence[int], chans: Sequence[int], cout: int,
-              aligned: bool = True) -> ConvPlan:
-    """The bfloat16 kernel's plan from the shapes: Cout blocks of 64 (Cout
-    <= 64) or 128; a grid under ``MIN_CTAS`` CTAs splits the channel chunks
-    across more; the halo comes by TMA when every part's channels are a
-    multiple of ``CHUNK`` (a chunk then lies in one part) and its pointer
-    is 16-byte aligned (``aligned``)."""
+              aligned: bool = True, chunk: int = CHUNK) -> ConvPlan:
+    """The wgmma kernel's plan from the shapes, with chunks of ``chunk``
+    channels (``CHUNK``; int8 ``CHUNK_S8``): Cout blocks of 64 (Cout <= 64)
+    or 128; a grid under ``MIN_CTAS`` CTAs splits the channel chunks across
+    more; the halo comes by TMA when every part's channels are a multiple
+    of ``chunk`` (a chunk then lies in one part) and its pointer is 16-byte
+    aligned (``aligned``)."""
     cin = sum(chans)
-    nchunk = _cdiv(cin, CHUNK)
+    nchunk = _cdiv(cin, chunk)
     bn = 64 if cout <= 64 else 128
     blocks = [_cdiv(s, b) for s, b in zip(dims, BRICK)]
     ctas = n * blocks[0] * blocks[1] * blocks[2] * _cdiv(cout, bn)
@@ -279,7 +280,8 @@ def conv_plan(n: int, dims: Sequence[int], chans: Sequence[int], cout: int,
     return ConvPlan(n=n, dims=tuple(dims), cin=cin, cout=cout, bn=bn,
                     nchunk=nchunk, split=_cdiv(nchunk, per_split),
                     per_split=per_split,
-                    tma=aligned and all(c % CHUNK == 0 for c in chans))
+                    tma=aligned and all(c % chunk == 0 for c in chans),
+                    chunk=chunk)
 
 
 # the weight-gradient kernel's geometry (csrc/conv3d_wgrad.cu). float32: a
@@ -439,26 +441,39 @@ def wgrad_plan(n: int, dims: Tuple[int, int, int], cin: int, cout: int,
                      tx=tx, ty=ty, slices=slices, dense=True)
 
 
-def pack_weight(weight: torch.Tensor, bn: int) -> torch.Tensor:
-    """(Cout, Cin, 3, 3, 3) -> the bfloat16 kernel's layout (Cout_pad / bn,
-    nchunk, 27, 2, bn, 8), zero-padded: element [cb, j, tap, g, c, e] is
-    weight[cb * bn + c, 16 j + 8 g + e, tap]. One (cb, j, dz) slab of 9
-    taps is one contiguous stage of the kernel's weight ring, in wgmma's
-    core-matrix layout (8 output channels x 8 input channels, 128 bytes)."""
+def pack_weight(weight: torch.Tensor, bn: int,
+                chunk: int = CHUNK) -> torch.Tensor:
+    """(Cout, Cin, 3, 3, 3) -> the wgmma kernel's layout (Cout_pad / bn,
+    nchunk, 27, 2, bn, chunk / 2), zero-padded: element [cb, j, tap, g, c,
+    e] is weight[cb * bn + c, chunk j + chunk / 2 g + e, tap]. One (cb, j,
+    dz) slab of 9 taps is one contiguous stage of the kernel's weight ring,
+    in wgmma's K-major core-matrix layout (8 output channels x 16 bytes of
+    input channels, 128 bytes)."""
     cout, cin = weight.shape[:2]
-    ncb, nchunk = _cdiv(cout, bn), _cdiv(cin, CHUNK)
-    w = torch.zeros((ncb * bn, nchunk * CHUNK, 27), dtype=weight.dtype,
+    ncb, nchunk = _cdiv(cout, bn), _cdiv(cin, chunk)
+    w = torch.zeros((ncb * bn, nchunk * chunk, 27), dtype=weight.dtype,
                     device=weight.device)
     w[:cout, :cin] = weight.reshape(cout, cin, 27)
-    w = w.reshape(ncb, bn, nchunk, 2, 8, 27).permute(0, 2, 5, 3, 1, 4)
+    w = w.reshape(ncb, bn, nchunk, 2, chunk // 2, 27).permute(0, 2, 5, 3, 1,
+                                                               4)
     return w.contiguous()
 
 
+def pack_weight_s8(wq: torch.Tensor, bn: int) -> torch.Tensor:
+    """The int8 kernel's layout: ``pack_weight`` of the int8 (Cout, Cin,
+    3, 3, 3) ``wq`` with chunks of ``CHUNK_S8``, (Cout_pad / bn, nchunk,
+    27, 2, bn, 16): element [cb, j, tap, g, c, e] is wq[cb * bn + c, 32 j +
+    16 g + e, tap]; a (cb, j, dz) stage is 9 * 32 * bn bytes, as bfloat16's
+    is."""
+    return pack_weight(wq, bn, CHUNK_S8)
+
+
 def unpack_weight(packed: torch.Tensor, cout: int, cin: int) -> torch.Tensor:
-    """The inverse of ``pack_weight``: (Cout, Cin, 3, 3, 3)."""
-    ncb, nchunk, _, _, bn, _ = packed.shape
-    w = packed.permute(0, 4, 1, 3, 5, 2).reshape(ncb * bn, nchunk * CHUNK,
-                                                 27)
+    """The inverse of ``pack_weight`` (and ``pack_weight_s8``): (Cout,
+    Cin, 3, 3, 3)."""
+    ncb, nchunk, _, _, bn, half = packed.shape
+    w = packed.permute(0, 4, 1, 3, 5, 2).reshape(ncb * bn,
+                                                 nchunk * 2 * half, 27)
     return w[:cout, :cin].reshape(cout, cin, 3, 3, 3)
 
 
@@ -473,19 +488,6 @@ def pack_weight_f32(weight: torch.Tensor) -> torch.Tensor:
     return w
 
 
-def pack_weight_s8(wq: torch.Tensor) -> torch.Tensor:
-    """The s8 kernel's layout (``ops/int8.py``): (Cout_pad, K_pad) int8,
-    k = tap * Cin + ci, K padded to a multiple of ``S8_K`` and Cout of
-    ``S8_BN`` with zeros; each 64-k stage of an output channel is one
-    K-major row of the kernel's B tile."""
-    cout, cin = wq.shape[:2]
-    k = 27 * cin
-    w = torch.zeros((_cdiv(cout, S8_BN) * S8_BN, _cdiv(k, S8_K) * S8_K),
-                    dtype=torch.int8, device=wq.device)
-    w[:cout, :k] = wq.permute(0, 2, 3, 4, 1).reshape(cout, k)
-    return w
-
-
 # (id(weight), transposed) -> (weakref to the weight, key, packed weights)
 _PACKED: dict = {}
 
@@ -494,8 +496,9 @@ def packed_weight(weight: torch.Tensor, dtype: torch.dtype,
                   device: torch.device, bn: int = 0,
                   transposed: bool = False) -> torch.Tensor:
     """``weight`` in the kernel's layout for ``dtype`` (``pack_weight``
-    with Cout blocks of ``bn`` for bfloat16, ``pack_weight_f32`` for
-    float32, ``pack_weight_s8`` for an int8 ``weight``), on ``device``;
+    with Cout blocks of ``bn`` for bfloat16, ``pack_weight_s8`` with them
+    for an int8 ``weight``, ``pack_weight_f32`` for float32), on
+    ``device``;
     with ``transposed``, the dgrad weights ``flip_weight(weight)``
     instead, kept beside the forward pack. The
     result is kept while the weight tensor lives and reused while its
@@ -515,7 +518,7 @@ def packed_weight(weight: torch.Tensor, dtype: torch.dtype,
     if transposed:
         w = flip_weight(w)
     if dtype == torch.int8:
-        packed = pack_weight_s8(w)
+        packed = pack_weight_s8(w, bn)
     elif dtype == torch.bfloat16:
         packed = pack_weight(w, bn)
     else:

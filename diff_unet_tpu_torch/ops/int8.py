@@ -17,19 +17,25 @@ In bf16 the divide ``x / bf16(sa)`` is rounded to bf16 before the round,
 as written; XLA on the CPU may keep the quotient in float32, so a bf16
 comparison with the JAX package can differ by one at exact .5 quotients.
 
-The convs: ``conv3x3_int8`` (3x3x3 SAME over int8 NDHWC parts whose
-channel concat is the input, as ``ops/conv3d.py:conv3x3`` takes them) and
+The convs: ``conv3x3_int8`` (3x3x3 SAME over NDHWC parts whose channel
+concat is the input, as ``ops/conv3d.py:conv3x3`` takes them) and
 ``deconv2_int8`` (the k2 s2 transposed conv of ``UpCat``). Each returns the
 raw int32 sums, or with ``sa`` and ``sw`` the rescaled output (and, for
 the conv, the per-(sample, channel) sum and sum of squares of the float32
-values, as the bf16 conv takes its statistics). CPU tensors take the plain
-versions: a float64 convolution of the int8 values, exact since |acc| <=
-127^2 * 27 * Cin < 2^53 (float32 is not), rounded to int32. CUDA tensors
-take ``csrc/conv3d.cu``'s s8 kernel (the conv; its launches are counted in
-``conv3x3_int8.launches``) and, for the deconv, one int8 GEMM (voxels,
-Cin) x (Cin, 8 Cout) through ``torch._int_mm`` (the JAX package leaves it
-to XLA: no Pallas kernel), then the rescale and the scatter into the 2x
-grid in tensor code.
+values, as the bf16 conv takes its statistics). The conv takes int8 parts,
+or float parts (``QUANT_ON_LOAD``) with ``sa``, which it quantizes on load
+as ``quantize_input`` does: ``quantize_act`` of each part, after the norm
+prologue ``(a, b, film, slope)`` where one is given (the tensor chain of
+``TwoConv``: ``leaky_relu(x * a + b, slope) + film``, each operation
+rounded to the parts' dtype). CPU tensors take the plain versions: that
+tensor code, then a float64 convolution of the int8 values, exact since
+|acc| <= 127^2 * 27 * Cin < 2^53 (float32 is not), rounded to int32. CUDA
+tensors take ``csrc/conv3d.cu``'s s8 instance of the wgmma conv kernel
+(the conv; its launches are counted in ``conv3x3_int8.launches``) and, for
+the deconv, one int8 GEMM (voxels, Cin) x (Cin, 8 Cout) through
+``torch._int_mm`` (the JAX package leaves it to XLA: no Pallas kernel),
+then the rescale on that compact output and the scatter of the result
+into the 2x grid in tensor code.
 """
 from __future__ import annotations
 
@@ -39,10 +45,14 @@ import torch
 import torch.nn.functional as F
 
 from diff_unet_tpu_torch.ops import _native
-from diff_unet_tpu_torch.ops.conv3d import MAX_PARTS, S8_TILE_ROWS, \
-    _cdiv, _check_parts, _part_args, _ptr, packed_weight, stats_slots
+from diff_unet_tpu_torch.ops.conv3d import CHUNK_S8, MAX_PARTS, Prologue, \
+    _cdiv, _check_parts, _part_args, _prologue_args, _ptr, conv_plan, \
+    packed_weight, stats_slots
 
 QMAX = 127
+# the float dtypes the s8 kernel quantizes on load (its element types); on
+# the CPU the plain version quantizes any float dtype
+QUANT_ON_LOAD = (torch.bfloat16, torch.float32)
 
 Parts = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -119,11 +129,51 @@ def _finish(acc, sa, sw, bias, out_dtype, with_stats):
                        else torch.float32)
 
 
-def conv3x3_int8_plain(parts: Parts, wq: torch.Tensor) -> torch.Tensor:
+def apply_prologue(parts: Parts, prologue: Prologue) -> list:
+    """The norm prologue on each part, in its dtype as TwoConv's tensor
+    chain computes it: ``leaky_relu(x * a + b, slope) + film``, with ``a``,
+    ``b`` and ``film`` (N, Cin) over the parts' concat (``film`` may be
+    None, ``slope`` None for no activation), each rounded to the dtype."""
+    a, b, film, slope = prologue
+    out, off = [], 0
+    for p in _as_parts(parts):
+        c = p.shape[-1]
+
+        def bc(v):
+            return v[:, off:off + c].to(p.dtype)[:, None, None, None]
+
+        u = p * bc(a) + bc(b)
+        if slope is not None:
+            u = F.leaky_relu(u, slope)
+        if film is not None:
+            u = u + bc(film)
+        out.append(u)
+        off += c
+    return out
+
+
+def quantize_input(parts: Parts, sa: torch.Tensor,
+                   prologue: Optional[Prologue] = None) -> list:
+    """The int8 parts the conv takes from float parts: ``quantize_act`` of
+    each part with the one scale ``sa``, after ``apply_prologue`` where a
+    prologue is given."""
+    parts = _as_parts(parts)
+    if prologue is not None:
+        parts = apply_prologue(parts, prologue)
+    return [quantize_act(p, sa) for p in parts]
+
+
+def conv3x3_int8_plain(parts: Parts, wq: torch.Tensor,
+                       sa: Optional[torch.Tensor] = None,
+                       prologue: Optional[Prologue] = None) -> torch.Tensor:
     """int32 (N, D, H, W, Cout): the SAME 3x3x3 conv of the int8 parts'
     concat with the int8 (Cout, Cin, 3, 3, 3) kernel, as a float64
-    convolution of the int8 values (exact), rounded."""
-    x = torch.cat([p.double() for p in _as_parts(parts)], dim=-1)
+    convolution of the int8 values (exact), rounded. Float parts are
+    first quantized with ``sa`` (and ``prologue``) by ``quantize_input``."""
+    parts = _as_parts(parts)
+    if parts[0].dtype != torch.int8:
+        parts = quantize_input(parts, sa, prologue)
+    x = torch.cat([p.double() for p in parts], dim=-1)
     y = F.conv3d(x.permute(0, 4, 1, 2, 3), wq.double(), padding=1)
     return torch.round(y).to(torch.int32).permute(0, 2, 3, 4, 1).contiguous()
 
@@ -138,44 +188,60 @@ def deconv2_int8_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(parts: list, wq: torch.Tensor, sa, sw, bias, out_dtype,
-            with_stats: bool):
-    chans = _check_parts(parts, (torch.int8,))
+            with_stats: bool, prologue: Optional[Prologue]):
+    chans = _check_parts(parts, (torch.int8, *QUANT_ON_LOAD))
     x0 = parts[0]
-    dev = x0.device
+    dt, dev = x0.dtype, x0.device
     n, d, h, w = x0.shape[:4]
     cin, cout = sum(chans), wq.shape[0]
     if wq.dtype != torch.int8 or tuple(wq.shape) != (cout, cin, 3, 3, 3):
         raise ValueError(f"wq must be int8 ({cout}, {cin}, 3, 3, 3) for "
                          f"parts of {chans} channels, got {wq.dtype} "
                          f"{tuple(wq.shape)}")
-    raw = sa is None
-    if raw:
-        kind, dt = 0, torch.int32
-    elif out_dtype in (torch.float32, torch.bfloat16):
-        kind, dt = (1 if out_dtype == torch.float32 else 2), out_dtype
+    raw = out_dtype == torch.int32
+    if not raw and out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"s8 kernel output dtype {out_dtype} not supported "
+                        "(int32, float32 or bfloat16)")
+    if sa is not None:
         sa = sa.to(dev, torch.float32).reshape(()).contiguous()
+    if not raw:
         sw = sw.to(dev, torch.float32).contiguous()
         if tuple(sw.shape) != (cout,):
             raise ValueError(f"sw must be ({cout},), got {tuple(sw.shape)}")
         if bias is not None:
             bias = bias.to(dev, torch.float32).contiguous()
     else:
-        raise TypeError(f"s8 kernel output dtype {out_dtype} not supported "
-                        "(float32 or bfloat16)")
-    if with_stats and raw:
-        raise ValueError("statistics need the rescaled output (sa, sw)")
-    out = torch.empty((n, d, h, w, cout), dtype=dt, device=dev)
-    stats = stats_part = None
+        sw = bias = None
+    pro, pro_slope = (None, None, None), 1.0
+    if prologue is not None:
+        # a, b and film rounded to the parts' dtype, as the tensor chain
+        # applies them, then carried as float32 rows (exact)
+        pro, pro_slope = _prologue_args(
+            (*[None if v is None else v.to(dt) for v in prologue[:3]],
+             prologue[3]), n, cin, dev)
+    out = torch.empty((n, d, h, w, cout), dtype=out_dtype, device=dev)
+    # float32 parts are gathered: TMA would stage 51 KB a chunk
+    aligned = (dt != torch.float32
+               and all(p.data_ptr() % 16 == 0 for p in parts))
+    plan = conv_plan(n, (d, h, w), chans, cout, aligned, CHUNK_S8)
+    stats = stats_part = partial = counter = None
     if with_stats:
         stats = torch.zeros((n, 2, cout), dtype=torch.float32, device=dev)
-        slots = stats_slots(n, (d, h, w), rows=S8_TILE_ROWS)
-        stats_part = torch.empty(slots * 2 * cout,
+        stats_part = torch.empty(stats_slots(n, (d, h, w), plan) * 2 * cout,
                                  dtype=torch.float32, device=dev)
-    wt = packed_weight(wq, torch.int8, dev)
+    if plan.split > 1:
+        n_partial, n_counter = plan.workspace()
+        partial = torch.empty(n_partial, dtype=torch.int32, device=dev)
+        counter = torch.zeros(n_counter, dtype=torch.int32, device=dev)
+    wt = packed_weight(wq, torch.int8, dev, plan.bn)
+    in_kind = (torch.int8, torch.bfloat16, torch.float32).index(dt)
     err = _native.load().conv3x3_s8_forward(
-        *_part_args(parts, chans), wt.data_ptr(), _ptr(sa), _ptr(sw),
-        _ptr(bias), kind, out.data_ptr(), _ptr(stats), _ptr(stats_part),
-        n, d, h, w, cout, wt.shape[1], wt.shape[0], _native.stream_ptr(dev))
+        *_part_args(parts, chans), in_kind, wt.data_ptr(), _ptr(sa),
+        _ptr(sw), _ptr(bias), *map(_ptr, pro), pro_slope,
+        (torch.int32, torch.float32, torch.bfloat16).index(out_dtype),
+        out.data_ptr(), _ptr(stats), _ptr(stats_part), _ptr(partial),
+        _ptr(counter), n, d, h, w, cout, plan.bn, plan.nchunk, plan.split,
+        plan.per_split, int(plan.tma), _native.stream_ptr(dev))
     _native.check(err, "conv3x3_s8_forward")
     return (out, stats) if with_stats else out
 
@@ -185,23 +251,40 @@ def conv3x3_int8(parts: Parts, wq: torch.Tensor,
                  sw: Optional[torch.Tensor] = None,
                  bias: Optional[torch.Tensor] = None,
                  out_dtype: torch.dtype = torch.bfloat16, *,
-                 with_stats: bool = False):
-    """The W8A8 3x3x3 SAME conv of int8 NDHWC parts (their channel concat)
-    with int8 (Cout, Cin, 3, 3, 3) ``wq``: the int32 sums, or with ``sa``
-    (a scalar) and ``sw`` (Cout,) the ``rescale``d output in ``out_dtype``
-    (and with ``with_stats`` its (N, 2, Cout) statistics). CPU parts take
-    the plain version (any float ``out_dtype``); CUDA parts launch the s8
-    kernel (bf16 or float32 out) or raise."""
+                 with_stats: bool = False,
+                 prologue: Optional[Prologue] = None):
+    """The W8A8 3x3x3 SAME conv of NDHWC parts (their channel concat) with
+    int8 (Cout, Cin, 3, 3, 3) ``wq``. The parts are int8, or float with
+    ``sa`` (on CUDA ``QUANT_ON_LOAD``), quantized on load as by
+    ``quantize_input`` (with ``prologue``, a norm prologue ``(a, b, film,
+    slope)``). Returns the int32 sums (``out_dtype`` int32, or no
+    ``sw``), or with ``sa`` (a scalar) and ``sw`` (Cout,) the
+    ``rescale``d output in ``out_dtype`` (and with ``with_stats`` its (N,
+    2, Cout) statistics). CPU parts take the plain version (any float
+    ``out_dtype``); CUDA parts launch the s8 kernel (int32, bf16 or float32
+    out) or raise."""
     parts = _as_parts(parts)
     if not parts or len(parts) > MAX_PARTS:
         raise ValueError(f"conv3x3_int8 takes 1 to {MAX_PARTS} parts, got "
                          f"{len(parts)}")
-    if (sa is None) != (sw is None):
-        raise ValueError("sa and sw go together")
+    if sw is not None and sa is None:
+        raise ValueError("sw needs sa")
+    quantized = parts[0].dtype == torch.int8
+    if not quantized and (sa is None or not parts[0].dtype.is_floating_point):
+        raise TypeError(f"conv3x3_int8 takes int8 parts, or float parts "
+                        f"with sa; got {parts[0].dtype}")
+    if prologue is not None and quantized:
+        raise ValueError("a prologue needs float parts")
+    if sw is None:
+        out_dtype = torch.int32
+    if with_stats and out_dtype == torch.int32:
+        raise ValueError("statistics need the rescaled output (sa, sw)")
     if parts[0].device.type == "cpu":
-        return _finish(conv3x3_int8_plain(parts, wq), sa, sw, bias,
-                       out_dtype, with_stats)
-    out = _launch(parts, wq, sa, sw, bias, out_dtype, with_stats)
+        acc = conv3x3_int8_plain(parts, wq, sa, prologue)
+        if out_dtype == torch.int32:
+            return acc
+        return _finish(acc, sa, sw, bias, out_dtype, with_stats)
+    out = _launch(parts, wq, sa, sw, bias, out_dtype, with_stats, prologue)
     conv3x3_int8.launches += 1
     return out
 
@@ -243,11 +326,28 @@ def deconv2_int8(xq: torch.Tensor, wq: torch.Tensor,
                          f"2) expected, got {tuple(xq.shape)} and "
                          f"{tuple(wq.shape)}")
     if xq.device.type == "cpu":
-        acc = deconv2_int8_plain(xq, wq)
+        return _finish(deconv2_int8_plain(xq, wq), sa, sw, bias, out_dtype,
+                       False)
+    n, d, h, w = xq.shape[:4]
+    b_t = wq.permute(2, 3, 4, 1, 0).reshape(8 * cout, cin)
+    acc = _int_mm_padded(xq.reshape(-1, cin), b_t).view(n, d, h, w, 2, 2, 2,
+                                                        cout)
+    out = torch.empty((n, 2 * d, 2 * h, 2 * w, cout),
+                      dtype=torch.int32 if sa is None else out_dtype,
+                      device=xq.device)
+    # (n, d, h, w, a, b, c, Cout) view of output voxel (2z + a, 2y + b,
+    # 2x + c): the GEMM's rows scatter as they are written
+    grid = out.view(n, d, 2, h, 2, w, 2, cout).permute(0, 1, 3, 5, 2, 4, 6,
+                                                       7)
+    if sa is None:
+        grid.copy_(acc)
+        return out
+    # rescale's values in two passes: f32(acc) * (sa * sw) promoted from
+    # int32 in the product, then the bias added in float32 and rounded to
+    # out_dtype as it is written
+    y = acc * (sa.float() * sw.float())
+    if bias is None:
+        grid.copy_(y)
     else:
-        n, d, h, w = xq.shape[:4]
-        b_t = wq.permute(2, 3, 4, 1, 0).reshape(8 * cout, cin)
-        acc = _int_mm_padded(xq.reshape(-1, cin), b_t)
-        acc = acc.reshape(n, d, h, w, 2, 2, 2, cout).permute(
-            0, 1, 4, 2, 5, 3, 6, 7).reshape(n, 2 * d, 2 * h, 2 * w, cout)
-    return _finish(acc, sa, sw, bias, out_dtype, False)
+        torch.add(y, bias.float(), out=grid)
+    return out

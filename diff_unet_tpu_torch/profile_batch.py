@@ -12,6 +12,7 @@ train step of its training path, on the card.
     python -m diff_unet_tpu_torch.profile_batch smooth_train [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch attention_serve [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch int8_serve [--out FILE]
+    python -m diff_unet_tpu_torch.profile_batch int8_static_serve [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch attention_train [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch mim_train [--out FILE]
 
@@ -30,7 +31,9 @@ The others build the ``Predictor`` of ``cfg/<data>/test.yaml`` (``swin_unetr``:
 the BTCV config with that model; ``smooth_serve``, ``attention_serve``:
 the AMOS config with ``smooth_diff_unet`` or ``attention_diff_unet``;
 ``int8_serve``: the AMOS config with ``quantize``, W8A8 int8 with dynamic
-scales) with seeded random weights and run what
+scales; ``int8_static_serve``: the same with static scales calibrated on
+the profiled batch's own trajectory) with seeded random weights and run
+what
 it runs for each window batch: the image embedding and the DDIM loop over
 ``sw_batch_size`` windows of the ROI, or the plain model's one forward
 (stitching excluded). After two warm-up batches it times three batches without the
@@ -77,7 +80,8 @@ _CONFIGS = {"btcv": ("btcv", {}), "amos": ("amos", {}), "msd": ("msd", {}),
             "swin_unetr": ("btcv", {"model_name": "swin_unetr"}),
             "smooth": ("amos", {"model_name": "smooth_diff_unet"}),
             "attention": ("amos", {"model_name": "attention_diff_unet"}),
-            "int8": ("amos", {"quantize": True})}
+            "int8": ("amos", {"quantize": True}),
+            "int8_static": ("amos", {"quantize": True})}
 
 
 def _window_batch(dev: torch.device, data: str):
@@ -96,6 +100,11 @@ def _window_batch(dev: torch.device, data: str):
     windows = torch.rand((sw, *roi, 1), generator=g, device=dev)
     noise = torch.randn((sw, *roi, pred.num_classes), generator=g,
                         device=dev)
+
+    if data == "int8_static":
+        from diff_unet_tpu_torch.engine.quantize import \
+            quantize_inference_params
+        quantize_inference_params(pred, [windows], noise=[noise])
 
     if isinstance(pred.seg, PlainSegmenter):
         def batch():
@@ -160,7 +169,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("data", choices=(
         "amos", "btcv", "swin_unetr", "smooth_serve", "attention_serve",
-        "int8_serve",
+        "int8_serve", "int8_static_serve",
         *(f"{k}_train" for k in _TRAIN), "mim_train"))
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--top", type=int, default=25)

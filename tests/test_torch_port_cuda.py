@@ -27,6 +27,7 @@ from diff_unet_tpu_torch.ops.conv3d import (
     conv3x3_wgrad_plain,
     packed_weight,
 )
+from diff_unet_tpu_torch.ops.int8 import conv3x3_int8
 from diff_unet_tpu_torch.ops.swin import window_region_ids
 from diff_unet_tpu_torch.ops.window_partition import (
     partition_windows,
@@ -369,6 +370,17 @@ def test_conv3x3_checks_inputs(dev):
         with pytest.raises(ValueError, match="prologue"):
             conv3x3([x], w, prologue=(torch.ones(2, 8), torch.ones(2, 8),
                                       None, 0.1))
+
+
+def test_conv3x3_int8_refuses_float64_parts(dev):
+    """The s8 kernel quantizes bf16 and float32 parts on load: float64
+    parts on the card raise (on the CPU the plain version takes them)."""
+    wq = torch.zeros((4, 3, 3, 3, 3), dtype=torch.int8, device=dev)
+    x = torch.zeros((1, 2, 2, 2, 3), dtype=torch.float64, device=dev)
+    before = conv3x3_int8.launches
+    with pytest.raises(TypeError):
+        conv3x3_int8([x], wq, torch.tensor(0.1, device=dev))
+    assert conv3x3_int8.launches == before
 
 
 def test_diff_unet_predictor_serves_through_the_conv_kernel(dev):
