@@ -8,8 +8,10 @@ PyTorch built for CUDA. Phases, each of which must pass:
 1. the card: name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``diff_unet_tpu_torch/csrc`` with ``nvcc``
    (one process per source, in parallel), print each kernel's ptxas
-   registers and spills, and fail if a bf16 conv, weight-gradient or
-   attention kernel spills;
+   registers and spills, and fail if a conv (every instance of the wgmma
+   kernel: bf16, s8 and 3xTF32), weight-gradient (bf16 wgmma, 3xTF32
+   mma.sync) or bf16 attention kernel spills, or if ptxas warns that it
+   serialised a kernel's wgmma instructions;
 3. every kernel against its plain PyTorch version on the card at the
    shapes its slice gives it, with CUDA-event times of the kernel, the
    plain version and one PyTorch library call computing the same function
@@ -27,7 +29,11 @@ PyTorch built for CUDA. Phases, each of which must pass:
       inputs, 96^3 down to 6^3 and up to 512 -> 512), plus the switches of
       the other TPU conv kernels (bias and LeakyReLU; no bias), bf16 and
       fp32 (library: ``F.conv3d`` on the channels_last_3d view in the same
-      dtype, with ``var_mean`` of the output where statistics are on);
+      dtype, with ``var_mean`` of the output where statistics are on;
+      TF32 off); every kernel run twice for the same bits; fp32 runs as
+      3xTF32 on the tensor cores, and its rows give two bounds, at the
+      3xTF32 rate (three tf32 products a float32 product at 495 TFLOP/s)
+      and at the 67 TFLOP/s FFMA rate;
    c. the window partition (zero padding fused) and its reverse (crop
       fused) at the four Swin stage geometries, B = 1 and 2, bf16 and fp32,
       bit-exact (library: ``index_select`` of the pre-padded token rows by
@@ -48,7 +54,8 @@ PyTorch built for CUDA. Phases, each of which must pass:
       the flipped weights; not at the stems, whose inputs need no
       gradient) against ``conv3x3_dgrad_plain`` and the weight-gradient
       kernel against ``conv3x3_wgrad_plain`` (1e-4 / 1e-3 of max |plain|
-      in fp32 / bf16), with kernel, plain and cuDNN times
+      in fp32 / bf16), each run twice for the same bits, with kernel,
+      plain and cuDNN times
       (``aten.convolution_backward`` with an input-only or weight-only
       output mask), the bound and the kernel's share of it; then the
       weight gradient's kernel, cuDNN and bound times summed over one AMOS
@@ -67,8 +74,9 @@ PyTorch built for CUDA. Phases, each of which must pass:
    h. HybridMIM pretraining's float32 convs at N 2 (the stem 1 -> 64 at
       64^3 down to 512 -> 512 at 4^3, and the decoder's two-part convs
       at 32^3 down to 4^3): forward with statistics, dgrad and weight
-      gradient against their plain versions, with kernel, plain, cuDNN and
-      bound times, then each summed over one pretraining step (28 / 17 /
+      gradient (the 3xTF32 instances) against their plain versions, each
+      run twice for the same bits, with kernel, plain, cuDNN and both
+      bounds' times, then each summed over one pretraining step (28 / 17 /
       18 launches);
 4. small models on the card against the same weights on the CPU's plain
    path, fp32 with TF32 off: a DiffSwinUNETR denoiser step (feature 12,
@@ -236,16 +244,25 @@ Serving outputs are checked for shape, finiteness and a binary mask. Each
 path is driven with its kernels' launch counters set to 0 just before it
 and read just after; the kernels line reports each kernel's launches on
 the first path of ``LAUNCH_ORDER`` it ran on (continuous serving first)
-and all of them under ``launches_by_path``. Phases 2-8
+and all of them under ``launches_by_path``; its float32 entries (the
+3xTF32 conv, forward and dgrad, and weight gradient) report HybridMIM
+pretraining's launches and phase 3h's L0 conv_1. Phases 2-8
 run in a temporary directory under ``build/``, where the trainers' logs and phases
 7-8's data, weights and logs are written. It prints one
 JSON line with the kernels (times, error, launches, and the least time the
 card could take, from this run's shapes and the H100 SXM peaks), then,
 last, one JSON line with ``"ok": true`` and the device. Any failed phase
 exits non-zero before that.
+
+    python3 chip_smoke.py --phases conv,conv_backward,conv_s8
+
+runs phases 1 and 2 and then only the named phases (the ``phase_*``
+functions of this file that take the device alone), and prints no JSON:
+a way to time two checkouts in turns with the same script.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import os
@@ -286,6 +303,9 @@ ATT_GRAD_TOL = 1e-2
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
                    torch.int8: 1979e12}
+# float32 work on the tensor cores as 3xTF32: three tf32 products (495
+# TFLOP/s dense) for each float32 product
+TF32X3_FLOP_PER_S = 495e12 / 3
 HOLD_CYCLES = 100_000_000     # about 50 ms of the SM clock
 # (tag, part channels, Cout, side, prologue, stats, bias, LeakyReLU) for
 # every distinct 3x3x3 conv of DiffUNet at a 96^3 ROI with sw_batch_size 4
@@ -348,11 +368,13 @@ PARTITION_CASES = [("stage1", 48, 48, 7), ("stage2", 24, 96, 7),
 ATTN_GRAD_CASES = [("stage1", 343, 3, 343, True), ("stage2", 64, 6, 343, True),
                    ("stage3", 8, 12, 343, True), ("stage4", 1, 24, 216, False)]
 TRAIN_STEPS = 8
-# the bf16 kernels that must not spill (substrings of their mangled names;
-# "conv3d_wgmma" covers the conv's s8 instances, conv3d_wgmma_kernel<S8Op,
-# ...>, which share its register budget)
-BF16_KERNELS = ("conv3d_wgmma", "attn_fwd_bf16", "attn_bwd_bf16",
-                "conv3d_wgrad_wgmma")
+# the kernels that must not spill (substrings of their mangled names;
+# "conv3d_wgmma" covers every instance of the conv, conv3d_wgmma_kernel<
+# Bf16Op / S8Op / Tf32x3Op, ...>, which share its register budget) and the
+# ptxas warnings that a kernel's wgmma instructions were serialised
+NO_SPILL_KERNELS = ("conv3d_wgmma", "attn_fwd_bf16", "attn_bwd_bf16",
+                    "conv3d_wgrad_wgmma", "conv3d_wgrad_tf32")
+WGMMA_WARNING = re.compile(r"C75\d\d|wgmma\S* .*serializ", re.I)
 # per window batch of BTCV serving (1 embed + 10 denoiser Swin passes of 4
 # stages) and per BTCV train step (the encoder's and the denoiser's Swin
 # pass): forward launches, and launches inside the backward
@@ -466,6 +488,9 @@ MIM_CONV_CASES = [
     ("up_0 conv_0", [256, 256], 256, 4, False, 1, 1, 1),
     ("up_0 conv_1", [256], 256, 4, True, 1, 1, 1),
 ]
+# the conv of MIM_CONV_CASES whose float32 kernels the kernels line
+# reports (the one that holds 60% of a step's forward operations)
+MIM_REPORT = "L0 conv_1"
 # the small HybridMIM of phase 4: widths, side, mask patch, batch, lr
 SMALL_MIM = ((8, 8, 16, 32, 64, 8), 32, 8, 2, 1e-3)
 # the paths whose launches the kernels line reports, in order of choice:
@@ -518,6 +543,38 @@ def bound(nbytes: float, flops: float, dtype: torch.dtype) -> dict:
     t_ops = flops / PEAK_FLOP_PER_S[dtype] * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def conv_bound(nbytes: float, flops: float, dtype: torch.dtype) -> dict:
+    """``bound`` for the conv kernels: float32 runs on the tensor cores as
+    3xTF32, so its operations count three tf32 products each
+    (TF32X3_FLOP_PER_S), with the bound at the FFMA rate beside it
+    (``ffma_bound_ms``)."""
+    if dtype != torch.float32:
+        return bound(nbytes, flops, dtype)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / TF32X3_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                ffma_bound_ms=bound(nbytes, flops, dtype)["bound_ms"])
+
+
+def bound_text(bnd: dict) -> str:
+    """``bound X ms (by)``, float32 convs with their FFMA bound beside."""
+    ffma = bnd.get("ffma_bound_ms")
+    return (f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}"
+            + ("" if ffma is None else f", 3xTF32; FFMA {ffma:.4f} ms")
+            + ")")
+
+
+def repeat_equal(fn, first) -> bool:
+    """Whether a second run of ``fn`` gives ``first``'s bits (a tensor or
+    a tuple of tensors)."""
+    again = fn()
+    torch.cuda.synchronize()
+    pairs = (zip(first, again) if isinstance(first, tuple)
+             else [(first, again)])
+    return all(torch.equal(a, b) for a, b in pairs)
 
 
 def softmax_floor_ms(exps: float, clock_hz: float) -> float:
@@ -587,7 +644,9 @@ def short_name(mangled: str) -> str:
     return (names[-1] + mangled[i:i + 12]) if names else mangled[:60]
 
 
-def phase_build() -> None:
+def phase_build() -> set:
+    """Build the kernels; fail on spills or serialised wgmma. Returns the
+    instances checked."""
     from diff_unet_tpu_torch.ops import _native
 
     t0 = time.perf_counter()
@@ -596,19 +655,28 @@ def phase_build() -> None:
         f"(nvcc {_native.build_info['seconds']:.2f} s) "
         f"-> {_native.build_info['path']}")
     # ptxas -v: each entry function's properties (stack and spills), then
-    # its registers; the bf16 conv and attention kernels must not spill
-    name, spills = "", []
+    # its registers; the conv, weight-gradient and bf16 attention kernels
+    # must not spill, and no kernel may have its wgmma serialised
+    name, spills, checked = "", [], set()
+    warnings = [line.strip() for line in _native.build_info["log"]
+                .splitlines() if WGMMA_WARNING.search(line)]
     for line in _native.build_info["log"].splitlines():
         if "Function properties for" in line:
             name = line.split("Function properties for")[-1].strip()
         elif "spill" in line or "registers" in line:
             log(f"  ptxas: {short_name(name)}: {line.strip()}")
-            if (any(k in name for k in BF16_KERNELS) and "spill" in line
-                    and " 0 bytes spill stores, 0 bytes spill loads"
-                    not in line):
-                spills.append(f"{short_name(name)}: {line.strip()}")
+            if any(k in name for k in NO_SPILL_KERNELS) and "spill" in line:
+                checked.add(short_name(name))
+                if (" 0 bytes spill stores, 0 bytes spill loads"
+                        not in line):
+                    spills.append(f"{short_name(name)}: {line.strip()}")
+    log(f"  no spills and no serialised wgmma checked in {len(checked)} "
+        f"instances: {', '.join(sorted(checked))}")
     if spills:
-        fail("bf16 kernels spill: " + "; ".join(spills))
+        fail("kernels spill: " + "; ".join(spills))
+    if warnings:
+        fail("ptxas serialised wgmma: " + "; ".join(warnings))
+    return checked
 
 
 def attention_library_ms(qkv: torch.Tensor, bias: torch.Tensor,
@@ -764,6 +832,7 @@ def phase_conv(dev: torch.device) -> dict:
             got = conv3x3(parts, w, b, **kw)
             want = conv3x3_plain(parts, w, b, **kw)
             torch.cuda.synchronize()
+            same = repeat_equal(lambda: conv3x3(parts, w, b, **kw), got)
             st_err = st_tol = 0.0
             gst = None
             if stats:
@@ -792,20 +861,22 @@ def phase_conv(dev: torch.device) -> dict:
             library_ms = cuda_ms(library, reps, 1)
             del x_cl
             flops = 2.0 * got.numel() * 27 * cin
-            bnd = bound(nbytes(*parts, got, gst, b, *(pro or ())[:3])
-                        + w.numel() * got.element_size(), flops, dtype)
+            bnd = conv_bound(nbytes(*parts, got, gst, b, *(pro or ())[:3])
+                             + w.numel() * got.element_size(), flops, dtype)
             name = (f"conv3x3 {tag} {str(dtype)[6:]} {chans}->{cout} at "
                     f"{CONV_N}x{side}^3")
             log(f"{name}: max_abs_err {err:.3e} (tol {tol:.3e})"
                 + (f" stats err {st_err:.3e} (tol {st_tol:.3e})"
                    if stats else "")
                 + f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
-                f"{library_ms:.4f} ms bound {bnd['bound_ms']:.4f} ms "
-                f"({bnd['bound_by']}), kernel {flops / ms / 1e9:.1f} "
-                "TFLOP/s")
-            if not (err <= tol and st_err <= st_tol
+                f"{library_ms:.4f} ms {bound_text(bnd)}, kernel "
+                f"{flops / ms / 1e9:.1f} TFLOP/s, "
+                f"{ms / library_ms:.2f}x the library, repeat "
+                f"{'same bits' if same else 'DIFFERS'}")
+            if not (err <= tol and st_err <= st_tol and same
                     and torch.isfinite(got).all()):
-                fail(f"{name} disagrees with its plain version")
+                fail(f"{name} disagrees with its plain version or with "
+                     "itself")
             if (tag, dtype) == CONV_REPORT:
                 report["conv3x3"] = dict(max_abs_err=err, ms=ms,
                                          plain_ms=plain_ms,
@@ -868,6 +939,7 @@ def phase_conv_backward(dev: torch.device) -> dict:
                 got = conv3x3_dgrad(gy, w)
                 want = conv3x3_dgrad_plain(gy, w)
                 torch.cuda.synchronize()
+                same = repeat_equal(lambda: conv3x3_dgrad(gy, w), got)
                 tol = KERNEL_TOL[dtype] * max(
                     1.0, want.float().abs().max().item())
                 err = (got.float() - want.float()).abs().max().item()
@@ -877,16 +949,18 @@ def phase_conv_backward(dev: torch.device) -> dict:
                                    reps, 1)
                 library_ms = conv_backward_library_ms(
                     x_cl, w_cl, g_cl, [True, False, False], reps)
-                bnd = bound(nbytes(gy, got) + w.numel() * got.element_size(),
-                            flops, dtype)
+                bnd = conv_bound(nbytes(gy, got)
+                                 + w.numel() * got.element_size(), flops,
+                                 dtype)
                 log(f"conv3x3_dgrad {name}: max_abs_err {err:.3e} (tol "
                     f"{tol:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                    f"library {library_ms:.4f} ms bound "
-                    f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), kernel "
-                    f"{flops / ms / 1e9:.1f} TFLOP/s")
-                if not (err <= tol and torch.isfinite(got).all()):
+                    f"library {library_ms:.4f} ms {bound_text(bnd)}, kernel "
+                    f"{flops / ms / 1e9:.1f} TFLOP/s, "
+                    f"{ms / library_ms:.2f}x the library, repeat "
+                    f"{'same bits' if same else 'DIFFERS'}")
+                if not (err <= tol and same and torch.isfinite(got).all()):
                     fail(f"conv3x3_dgrad {name} disagrees with its plain "
-                         "version")
+                         "version or with itself")
                 if (tag, dtype) == CONV_GRAD_REPORT:
                     report["conv3x3_dgrad"] = dict(
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -895,6 +969,7 @@ def phase_conv_backward(dev: torch.device) -> dict:
             got = conv3x3_wgrad(gy, parts, pro)
             want = conv3x3_wgrad_plain(gy, parts, pro)
             torch.cuda.synchronize()
+            same = repeat_equal(lambda: conv3x3_wgrad(gy, parts, pro), got)
             ref = want.abs().max().item()
             err = (got - want).abs().max().item()
             del want
@@ -903,20 +978,22 @@ def phase_conv_backward(dev: torch.device) -> dict:
                                reps, 1)
             library_ms = conv_backward_library_ms(
                 x_cl, w_cl, g_cl, [False, True, False], reps)
-            bnd = bound(nbytes(gy, *parts, got, *(pro or ())[:3]), flops,
-                        dtype)
+            bnd = conv_bound(nbytes(gy, *parts, got, *(pro or ())[:3]),
+                             flops, dtype)
             log(f"conv3x3_wgrad {name}: max_abs_err {err:.3e} of max|plain| "
                 f"{ref:.3e} (tol {WGRAD_TOL[dtype]:.0e} of it) kernel "
                 f"{ms:.4f} ms plain {plain_ms:.4f} ms library "
-                f"{library_ms:.4f} ms bound {bnd['bound_ms']:.4f} ms "
-                f"({bnd['bound_by']}, {bnd['bound_ms'] / ms:.1%} of it), "
+                f"{library_ms:.4f} ms {bound_text(bnd)} "
+                f"({bnd['bound_ms'] / ms:.1%} of it), "
                 f"kernel {flops / ms / 1e9:.1f} TFLOP/s, "
-                f"{ms / library_ms:.2f}x the library")
+                f"{ms / library_ms:.2f}x the library, repeat "
+                f"{'same bits' if same else 'DIFFERS'}")
             for i, v in enumerate((ms, library_ms, bnd["bound_ms"])):
                 step[dtype][i] += WGRAD_PER_STEP[tag] * v
-            if not (err <= WGRAD_TOL[dtype] * ref
+            if not (err <= WGRAD_TOL[dtype] * ref and same
                     and torch.isfinite(got).all()):
-                fail(f"conv3x3_wgrad {name} disagrees with its plain version")
+                fail(f"conv3x3_wgrad {name} disagrees with its plain version "
+                     "or with itself")
             if (tag, dtype) == CONV_GRAD_REPORT:
                 report["conv3x3_wgrad"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1780,6 +1857,7 @@ def phase_cout32(dev: torch.device) -> None:
             got = conv3x3_wgrad(gy, parts, pro)
             want = conv3x3_wgrad_plain(gy, parts, pro)
             torch.cuda.synchronize()
+            same = repeat_equal(lambda: conv3x3_wgrad(gy, parts, pro), got)
             ref = want.abs().max().item()
             err = (got - want).abs().max().item()
             del want
@@ -1800,14 +1878,15 @@ def phase_cout32(dev: torch.device) -> None:
 
 
 
-def phase_conv_mim(dev: torch.device) -> None:
+def phase_conv_mim(dev: torch.device) -> dict:
     """HybridMIM pretraining's float32 convs at the example's batch
-    (MIM_CONV_CASES, N = MIM_BATCH): the forward kernel with statistics
-    (and the prologue where the conv has one), the dgrad and the weight
-    gradient against their plain versions, each with kernel, plain and
-    cuDNN times and the bound at the float32 FFMA peak; then each of the
-    three summed over one pretraining step (every conv times its launches
-    a step)."""
+    (MIM_CONV_CASES, N = MIM_BATCH), on the 3xTF32 instances: the forward
+    kernel with statistics (and the prologue where the conv has one), the
+    dgrad and the weight gradient against their plain versions, each run
+    twice for the same bits, with kernel, plain and cuDNN times (TF32 off)
+    and the bounds at the 3xTF32 and FFMA rates; then each of the three
+    summed over one pretraining step (every conv times its launches a
+    step). Returns the kernels line's float32 entries (MIM_REPORT)."""
     from diff_unet_tpu_torch.ops.conv3d import (
         KERNEL_TOL, STATS_TOL, WGRAD_TOL, conv3x3, conv3x3_dgrad,
         conv3x3_dgrad_plain, conv3x3_plain, conv3x3_wgrad,
@@ -1820,23 +1899,29 @@ def phase_conv_mim(dev: torch.device) -> None:
     if counts != list(MIM_PER_STEP.values()):
         fail(f"MIM_CONV_CASES count {counts} launches a step, "
              f"MIM_PER_STEP {list(MIM_PER_STEP.values())}")
-    # one step's kernel, plain, cuDNN and bound ms of each of the three
-    step = {k: [0.0] * 4 for k in MIM_PER_STEP}
+    # one step's kernel, plain, cuDNN, 3xTF32 and FFMA bound ms of each
+    step = {k: [0.0] * 5 for k in MIM_PER_STEP}
+    report = {}
 
     def measure(kind, name, got, want, tol, reps, fns, flops, moved, per):
         err = (got - want).abs().max().item()
+        same = repeat_equal(fns[0], got)
         ms, plain_ms, library_ms = (cuda_ms(f, reps, 1) for f in fns)
-        bnd = bound(moved, flops, dt)
-        for i, v in enumerate((ms, plain_ms, library_ms, bnd["bound_ms"])):
+        bnd = conv_bound(moved, flops, dt)
+        for i, v in enumerate((ms, plain_ms, library_ms, bnd["bound_ms"],
+                               bnd["ffma_bound_ms"])):
             step[kind][i] += per * v
         log(f"{kind} {name}: max_abs_err {err:.3e} (tol {tol:.3e}) kernel "
             f"{ms:.4f} ms plain {plain_ms:.4f} ms library {library_ms:.4f} "
-            f"ms bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
-            f"{bnd['bound_ms'] / ms:.1%} of it), kernel "
-            f"{flops / ms / 1e9:.1f} TFLOP/s, {ms / library_ms:.2f}x the "
-            "library")
-        if not (err <= tol and torch.isfinite(got).all()):
-            fail(f"{kind} {name} disagrees with its plain version")
+            f"ms {bound_text(bnd)} ({bnd['bound_ms'] / ms:.1%} of it), "
+            f"kernel {flops / ms / 1e9:.1f} TFLOP/s, {ms / library_ms:.2f}x "
+            f"the library, repeat {'same bits' if same else 'DIFFERS'}")
+        if not (err <= tol and same and torch.isfinite(got).all()):
+            fail(f"{kind} {name} disagrees with its plain version or with "
+                 "itself")
+        if name.split(" fp32")[0] == f"MIM {MIM_REPORT}":
+            report[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                library_ms=library_ms, **bnd)
 
     for tag, chans, cout, side, pro_on, fwd, dgrad, wgrad in MIM_CONV_CASES:
         shape = (n, side, side, side)
@@ -1865,6 +1950,8 @@ def phase_conv_mim(dev: torch.device) -> None:
         st_err = (gst - wst).abs().max().item()
         if not st_err <= STATS_TOL * wst.abs().max().item():
             fail(f"conv3x3 {name}: statistics err {st_err:.3e}")
+        if not repeat_equal(lambda: conv3x3(parts, w, b, **kw), (got, gst)):
+            fail(f"conv3x3 {name}: a repeat gives other bits")
 
         def library():
             torch.var_mean(torch.nn.functional.conv3d(x_cl, w_cl, b,
@@ -1873,7 +1960,7 @@ def phase_conv_mim(dev: torch.device) -> None:
 
         measure("conv3x3", name, got, want, KERNEL_TOL[dt] * max(
             1.0, want.abs().max().item()), reps,
-            (lambda: conv3x3(parts, w, b, **kw),
+            (lambda: conv3x3(parts, w, b, **kw)[0],
              lambda: conv3x3_plain(parts, w, b, **kw), library), flops,
             nbytes(*parts, got, gst, b, w, *(pro or ())[:3]), fwd)
         del got, gst, want, wst
@@ -1899,12 +1986,17 @@ def phase_conv_mim(dev: torch.device) -> None:
                      False, [0] * 3, 1, [False, True, False])),
                 flops, nbytes(gy, *parts, got, *(pro or ())[:3]), wgrad)
         del parts, gy, got, want, x_cl, g_cl
-    for kind, (ms, plain_ms, library_ms, bound_ms) in step.items():
+    for kind, (ms, plain_ms, library_ms, bound_ms, ffma_ms) in step.items():
         log(f"{kind} over one HybridMIM pretraining step "
             f"({MIM_PER_STEP[kind]} launches, fp32): kernel {ms:.3f} ms "
             f"plain {plain_ms:.3f} ms library {library_ms:.3f} ms "
-            f"({ms / library_ms:.2f}x) bound {bound_ms:.3f} ms "
-            f"({bound_ms / ms:.1%} of it)")
+            f"({ms / library_ms:.2f}x) bound {bound_ms:.3f} ms at the "
+            f"3xTF32 rate ({bound_ms / ms:.1%} of it), {ffma_ms:.3f} ms at "
+            "the FFMA rate")
+    return {"conv3x3_f32": report["conv3x3"],
+            "conv3x3_dgrad_f32": report["conv3x3_dgrad"],
+            "conv3x3_wgrad_f32": report["conv3x3_wgrad"]}
+
 
 def phase_bn_chain(dev: torch.device) -> None:
     """One 32 -> 32 ``ConvBNReLU2`` at 10 x 96^3 in bf16 over fp32
@@ -3694,6 +3786,16 @@ def phase_overfit(dev: torch.device, work: Path) -> dict:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default=None,
+                        help="comma-separated phase_* names that take the "
+                             "device alone: run only those (after the card "
+                             "and the build), and print no JSON")
+    args = parser.parse_args()
+    names = args.phases.split(",") if args.phases else []
+    for name in names:
+        if not callable(globals().get(f"phase_{name}")):
+            fail(f"no phase named {name}")
     t0 = time.perf_counter()
     card, clock_hz = phase_card()
     # every later phase runs in a temporary directory under build/
@@ -3703,14 +3805,26 @@ def main() -> None:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         os.chdir(tmp)
         try:
-            run_phases(card, clock_hz, Path(tmp), t0)
+            if names:
+                phase_build()
+                for name in names:
+                    globals()[f"phase_{name}"](torch.device("cuda", 0))
+                log(f"phases {args.phases}: "
+                    f"{time.perf_counter() - t0:.1f} s")
+                log(card)
+            else:
+                run_phases(card, clock_hz, Path(tmp), t0)
         finally:
             os.chdir(ROOT)
 
 
 def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
     dev = torch.device("cuda", 0)
-    phase_build()
+    checked = phase_build()
+    if not any("Tf32x3" in k for k in checked) or not any(
+            "conv3d_wgrad_tf32" in k for k in checked):
+        fail("the float32 (3xTF32) conv instances are missing from the "
+             "build")
     from diff_unet_tpu_torch.ops.conv3d import conv3x3, conv3x3_wgrad
     from diff_unet_tpu_torch.ops.int8 import conv3x3_int8
     from diff_unet_tpu_torch.ops.window_attention import window_attention
@@ -3726,7 +3840,7 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
     report.update(phase_conv_backward(dev))
     phase_conv_msd(dev)
     phase_cout32(dev)
-    phase_conv_mim(dev)
+    report.update(phase_conv_mim(dev))
     report.update(phase_partition(dev))
     report.update(phase_backward(dev))
     phase_small_model(dev)
@@ -3822,6 +3936,8 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
     phase_bn_chain(dev)
     for k, c in phase_mim_pretrain(dev, work).items():
         paths[k]["mim_pretrain"] = c
+        # the pretraining path is float32: the 3xTF32 instances
+        paths[f"{k}_f32"] = {"mim_pretrain": c}
     for phase in (lambda: phase_train_msd(dev),
                   lambda: phase_train_amos_keys(dev, work, amos_step_s),
                   lambda: phase_swin_unetr(dev, swin)):
@@ -3868,6 +3984,23 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
             "diff_unet_tpu_torch/csrc/conv3d_wgrad.cu",
             "none: the conv's weight gradient, which the JAX package takes "
             "through flax nn.Conv (jax.value_and_grad)"),
+        "conv3x3_f32": (
+            "diff_unet_tpu_torch/csrc/conv3d.cu (conv3d_wgmma_kernel<"
+            "Tf32x3Op>: 3xTF32 wgmma on the TMA halo)",
+            "diff_unet_tpu/ops/pallas_packed_conv.py:132; "
+            "diff_unet_tpu/ops/pallas_packed_conv.py:241; "
+            "diff_unet_tpu/ops/pallas_aug_conv.py:65; "
+            "diff_unet_tpu/ops/pallas_conv.py:29 (in float32)"),
+        "conv3x3_dgrad_f32": (
+            "diff_unet_tpu_torch/csrc/conv3d.cu (conv3d_wgmma_kernel<"
+            "Tf32x3Op>, the flipped weights)",
+            "the backward of the conv kernels above in float32 (the JAX "
+            "package takes it through flax nn.Conv)"),
+        "conv3x3_wgrad_f32": (
+            "diff_unet_tpu_torch/csrc/conv3d_wgrad.cu "
+            "(conv3d_wgrad_tf32_kernel: 3xTF32 mma.sync)",
+            "none: the conv's weight gradient in float32, which the JAX "
+            "package takes through flax nn.Conv (jax.value_and_grad)"),
         "conv3x3_int8": (
             "diff_unet_tpu_torch/csrc/conv3d.cu (conv3d_wgmma_kernel<S8Op>: "
             "wgmma s8 on the TMA halo, quantize on load)",
@@ -3876,11 +4009,16 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
             "as the epilogue)"),
     }
     # launches: the first path of LAUNCH_ORDER on which the kernel ran,
-    # this slice's path (continuous serving) first
+    # this slice's path (continuous serving) first; the bf16 conv entries
+    # skip float32 pretraining, which runs the 3xTF32 entries
+    def launches(k):
+        return next((paths[k][p] for p in LAUNCH_ORDER if paths[k].get(p)
+                     and not (p == "mim_pretrain" and k in (
+                         "conv3x3", "conv3x3_dgrad", "conv3x3_wgrad"))), 0)
+
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
-                    launches=next((paths[k][p] for p in LAUNCH_ORDER
-                                   if paths[k].get(p)), 0),
-                    launches_by_path=paths[k], **report[k])
+                    launches=launches(k), launches_by_path=paths[k],
+                    **report[k])
                for k, (src, rep) in replaces.items()]
     log(f"all phases: {time.perf_counter() - t0:.1f} s")
     log(card)

@@ -21,11 +21,10 @@
 //   out = T(y);  stats[n, 0, co] = sum y;  stats[n, 1, co] = sum y * y
 //                                                   (f32 y, over the voxels)
 //
-// The statistics are reproducible: each output tile (a brick of one sample
-// in bf16, a segment of one sample in a 64-row tile in fp32) stores its
-// per-channel partial sums in a slot of its own, and a second kernel adds
-// each sample's slots up in slot order. No float atomics, so two runs on
-// the same inputs give the same bits.
+// The statistics are reproducible: each output brick (of one sample)
+// stores its per-channel partial sums in a slot of its own, and a second
+// kernel adds each sample's slots up in slot order. No float atomics, so
+// two runs on the same inputs give the same bits.
 //
 // What bounds it on an H100: at the 64+ channel levels the conv does
 // 54*Cin operations per output value and needs each input value once from
@@ -75,8 +74,35 @@
 // m64n64k16, which is as much as shared memory delivers in the MMA's time:
 // that, not HBM, caps those shapes near half the tensor-core peak.
 //
-// float32 runs a true-fp32 FFMA implicit GEMM (64x64 tiles, 4x4 per
-// thread, no TF32), with weights as (Cout_pad, K_pad), k = tap * Cin + ci.
+// float32 (forward and dgrad) runs the same kernel with 3xTF32 operands
+// (Tf32x3Op): each float32 value x is split into big = tf32(x) and small =
+// tf32(x - big), both rounded to nearest, ties away (cvt.rna.tf32.f32,
+// the low 13 bits cleared), and every product is A_big B_big + A_big
+// B_small + A_small B_big, three wgmma.mma_async m64nBNk8 f32.tf32.tf32
+// on the tensor cores. Only small * small (under 2^-22 of the product)
+// and the rounding of small are lost: about 1e-6 relative, where one TF32
+// pass errs by 2^-11. A chunk is 8 channels in the same two 16-byte planes
+// a voxel (4 channels each) as bf16's 16, by TMA for parts whose channels
+// are multiples of 8 (gathered otherwise); after it arrives the producer
+// warps apply the prologue at in-bounds voxels, write big in place and
+// small into twin planes 2 * PLANE bytes on (the halo stays 0 in both), so
+// a halo stage is 25,600 bytes. The wrapper packs the weights' big and
+// small side by side, so a (chunk, dz) weight stage is one bulk copy of
+// 2 * 9 * 32 * BN bytes and the small descriptors lie at fixed offsets
+// from the big ones: the consumer loop is bf16's, three MMAs a tap, but
+// each tap's three make a sum of their own that is added to the brick's
+// in float32 once they are done (the tensor cores' adds drop low bits
+// toward zero: a longer sum in them drifts from float32's). The doubled
+// stages and the second set of sums leave room for one CTA an SM at BN 64
+// (three weight stages); the float32 output goes straight from the
+// registers.
+// What bounds it: three tf32 MMAs of half the bf16 rate for each k8 step,
+// from the same shared-memory bytes per MMA as a bf16 k16 step, so 1/6 of
+// the bf16 kernel's rate per operation (165 TFLOP/s of float32 work at the
+// tensor cores' peak, against 67 for FFMA), and a warpgroup waits for each
+// tap's sum (the other one's taps fill the gap, not all of it); the split,
+// about 5 instructions a value on the producer warps, once for every halo
+// that holds it, is small beside the MMAs of an 8-channel chunk.
 //
 // int8 (the W8A8 serving path) runs the same kernel, templated on the
 // operand type (S8Op against Bf16Op): chunks of 32 int8 channels in the
@@ -110,322 +136,8 @@
 namespace {
 
 constexpr int kMaxParts = 4;
-constexpr int kThreads = 256;
 
-struct ConvArgs {
-  const void* part[kMaxParts];  // NDHWC, part_c[i] channels each
-  int part_c[kMaxParts];
-  int part_off[kMaxParts];      // first concat channel of each part
-  int nparts;
-  const void* wt;               // (cout_pad, k_pad), k = tap * cin + ci
-  const float* bias;            // (cout) or null
-  const float* pro_scale;       // (n, cin) or null: no prologue
-  const float* pro_shift;       // (n, cin)
-  const float* pro_const;       // (n, cin) or null
-  float pro_slope;              // 1: no prologue activation
-  float act_slope;              // 1: no epilogue activation
-  void* out;                    // (m_total, cout)
-  float* stats_part;            // (tiles + n, 2, cout) slots, or null
-  int n, d, h, w, cin, cout, k_total, k_pad, spatial;
-  long long m_total;
-};
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-
-// One output row (voxel) of the tile, decoded once per block.
-struct Row {
-  long long vox;  // flat output voxel index, -1 beyond m_total
-  int n, z, y, x;
-};
-
-__device__ __forceinline__ Row decode_row(const ConvArgs& a, long long m) {
-  Row r;
-  if (m >= a.m_total) {
-    r.vox = -1;
-    r.n = r.z = r.y = r.x = 0;
-    return r;
-  }
-  r.vox = m;
-  r.n = (int)(m / a.spatial);
-  int s = (int)(m - (long long)r.n * a.spatial);
-  r.x = s % a.w;
-  s /= a.w;
-  r.y = s % a.h;
-  r.z = s / a.h;
-  return r;
-}
-
-// The (tap, channel) of flat k, and which part holds the channel.
-struct KPos {
-  int dz, dy, dx;        // tap offsets in {-1, 0, 1}
-  int ci;                // concat channel
-  bool valid;            // k < k_total
-};
-
-__device__ __forceinline__ KPos decode_k(const ConvArgs& a, int k) {
-  KPos p;
-  p.valid = k < a.k_total;
-  const int tap = k / a.cin;
-  p.ci = k - tap * a.cin;
-  const int tz = tap / 9, rem = tap - tz * 9, ty = rem / 3;
-  p.dz = tz - 1;
-  p.dy = ty - 1;
-  p.dx = rem - ty * 3 - 1;
-  return p;
-}
-
-__device__ __forceinline__ float prologue_one(const ConvArgs& a, int n, int ci,
-                                              float v) {
-  const int i = n * a.cin + ci;
-  float u = v * a.pro_scale[i] + a.pro_shift[i];
-  u = u >= 0.f ? u : u * a.pro_slope;
-  if (a.pro_const) u += a.pro_const[i];
-  return u;
-}
-
-// Element pointer of concat channel ci at input voxel vox (selects the part
-// with constant-index parameter reads).
-template <typename T>
-__device__ __forceinline__ const T* elem_ptr(const ConvArgs& a, long long vox,
-                                             int ci) {
-  const void* base = a.part[0];
-  int pc = a.part_c[0], po = 0;
-#pragma unroll
-  for (int i = 1; i < kMaxParts; ++i) {
-    if (i < a.nparts && ci >= a.part_off[i]) {
-      base = a.part[i];
-      pc = a.part_c[i];
-      po = a.part_off[i];
-    }
-  }
-  return static_cast<const T*>(base) + vox * pc + (ci - po);
-}
-
-__device__ __forceinline__ bool inside(const ConvArgs& a, const Row& r,
-                                       const KPos& p) {
-  return r.vox >= 0 && p.valid &&
-         (unsigned)(r.z + p.dz) < (unsigned)a.d &&
-         (unsigned)(r.y + p.dy) < (unsigned)a.h &&
-         (unsigned)(r.x + p.dx) < (unsigned)a.w;
-}
-
-__device__ __forceinline__ long long tap_vox(const ConvArgs& a, const Row& r,
-                                             const KPos& p) {
-  return r.vox + ((long long)p.dz * a.h + p.dy) * a.w + p.dx;
-}
-
-// 16 bytes of the A (input) tile: E = 16 / sizeof(T) consecutive k of one
-// output row. VEC: every part's channel count is a multiple of E and the
-// pointers are 16-byte aligned, so the E values are one tap and one part
-// and load as one vector. Otherwise each value is gathered on its own.
-template <typename T, bool VEC>
-__device__ __forceinline__ uint4 load_a(const ConvArgs& a, const Row& r,
-                                        int k0) {
-  constexpr int E = 16 / sizeof(T);
-  union {
-    uint4 u;
-    T e[E];
-  } v;
-  v.u = make_uint4(0, 0, 0, 0);
-  if (VEC) {
-    const KPos p = decode_k(a, k0);
-    if (!inside(a, r, p)) return v.u;
-    v.u = *reinterpret_cast<const uint4*>(
-        elem_ptr<T>(a, tap_vox(a, r, p), p.ci));
-    if (a.pro_scale) {
-#pragma unroll
-      for (int e = 0; e < E; ++e)
-        v.e[e] = from_f<T>(prologue_one(a, r.n, p.ci + e, to_f(v.e[e])));
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const KPos p = decode_k(a, k0 + e);
-      if (!inside(a, r, p)) continue;
-      const T x = *elem_ptr<T>(a, tap_vox(a, r, p), p.ci);
-      v.e[e] = a.pro_scale
-                   ? from_f<T>(prologue_one(a, r.n, p.ci, to_f(x)))
-                   : x;
-    }
-  }
-  return v.u;
-}
-
-// 16 bytes of the B (weight) tile: E consecutive k of output channel co.
-template <typename T>
-__device__ __forceinline__ uint4 load_b(const ConvArgs& a, int co, int k0) {
-  return *reinterpret_cast<const uint4*>(static_cast<const T*>(a.wt) +
-                                         (long long)co * a.k_pad + k0);
-}
-
-// Epilogue shared by both paths. cs holds the block's BM x BN f32 results
-// (bias and activation applied), row stride LDC. Writes the rounded output
-// (coalesced along channels) and the per-(sample, channel) partial sum and
-// sum of squares of the tile's rows: the rows of sample n in tile t go to
-// slot t + n (each tile or sample boundary along the rows starts the next
-// slot, so no two segments share one).
-template <typename T, int BM, int BN, int LDC>
-__device__ __forceinline__ void store_and_stats(const ConvArgs& a,
-                                                const float* cs,
-                                                long long m0, int n0) {
-  const int t = threadIdx.x;
-  T* out = static_cast<T*>(a.out);
-  for (int idx = t; idx < BM * BN; idx += kThreads) {
-    const int r = idx / BN, c = idx - r * BN;
-    const long long m = m0 + r;
-    const int co = n0 + c;
-    if (m < a.m_total && co < a.cout)
-      out[m * a.cout + co] = from_f<T>(cs[r * LDC + c]);
-  }
-  if (a.stats_part == nullptr) return;
-
-  constexpr int RG = kThreads / BN;  // row groups per column
-  constexpr int RPG = BM / RG;       // rows per group
-  const int c = t % BN, g = t / BN, co = n0 + c;
-  const long long tile = m0 / BM;
-  const long long last = (m0 + BM < a.m_total ? m0 + BM : a.m_total) - 1;
-  const bool one_sample = (m0 / a.spatial) == (last / a.spatial);
-  if (one_sample) {
-    // block-uniform branch: reduce the row groups in shared memory in
-    // group order, then one partial pair per column
-    __shared__ float red[2][kThreads];
-    float s = 0.f, s2 = 0.f;
-    for (int r = g * RPG; r < (g + 1) * RPG; ++r) {
-      if (m0 + r > last) break;
-      const float v = cs[r * LDC + c];
-      s += v;
-      s2 += v * v;
-    }
-    red[0][t] = s;
-    red[1][t] = s2;
-    __syncthreads();
-    if (g == 0 && co < a.cout) {
-      for (int k = 1; k < RG; ++k) {
-        s += red[0][k * BN + c];
-        s2 += red[1][k * BN + c];
-      }
-      const long long slot = tile + m0 / a.spatial;
-      a.stats_part[(2 * slot) * a.cout + co] = s;
-      a.stats_part[(2 * slot + 1) * a.cout + co] = s2;
-    }
-    return;
-  }
-  // the tile spans samples (small volumes): one thread per column walks
-  // the rows in order and stores each sample's segment
-  if (g != 0 || co >= a.cout) return;
-  float s = 0.f, s2 = 0.f;
-  long long cur = m0 / a.spatial;
-  for (long long m = m0; m <= last; ++m) {
-    const long long n = m / a.spatial;
-    if (n != cur) {
-      a.stats_part[(2 * (tile + cur)) * a.cout + co] = s;
-      a.stats_part[(2 * (tile + cur) + 1) * a.cout + co] = s2;
-      cur = n;
-      s = s2 = 0.f;
-    }
-    const float v = cs[(m - m0) * LDC + c];
-    s += v;
-    s2 += v * v;
-  }
-  a.stats_part[(2 * (tile + cur)) * a.cout + co] = s;
-  a.stats_part[(2 * (tile + cur) + 1) * a.cout + co] = s2;
-}
-
-__device__ __forceinline__ float epilogue_value(const ConvArgs& a, float acc,
-                                                int co) {
-  float v = acc + ((a.bias != nullptr && co < a.cout) ? a.bias[co] : 0.f);
-  return v >= 0.f ? v : v * a.act_slope;
-}
-
-// ---------------------------------------------------------------- fp32 path
-namespace f32 {
-constexpr int BM = 64, BN = 64, BK = 16;
-constexpr int LDS = BM + 4;   // transposed tiles [BK][BM + 4]
-constexpr int LDC = BN + 4;
-constexpr int SMEM_AB = 2 * 2 * BK * LDS * 4;
-constexpr int SMEM_C = BM * LDC * 4;
-constexpr int SMEM = SMEM_AB > SMEM_C ? SMEM_AB : SMEM_C;
-}  // namespace f32
-
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads)
-conv3d_f32_kernel(const ConvArgs a) {
-  using namespace f32;
-  __shared__ __align__(16) unsigned char smem[SMEM];
-  float* as = reinterpret_cast<float*>(smem);      // [2][BK][LDS]
-  float* bs = as + 2 * BK * LDS;                   // [2][BK][LDS]
-  float* cs = reinterpret_cast<float*>(smem);      // [BM][LDC] (epilogue)
-
-  const int t = threadIdx.x;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int lr = t >> 2, lc = t & 3;               // loader row, 4-k chunk
-  const Row r0 = decode_row(a, m0 + lr);
-  const int tx = t & 15, ty = t >> 4;              // 4x4 micro-tile
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  auto store = [&](int buf, const uint4& ua, const uint4& ub) {
-    const float* fa = reinterpret_cast<const float*>(&ua);
-    const float* fb = reinterpret_cast<const float*>(&ub);
-    float* A = as + buf * BK * LDS;
-    float* B = bs + buf * BK * LDS;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      A[(lc * 4 + e) * LDS + lr] = fa[e];
-      B[(lc * 4 + e) * LDS + lr] = fb[e];
-    }
-  };
-
-  const int kt_n = a.k_pad / BK;
-  uint4 ra = load_a<float, VEC>(a, r0, lc * 4);
-  uint4 rb = load_b<float>(a, n0 + lr, lc * 4);
-  store(0, ra, rb);
-  __syncthreads();
-  for (int kt = 0; kt < kt_n; ++kt) {
-    const int cur = kt & 1;
-    const bool more = kt + 1 < kt_n;
-    if (more) {
-      const int k0 = (kt + 1) * BK + lc * 4;
-      ra = load_a<float, VEC>(a, r0, k0);
-      rb = load_b<float>(a, n0 + lr, k0);
-    }
-    const float* A = as + cur * BK * LDS;
-    const float* B = bs + cur * BK * LDS;
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(A + k * LDS + ty * 4);
-      const float4 bv = *reinterpret_cast<const float4*>(B + k * LDS + tx * 4);
-      const float ai[4] = {av.x, av.y, av.z, av.w};
-      const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ai[i], bj[j], acc[i][j]);
-    }
-    if (more) store(cur ^ 1, ra, rb);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = tx * 4 + j;
-      cs[(ty * 4 + i) * LDC + col] = epilogue_value(a, acc[i][j], n0 + col);
-    }
-  __syncthreads();
-  store_and_stats<float, BM, BN, LDC>(a, cs, m0, n0);
-}
-
-// ---------------------------------------------------- wgmma path (bf16, s8)
+// ------------------------------------------ wgmma path (bf16, s8, 3xTF32)
 namespace hw {
 // A CTA: two consumer warpgroups, one output z slice of 8 x 8 voxels each,
 // and one producer warpgroup; its brick is 2 x 8 x 8 voxels.
@@ -450,24 +162,30 @@ constexpr int kHaloItems =
 // which the producer warps quantize into the ring's int8 planes.
 enum Src { kGathered, kTma, kStaged };
 constexpr int kStSlots = 4;
-template <int BN, int SRC>
+template <class Op, int BN, int SRC>
 struct Cfg {
   // two CTAs share an SM at BN 64 (the staged instance too: one CTA an SM
   // with three weight stages and eight staging slots measured slower at
-  // every AMOS shape on an H100)
-  static constexpr bool kTwoPerSm = BN == 64;
+  // every AMOS shape on an H100); 3xTF32's doubled halo and weight stages
+  // leave room for one
+  static constexpr bool kTwoPerSm = BN == 64 && !Op::kTf32;
   // weight ring stages: where two CTAs share an SM, the staging ring takes
   // the third one's room
   static constexpr int WS = SRC == kStaged && kTwoPerSm ? 2 : 3;
+  // a halo stage (3xTF32: the big planes, then the small)
+  static constexpr int HALO_STAGE = Op::kParts * HALO_BYTES;
   // the rings, then the epilogue's own buffers (the rings fill for the
-  // next brick meanwhile): the staged output and the statistics' reduction
+  // next brick meanwhile): the staged bf16 output and the statistics'
+  // reduction
   static constexpr int ST_BYTES = SRC == kStaged ? kStSlots * PLANE : 0;
-  static constexpr int W_BYTES = 9 * 32 * BN;        // one (chunk, dz) stage
+  // one (chunk, dz) weight stage
+  static constexpr int W_BYTES = Op::kParts * 9 * 32 * BN;
   static constexpr int LDO = BN + 8;                 // staged output row
-  static constexpr int OFF_W = HS * HALO_BYTES;
+  static constexpr int OFF_W = HS * HALO_STAGE;
   static constexpr int OFF_ST = OFF_W + WS * W_BYTES;
   static constexpr int OFF_STAGE = OFF_ST + ST_BYTES;
-  static constexpr int OFF_RED = OFF_STAGE + 64 * BZ * LDO * 2;
+  static constexpr int OFF_RED =
+      OFF_STAGE + (Op::kTf32 ? 0 : 64 * BZ * LDO * 2);
   static constexpr int OFF_BAR = OFF_RED + kConsumers / 32 * 2 * BN * 4;
   static constexpr int NBAR =
       3 * HS + 2 * WS + (SRC == kStaged ? 2 * kStSlots : 0);
@@ -626,10 +344,77 @@ __device__ __forceinline__ void wgmma_s8<128>(int* d, uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d += A * B for one m64nBNk8 step of tf32 operands (float32 values whose
+// low 13 bits are 0) into float32 sums. tf32, like the 8-bit types, has no
+// transpose: both operands K-major in shared memory, as the halo tile and
+// the pack are (a k8 step spans the two 16-byte planes).
+// With `accumulate` 0 the step starts a fresh sum: d = A * B.
+template <int BN>
+__device__ __forceinline__ void wgmma_tf32(float* d, uint64_t da,
+                                           uint64_t db, int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float* d, uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float* d, uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // The operand types of the wgmma kernel: KC channels a chunk (two planes
-// of KC / 2, 16 bytes a voxel each), the MMA and its accumulator.
+// of KC / 2, 16 bytes a voxel each), kParts copies of each operand (3xTF32:
+// big and small), the MMA and its accumulator.
 struct Bf16Op {
   static constexpr bool kS8 = false;
+  static constexpr bool kTf32 = false;
+  static constexpr int kParts = 1;
   static constexpr int KC = 16;
   using Acc = float;
   using Acc4 = float4;
@@ -640,12 +425,33 @@ struct Bf16Op {
 };
 struct S8Op {
   static constexpr bool kS8 = true;
+  static constexpr bool kTf32 = false;
+  static constexpr int kParts = 1;
   static constexpr int KC = 32;
   using Acc = int;
   using Acc4 = int4;
   template <int BN>
   __device__ static void mma(int* d, uint64_t da, uint64_t db) {
     wgmma_s8<BN>(d, da, db);
+  }
+};
+// 3xTF32: da and db address the big operands; the small halo planes lie
+// 2 * PLANE bytes past the big ones and the small weights 9 * 32 * BN
+// bytes past theirs (descriptors count 16-byte units). d = the two small
+// products, then + the big one, a new sum: the adds truncate at the ulp
+// of the sum so far, which the small terms leave small.
+struct Tf32x3Op {
+  static constexpr bool kS8 = false;
+  static constexpr bool kTf32 = true;
+  static constexpr int kParts = 2;
+  static constexpr int KC = 8;
+  using Acc = float;
+  using Acc4 = float4;
+  template <int BN>
+  __device__ static void mma(float* d, uint64_t da, uint64_t db) {
+    wgmma_tf32<BN>(d, da + (2 * hw::PLANE >> 4), db, 0);
+    wgmma_tf32<BN>(d, da, db + (9 * 32 * BN >> 4), 1);
+    wgmma_tf32<BN>(d, da, db, 1);
   }
 };
 
@@ -868,19 +674,21 @@ __device__ __forceinline__ void quantize_quarter(const WArgs& a,
   }
 }
 
-// One chunk's bf16 halo gathered by the producer warps into the ring's
-// layout: each thread fills one 16-byte plane row (8 channels) of its
-// voxels. The loads of kGather voxels are issued before their stores, so
-// their latencies overlap (more would cost registers, and with them the
-// second CTA on the SM). Where the chunk's second plane is all padding
-// (Cin <= 16 j + 8: the stems) every thread gathers the first plane and
-// the second is zero-filled.
+// One chunk's bf16 or float32 halo gathered by the producer warps into
+// the ring's layout: each thread fills one 16-byte plane row (E = 8 bf16
+// or 4 float32 channels) of its voxels. The loads of kGather voxels are
+// issued before their stores, so their latencies overlap (more would cost
+// registers, and with them the second CTA on the SM). Where the chunk's
+// second plane is all padding (Cin <= 2 E j + E: the stems) every thread
+// gathers the first plane and the second is zero-filled.
+template <typename T>
 __device__ __forceinline__ void gather_chunk(const WArgs& a, const Brick& b,
                                              unsigned char* halo, int j,
                                              int pt) {
   using namespace hw;
-  constexpr int KC = Bf16Op::KC;
-  const bool one_plane = KC * j + 8 >= a.cin;
+  constexpr int E = 16 / sizeof(T);
+  constexpr int KC = 2 * E;
+  const bool one_plane = KC * j + E >= a.cin;
   const int q = one_plane ? 0 : pt & 1;
   const int first = one_plane ? pt : pt >> 1;
   const int step = one_plane ? kHaloThreads : kHaloThreads / 2;
@@ -892,7 +700,7 @@ __device__ __forceinline__ void gather_chunk(const WArgs& a, const Brick& b,
   for (int k0 = 0; k0 < kHaloItems; k0 += kGather) {
     union {
       uint4 u;
-      __nv_bfloat16 e[8];
+      T e[E];
     } val[kGather];
 #pragma unroll
     for (int k = 0; k < kGather; ++k) {
@@ -901,11 +709,11 @@ __device__ __forceinline__ void gather_chunk(const WArgs& a, const Brick& b,
       long long vox;
       if (v >= HVOX || !halo_inside(a, b, v, &vox)) continue;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int c = KC * j + 8 * q + e;
+      for (int e = 0; e < E; ++e) {
+        const int c = KC * j + E * q + e;
         if (c >= a.cin) break;
         const int pi = part_of(a, c);
-        val[k].e[e] = static_cast<const __nv_bfloat16*>(
+        val[k].e[e] = static_cast<const T*>(
             a.part[pi])[vox * a.part_c[pi] + (c - a.part_off[pi])];
       }
     }
@@ -915,6 +723,70 @@ __device__ __forceinline__ void gather_chunk(const WArgs& a, const Brick& b,
       if (v >= HVOX) break;
       *reinterpret_cast<uint4*>(halo + q * PLANE + v * 16) = val[k].u;
     }
+  }
+}
+
+// x rounded to tf32: to nearest, ties away (cvt.rna.tf32.f32), the low 13
+// bits cleared, so that the value does not depend on how the tensor cores
+// read them.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xffffe000u);
+}
+
+// The prologue as the plain version and the conv's backward round it:
+// the product and each sum rounded on their own (the intrinsics keep nvcc
+// from contracting them into an FMA), so that a LeakyReLU input within
+// an ulp of 0 takes the side the backward's recomputation takes.
+__device__ __forceinline__ float prologue_rn(float v, float sc, float sh,
+                                             float cs, float slope) {
+  float u = __fadd_rn(__fmul_rn(v, sc), sh);
+  u = u >= 0.f ? u : __fmul_rn(u, slope);
+  return __fadd_rn(u, cs);
+}
+
+// 3xTF32: plane p (4 float32 channels a voxel) of an arrived chunk split
+// in place by the producer thread pt: the prologue at in-bounds voxels
+// (padding channels get scale, shift and const 0 and stay 0), then big =
+// tf32(u) into the plane and small = tf32(u - big) into its twin 2 * PLANE
+// bytes on. Voxels outside the volume get 0 in both (the halo the TMA or
+// the gather left 0; the twin plane still holds the last chunk's values).
+__device__ __forceinline__ void split_plane(const WArgs& a, const Brick& b,
+                                            unsigned char* halo, int j,
+                                            int p, int pt) {
+  using namespace hw;
+  const int c0 = Tf32x3Op::KC * j + 4 * p;
+  Pro4 pr{};
+  const bool pro = a.pro_scale != nullptr;
+  if (pro) pr = load_pro4(a, b.n * a.cin + c0, max(0, min(4, a.cin - c0)));
+#pragma unroll 2
+  for (int v = pt >> 1; v < HVOX; v += kHaloThreads / 2) {
+    long long vox;
+    float4* big = reinterpret_cast<float4*>(halo + p * PLANE + v * 16);
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (halo_inside(a, b, v, &vox)) {
+      const float4 in = *big;
+      x[0] = in.x;
+      x[1] = in.y;
+      x[2] = in.z;
+      x[3] = in.w;
+      if (pro) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[e] = prologue_rn(x[e], pr.sc[e], pr.sh[e], pr.cs[e],
+                             a.pro_slope);
+      }
+    }
+    float hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      hi[e] = tf32_rna(x[e]);
+      lo[e] = tf32_rna(x[e] - hi[e]);
+    }
+    *big = make_float4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<float4*>(halo + (2 + p) * PLANE + v * 16) =
+        make_float4(lo[0], lo[1], lo[2], lo[3]);
   }
 }
 
@@ -982,14 +854,15 @@ __device__ __forceinline__ void gather_chunk_s8(const WArgs& a,
 // bf16 parts into s8, the staging ring (lane 1: each chunk's four quarters,
 // as far ahead as the ring has room). The other three warps bring each
 // chunk's halo tile (module comment: by TMA, quantized from the staging
-// ring, or gathered), apply the bf16 prologue to the arrived tile and mark
-// it ready. The streams wait on nothing of each other but the ring slots.
+// ring, or gathered), apply the bf16 prologue to the arrived tile (3xTF32:
+// the prologue and the split) and mark it ready. The streams wait on
+// nothing of each other but the ring slots.
 template <class Op, int BN, int SRC, typename TIn>
 __device__ void produce(const WArgs& a, unsigned char* smem,
-                        const Bars<hw::Cfg<BN, SRC>::WS>& bar, int cb, int j0,
-                        int j1) {
+                        const Bars<hw::Cfg<Op, BN, SRC>::WS>& bar, int cb,
+                        int j0, int j1) {
   using namespace hw;
-  using C = Cfg<BN, SRC>;
+  using C = Cfg<Op, BN, SRC>;
   constexpr int KC = Op::KC, KP = KC / 2;
   constexpr int WS = C::WS;
   const int pt = threadIdx.x - kConsumers;
@@ -1024,8 +897,8 @@ __device__ void produce(const WArgs& a, unsigned char* smem,
           mbar_expect_tx(bar.w_full(ws), C::W_BYTES);
           bulk_load(smem_u32(smem + C::OFF_W + ws * C::W_BYTES),
                     static_cast<const unsigned char*>(a.wt) +
-                        (((long long)cb * a.nchunk + j) * 27 + dz * 9) *
-                            (32LL * BN),
+                        (((long long)cb * a.nchunk + j) * 3 + dz) *
+                            C::W_BYTES,
                     C::W_BYTES, bar.w_full(ws));
         }
       }
@@ -1042,7 +915,7 @@ __device__ void produce(const WArgs& a, unsigned char* smem,
     for (int j = j0; j < j1; ++j, ++hit) {
       const int hs = hit % HS;
       const uint32_t hpar = (hit / HS) & 1;
-      unsigned char* halo = smem + hs * HALO_BYTES;
+      unsigned char* halo = smem + hs * C::HALO_STAGE;
       if constexpr (SRC == kTma) {
         if (pt == 0) {
           mbar_wait(bar.halo_empty(hs), hpar ^ 1);
@@ -1077,9 +950,14 @@ __device__ void produce(const WArgs& a, unsigned char* smem,
           else
             gather_chunk_s8<TIn, false>(a, b, halo, j, qs, pt);
         } else
-          gather_chunk(a, b, halo, j, pt);
+          gather_chunk<TIn>(a, b, halo, j, pt);
       }
-      if constexpr (!Op::kS8) {
+      if constexpr (Op::kTf32) {
+        // other threads gathered the voxels this one rewrites
+        if (SRC == kGathered)
+          asm volatile("bar.sync 2, %0;" ::"n"(kHaloThreads) : "memory");
+        split_plane(a, b, halo, j, p, pt);
+      } else if constexpr (!Op::kS8) {
         if (a.pro_scale) {
           // other threads gathered the voxels this one rewrites
           if (SRC == kGathered)
@@ -1154,10 +1032,10 @@ __device__ __forceinline__ float epi_value(const WArgs&, int acc,
 // finish the last one.
 template <class Op, int BN, int SRC, typename TIn>
 __global__ void __launch_bounds__(hw::kCtaThreads,
-                                  hw::Cfg<BN, SRC>::kTwoPerSm ? 2 : 1)
+                                  hw::Cfg<Op, BN, SRC>::kTwoPerSm ? 2 : 1)
 conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
   using namespace hw;
-  using C = Cfg<BN, SRC>;
+  using C = Cfg<Op, BN, SRC>;
   using Acc = typename Op::Acc;
   using Acc4 = typename Op::Acc4;
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -1200,30 +1078,60 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
     Acc acc[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    // 3xTF32: each tap's three MMAs make a sum of their own, added to acc
+    // in float32 (round to nearest) once they are done. The tensor cores
+    // align a sum to its largest term and drop the bits below, always
+    // toward zero, so a sum kept in them drifts with its MMAs: a stage's
+    // 27 (or a brick's) moved y by ~1e-6 of its range, enough to flip a
+    // LeakyReLU input within rounding of 0 in the small DiffUNet and move
+    // a weight gradient by 1.7e-3 of the model's scale (chip_smoke.py
+    // phase 4, H100; tolerance 1e-3). The other warpgroup's taps keep the
+    // tensor cores busy while this one waits for its sum (the forward
+    // takes ~1.2x).
+    float part[Op::kTf32 ? BN / 2 : 1];
+#pragma unroll
+    for (int i = 0; i < (Op::kTf32 ? BN / 2 : 1); ++i) part[i] = 0.f;
     int prev_ws = -1, prev_hs = -1;
     for (int j = j0; j < j1; ++j, ++hit) {
       const int hs = hit % HS;
       const uint32_t hpar = (hit / HS) & 1;
       if (SRC == kTma) mbar_wait(bar.halo_full(hs), hpar);
       mbar_wait(bar.halo_ready(hs), hpar);
-      const uint32_t hbase = halo0 + hs * HALO_BYTES;
+      const uint32_t hbase = halo0 + hs * C::HALO_STAGE;
       for (int dz = 0; dz < 3; ++dz, ++wit) {
         const int ws = wit % C::WS;
         mbar_wait(bar.w_full(ws), (wit / C::WS) & 1);
         const uint32_t wbase = w0 + ws * C::W_BYTES;
         wgmma_fence();
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-          const int dy = tap / 3, dx = tap % 3;
-          const uint64_t da = smem_desc(
-              hbase + (((wg + dz) * HY + dy) * HX + dx) * 16, PLANE,
+        // tap's operands: the halo tile at the tap's shift, its weights
+        auto desc_a = [&](int tap) {
+          return smem_desc(
+              hbase + (((wg + dz) * HY + tap / 3) * HX + tap % 3) * 16, PLANE,
               HX * 16);
-          const uint64_t db = smem_desc(wbase + tap * (2 * BN * 16), BN * 16,
-                                        128);
-          Op::template mma<BN>(acc, da, db);
+        };
+        auto desc_b = [&](int tap) {
+          return smem_desc(wbase + tap * (2 * BN * 16), BN * 16, 128);
+        };
+        if constexpr (Op::kTf32) {
+#pragma unroll
+          for (int tap = 0; tap < 9; ++tap) {
+            if (tap) wgmma_fence();
+            Op::template mma<BN>(part, desc_a(tap), desc_b(tap));
+            wgmma_commit();
+            wgmma_wait<0>();
+#pragma unroll
+            for (int i = 0; i < BN / 2; ++i) {
+              reg_fence(part[i]);
+              acc[i] += part[i];
+            }
+          }
+        } else {
+#pragma unroll
+          for (int tap = 0; tap < 9; ++tap)
+            Op::template mma<BN>(acc, desc_a(tap), desc_b(tap));
+          wgmma_commit();
+          wgmma_wait<1>();
         }
-        wgmma_commit();
-        wgmma_wait<1>();
         // the previous stage's products are done: hand its buffers back
         if (prev_ws >= 0 && lane == 0) {
           mbar_arrive(bar.w_empty(prev_ws));
@@ -1272,22 +1180,41 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
       // not depend on which CTA came last
       const Acc* runs = static_cast<const Acc*>(a.partial) +
                         (tile * a.split * kConsumers + t) * (BN / 2);
+      if constexpr (Op::kTf32) {
+        // a run's loads all issue before their adds (BN / 8 loads in
+        // flight, not one: 3xTF32 splits 8^3 and 4^3 up to 32 ways); the
+        // registers of one CTA an SM allow it
 #pragma unroll
-      for (int i = 0; i < BN / 2; i += 4) {
-        Acc4 sum;
-        sum.x = sum.y = sum.z = sum.w = 0;
+        for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
         for (int s = 0; s < a.split; ++s) {
-          const Acc4 v = __ldcg(reinterpret_cast<const Acc4*>(
-              runs + (long long)s * kConsumers * (BN / 2) + i));
-          sum.x += v.x;
-          sum.y += v.y;
-          sum.z += v.z;
-          sum.w += v.w;
+          const Acc* run = runs + (long long)s * kConsumers * (BN / 2);
+#pragma unroll
+          for (int i = 0; i < BN / 2; i += 4) {
+            const Acc4 v = __ldcg(reinterpret_cast<const Acc4*>(run + i));
+            acc[i] += v.x;
+            acc[i + 1] += v.y;
+            acc[i + 2] += v.z;
+            acc[i + 3] += v.w;
+          }
         }
-        acc[i] = sum.x;
-        acc[i + 1] = sum.y;
-        acc[i + 2] = sum.z;
-        acc[i + 3] = sum.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < BN / 2; i += 4) {
+          Acc4 sum;
+          sum.x = sum.y = sum.z = sum.w = 0;
+          for (int s = 0; s < a.split; ++s) {
+            const Acc4 v = __ldcg(reinterpret_cast<const Acc4*>(
+                runs + (long long)s * kConsumers * (BN / 2) + i));
+            sum.x += v.x;
+            sum.y += v.y;
+            sum.z += v.z;
+            sum.w += v.w;
+          }
+          acc[i] = sum.x;
+          acc[i + 1] = sum.y;
+          acc[i + 2] = sum.z;
+          acc[i + 3] = sum.w;
+        }
       }
     }
 
@@ -1305,8 +1232,9 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
     __nv_bfloat16* staged =
         reinterpret_cast<__nv_bfloat16*>(smem + C::OFF_STAGE);  // [128][LDO]
     const int row0 = wg * 64 + 16 * w4 + (lane >> 2);
-    // bf16 instances always write bf16: their epilogue has no branch on it
-    const int out_kind = Op::kS8 ? a.out_kind : 2;
+    // bf16 instances always write bf16, 3xTF32 float32: their epilogues
+    // have no branch on it
+    const int out_kind = Op::kS8 ? a.out_kind : Op::kTf32 ? 1 : 2;
     if (Op::kS8 && out_kind == 0) {
       // the raw int32 sums, straight from the registers
       int* out = static_cast<int*>(a.out) + vox0() * a.cout;
@@ -1420,23 +1348,15 @@ conv3d_wgmma_kernel(const __grid_constant__ WArgs a) {
 
 // stats[n, :, co] from the slots of sample n, summed in slot order: 32
 // groups of a block each add every 32nd slot, then one thread adds the
-// groups in order. Sample n's slots are [lo, hi]: bricks n * per ..
-// n * per + per - 1 (wgmma, bm 0), or the segments t + n of the 64-row
-// tiles t that hold its rows (fp32, bm 64).
+// groups in order. Sample n's slots are its bricks n * per .. n * per +
+// per - 1.
 constexpr int kReduceGroups = 32;
 __global__ void __launch_bounds__(32 * kReduceGroups)
 stats_reduce_kernel(const float* __restrict__ part, float* __restrict__ stats,
-                    int cout, int per, long long spatial, int bm) {
+                    int cout, int per) {
   const int n = blockIdx.y, lane = threadIdx.x & 31, g = threadIdx.x >> 5;
   const int co = blockIdx.x * 32 + lane;
-  long long lo, hi;
-  if (bm > 0) {
-    lo = n * spatial / bm + n;
-    hi = ((n + 1) * spatial - 1) / bm + n;
-  } else {
-    lo = (long long)n * per;
-    hi = lo + per - 1;
-  }
+  const long long lo = (long long)n * per, hi = lo + per - 1;
   float s = 0.f, s2 = 0.f;
   if (co < cout) {
     for (long long i = lo + g; i <= hi; i += kReduceGroups) {
@@ -1458,12 +1378,11 @@ stats_reduce_kernel(const float* __restrict__ part, float* __restrict__ stats,
   }
 }
 
-cudaError_t reduce_stats(const float* part, float* stats, int n, int cout,
-                         int per, long long spatial, int bm,
-                         cudaStream_t s) {
-  const dim3 grid((unsigned)((cout + 31) / 32), (unsigned)n);
+cudaError_t reduce_stats(const WArgs& a, const void* stats, cudaStream_t s) {
+  const dim3 grid((unsigned)((a.cout + 31) / 32), (unsigned)a.n);
   stats_reduce_kernel<<<grid, 32 * kReduceGroups, 0, s>>>(
-      part, stats, cout, per, spatial, bm);
+      a.stats_part, static_cast<float*>(const_cast<void*>(stats)), a.cout,
+      a.nzb * a.nyb * a.nxb);
   return cudaGetLastError();
 }
 
@@ -1474,7 +1393,7 @@ cudaError_t reduce_stats(const float* part, float* stats, int n, int cout,
 constexpr int kPersistWaves = 8;
 template <class Op, int BN, int SRC, typename TIn>
 cudaError_t launch_wgmma(const WArgs& a, int ncb, cudaStream_t s) {
-  using C = hw::Cfg<BN, SRC>;
+  using C = hw::Cfg<Op, BN, SRC>;
   static int sms = 0;
   auto kernel = conv3d_wgmma_kernel<Op, BN, SRC, TIn>;
   if (sms == 0) {
@@ -1582,108 +1501,56 @@ cudaError_t launch_bn(const WArgs& a, int bn, cudaStream_t s) {
 
 }  // namespace
 
-// float32 (FFMA). k_pad is a multiple of 32 and cout_pad of 64; wt is
-// (cout_pad, k_pad) with zero padding. stats (n, 2, cout) needs stats_part,
-// (ceil(n * d * h * w / 64) + n, 2, cout) f32 slots. Returns the
-// cudaError_t of the launches (0 on success).
-extern "C" int conv3x3_f32_forward(
-    const void* p0, const void* p1, const void* p2, const void* p3, int c0,
-    int c1, int c2, int c3, int nparts, const void* wt, const void* bias,
-    const void* pro_scale, const void* pro_shift, const void* pro_const,
-    float pro_slope, float act_slope, void* out, void* stats,
-    void* stats_part, int n, int d,
-    int h, int w, int cout, int k_pad, int cout_pad, void* stream) {
-  ConvArgs a;
-  const void* ps[kMaxParts] = {p0, p1, p2, p3};
-  const int cs[kMaxParts] = {c0, c1, c2, c3};
-  if (nparts < 1 || nparts > kMaxParts) return (int)cudaErrorInvalidValue;
-  bool vec = true;
-  int off = 0;
-  for (int i = 0; i < kMaxParts; ++i) {
-    const bool used = i < nparts;
-    a.part[i] = used ? ps[i] : ps[0];
-    a.part_c[i] = used ? cs[i] : 0;
-    a.part_off[i] = off;
-    if (used) {
-      vec = vec && cs[i] % 4 == 0 && aligned16(ps[i]);
-      off += cs[i];
-    }
-  }
-  a.nparts = nparts;
-  a.wt = wt;
-  a.bias = static_cast<const float*>(bias);
-  a.pro_scale = static_cast<const float*>(pro_scale);
-  a.pro_shift = static_cast<const float*>(pro_shift);
-  a.pro_const = static_cast<const float*>(pro_const);
-  a.pro_slope = pro_slope;
-  a.act_slope = act_slope;
-  a.out = out;
-  a.stats_part = static_cast<float*>(stats_part);
-  a.n = n;
-  a.d = d;
-  a.h = h;
-  a.w = w;
-  a.cin = off;
-  a.cout = cout;
-  a.k_total = 27 * off;
-  a.k_pad = k_pad;
-  a.spatial = d * h * w;
-  a.m_total = (long long)n * d * h * w;
-  if (a.m_total == 0) return (int)cudaSuccess;
-  if (k_pad % 32 || k_pad < a.k_total || cout_pad % 64 || cout_pad < cout ||
-      (stats == nullptr) != (stats_part == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)((a.m_total + f32::BM - 1) / f32::BM),
-                  cout_pad / f32::BN);
-  if (vec)
-    conv3d_f32_kernel<true><<<grid, kThreads, 0, s>>>(a);
-  else
-    conv3d_f32_kernel<false><<<grid, kThreads, 0, s>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess && stats != nullptr)
-    err = reduce_stats(a.stats_part, static_cast<float*>(stats), n, cout, 0,
-                       a.spatial, f32::BM, s);
-  return (int)err;
-}
-
-// bfloat16 (wgmma). wt is packed as (cout_pad / bn, nchunk, 27, 2, bn, 8)
-// with nchunk = ceil(cin / 16) and zero padding; bn is 64 or 128; the
-// chunks are split in `split` runs of `per_split` (split > 1 needs the
-// partial workspace and zeroed counters, sized from the grid). tma 1: every
-// part's channels are a multiple of 16 and its pointer 16-byte aligned, so
-// the halo comes by TMA; 0: the producer warps gather it. stats (n, 2,
-// cout) needs stats_part, (bricks, 2, cout) f32 slots. Returns the
-// cudaError_t of the launches (0 on success).
-extern "C" int conv3x3_bf16_forward(
-    const void* p0, const void* p1, const void* p2, const void* p3, int c0,
-    int c1, int c2, int c3, int nparts, const void* wt, const void* bias,
-    const void* pro_scale, const void* pro_shift, const void* pro_const,
-    float pro_slope, float act_slope, void* out, void* stats,
-    void* stats_part, void* partial,
-    void* counter, int n, int d, int h, int w, int cout, int bn, int nchunk,
-    int split, int per_split, int tma, void* stream) {
+// bfloat16 (wgmma; f32 0) and float32 (3xTF32 wgmma; f32 1). wt is packed
+// as (cout_pad / bn, nchunk, 27, 2, bn, 8) bfloat16 with nchunk = ceil(cin
+// / 16), or as (cout_pad / bn, nchunk, 3, 2, 9, 2, bn, 4) float32 with
+// nchunk = ceil(cin / 8): the tf32 big and small halves of each (chunk,
+// dz) stage side by side; zero padding; bn is 64 or 128; the chunks are
+// split in `split` runs of `per_split` (split > 1 needs the partial
+// workspace and zeroed counters, sized from the grid). tma 1: every part's
+// channels are a multiple of the chunk (16 or 8) and its pointer 16-byte
+// aligned, so the halo comes by TMA; 0: the producer warps gather it.
+// stats (n, 2, cout) needs stats_part, (bricks, 2, cout) f32 slots.
+// Returns the cudaError_t of the launches (0 on success).
+extern "C" int conv3x3_wgmma_forward(
+    int f32, const void* p0, const void* p1, const void* p2, const void* p3,
+    int c0, int c1, int c2, int c3, int nparts, const void* wt,
+    const void* bias, const void* pro_scale, const void* pro_shift,
+    const void* pro_const, float pro_slope, float act_slope, void* out,
+    void* stats, void* stats_part, void* partial, void* counter, int n,
+    int d, int h, int w, int cout, int bn, int nchunk, int split,
+    int per_split, int tma, void* stream) {
   WArgs a;   // holds four 64-byte-aligned tensor maps
   const void* ps[kMaxParts] = {p0, p1, p2, p3};
   const int cs[kMaxParts] = {c0, c1, c2, c3};
-  cudaError_t err = setup_wgmma(
-      a, ps, cs, nparts, Bf16Op::KC, tma, 2, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      8, wt, bias, out, stats, stats_part, partial, counter, n, d, h, w,
-      cout, bn, nchunk, split, per_split);
+  cudaError_t err =
+      f32 ? setup_wgmma(a, ps, cs, nparts, Tf32x3Op::KC, tma, 4,
+                        CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, wt, bias, out,
+                        stats, stats_part, partial, counter, n, d, h, w,
+                        cout, bn, nchunk, split, per_split)
+          : setup_wgmma(a, ps, cs, nparts, Bf16Op::KC, tma, 2,
+                        CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 8, wt, bias, out,
+                        stats, stats_part, partial, counter, n, d, h, w,
+                        cout, bn, nchunk, split, per_split);
   if (err != cudaSuccess) return (int)err;
   a.pro_scale = static_cast<const float*>(pro_scale);
   a.pro_shift = static_cast<const float*>(pro_shift);
   a.pro_const = static_cast<const float*>(pro_const);
   a.pro_slope = pro_slope;
   a.act_slope = act_slope;
-  a.out_kind = 2;
+  a.out_kind = f32 ? 1 : 2;
   if ((long long)n * d * h * w == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = tma ? launch_bn<Bf16Op, hw::kTma, __nv_bfloat16>(a, bn, s)
-            : launch_bn<Bf16Op, hw::kGathered, __nv_bfloat16>(a, bn, s);
-  if (err == cudaSuccess && stats != nullptr)
-    err = reduce_stats(a.stats_part, static_cast<float*>(stats), n, cout,
-                       a.nzb * a.nyb * a.nxb, 0, 0, s);
+  // 3xTF32 keeps a tap's sums beside the brick's: Cout blocks of 64
+  const int ncb = (cout + 63) / 64;
+  if (f32 && bn != 64) return (int)cudaErrorInvalidValue;
+  if (f32)
+    err = tma ? launch_wgmma<Tf32x3Op, 64, hw::kTma, float>(a, ncb, s)
+              : launch_wgmma<Tf32x3Op, 64, hw::kGathered, float>(a, ncb, s);
+  else
+    err = tma ? launch_bn<Bf16Op, hw::kTma, __nv_bfloat16>(a, bn, s)
+              : launch_bn<Bf16Op, hw::kGathered, __nv_bfloat16>(a, bn, s);
+  if (err == cudaSuccess && stats != nullptr) err = reduce_stats(a, stats, s);
   return (int)err;
 }
 
@@ -1739,8 +1606,6 @@ extern "C" int conv3x3_s8_forward(
               : launch_bn<S8Op, hw::kGathered, __nv_bfloat16>(a, bn, s);
   else
     err = launch_bn<S8Op, hw::kGathered, float>(a, bn, s);
-  if (err == cudaSuccess && stats != nullptr)
-    err = reduce_stats(a.stats_part, static_cast<float*>(stats), n, cout,
-                       a.nzb * a.nyb * a.nxb, 0, 0, s);
+  if (err == cudaSuccess && stats != nullptr) err = reduce_stats(a, stats, s);
   return (int)err;
 }

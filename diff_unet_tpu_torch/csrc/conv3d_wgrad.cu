@@ -71,11 +71,25 @@
 //   its partial dW; a second pass sums the partials in split order. No
 //   float atomics: the result is the same from run to run.
 //
-// float32 (conv3d_wgrad_f32_kernel): exact FFMA (TF32 would not hold the
-// 1e-4 tolerance). A CTA owns 64 Cout x 32 Cin x the nine (y, x) taps of
-// one z tap; K comes in chunks of 16 x 8 (y, x) voxels of one (sample, z)
-// slice by cp.async into two shared-memory stages; each thread computes 4
-// Cout x 18 (tap, Cin) values.
+// float32 (conv3d_wgrad_tf32_kernel): 3xTF32 on the tensor cores. wgmma
+// takes tf32 operands only K-major, and here K is the voxels while g and
+// u (NDHWC) are channel-major, so it runs mma.sync m16n8k8 tf32 instead,
+// each thread loading its own fragments with 32-bit shared-memory loads
+// (row strides 8 mod 32 banks: no conflicts) and splitting each value x in
+// registers into big = tf32(x) and small = tf32(x - big) (cvt.rna);
+// three MMAs a product, A_big B_big + A_big B_small + A_small B_big, hold
+// float32 accuracy (about 1e-6 relative, where one TF32 pass errs by
+// 2^-11). A CTA owns 64 Cout x 32 Cin x the nine (y, x) taps of one z tap
+// (8 warps, each two m16 tiles of Cout by one n8 tile of Cin at each tap:
+// 72 float32 sums a thread). K comes in chunks through two cp.async
+// stages: whole (sample, z) slices, as many as fit about 128 voxels, where
+// a slice has at most 160 voxels (8^3: two, 4^3: eight, so a chunk is not
+// mostly padding), else 16 x 8 (y, x) voxels of one slice; only the slices
+// whose z + dz lies in the volume are enumerated, and each thread reads a
+// voxel's u row through a table of the chunk's geometry, so no K step
+// runs on padding but the last. The prologue is applied on load. What
+// bounds it: three m16n8k8 MMAs and about 5 split instructions a loaded
+// value, on 8 warps an SM; mma.sync does not reach wgmma's rate.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -105,76 +119,6 @@ __device__ __forceinline__ float prologue_f(float x, float sc, float sh,
   return u + cs;
 }
 
-// ------------------------------------------------------------ float32 path
-namespace f32 {
-constexpr int kThreads = 256;
-constexpr int CO_TILE = 64;        // output channels of a CTA tile
-constexpr int CI_TILE = 32;        // input channels of a CTA tile
-constexpr int PY = 16, PX = 8;     // output voxels (y, x) of a chunk
-constexpr int KV = PY * PX;        // the GEMM's K per chunk
-constexpr int UY = PY + 2, UX = PX + 2;   // u's tile: the y and x halo
-constexpr int UV = UY * UX;        // input voxels of a chunk
-constexpr int E = 4;               // values in 16 bytes
-constexpr int GG = CO_TILE / E;    // 16-byte pieces: g row
-constexpr int GU = CI_TILE / E;    // 16-byte pieces: u row
-// row strides in shared memory: 16 bytes of padding keep the float4 reads
-// free of bank conflicts
-constexpr int LDG = CO_TILE + E;
-constexpr int LDU = CI_TILE + E;
-constexpr int G_ITEMS = KV * GG / kThreads;
-constexpr int U_ITEMS = (UV * GU + kThreads - 1) / kThreads;
-constexpr int STAGE = KV * LDG + UV * LDU;   // floats of a stage
-constexpr int STAGES = 2;
-constexpr int SMEM = STAGES * STAGE * 4;
-static_assert(KV * GG % kThreads == 0, "g tile pieces");
-static_assert(kThreads % GG == 0 && kThreads % GU == 0, "fixed channels");
-}  // namespace f32
-
-struct WgArgs {
-  const float* g;                  // (n, d, h, w, cout)
-  const float* part[kMaxParts];    // NDHWC, part_c[i] channels each
-  int part_c[kMaxParts];
-  int part_off[kMaxParts];         // first concat channel of each part
-  int part_vec[kMaxParts];         // 16-byte loads: channels and offset a
-                                   // multiple of 4, pointer aligned
-  int nparts;
-  int g_vec;                       // cout a multiple of 4, g aligned
-  const float* pro_scale;          // (n, cin) or null: no prologue
-  const float* pro_shift;          // (n, cin)
-  const float* pro_const;          // (n, cin) or null
-  float pro_slope;                 // 1: no prologue activation
-  float* out;                      // (split, cout, cin, 27)
-  long long out_size;              // cout * cin * 27
-  int n, d, h, w, cin, cout;
-  int nyb, nxb, nchunk, per_split, ncib;
-};
-
-struct Chunk {
-  int n, z, y0, x0;
-};
-
-__device__ __forceinline__ Chunk chunk_at(const WgArgs& a, int q) {
-  Chunk c;
-  c.x0 = (q % a.nxb) * f32::PX;
-  q /= a.nxb;
-  c.y0 = (q % a.nyb) * f32::PY;
-  q /= a.nyb;
-  c.z = q % a.d;
-  c.n = q / a.d;
-  return c;
-}
-
-// The first chunk at or after q whose input slice z + dz is in the volume.
-__device__ __forceinline__ int valid_from(const WgArgs& a, int q, int dz) {
-  const int per_z = a.nyb * a.nxb;
-  while (q < a.nchunk) {
-    const int z = (q / per_z) % a.d;
-    if ((unsigned)(z + dz) < (unsigned)a.d) return q;
-    q = (q / per_z + 1) * per_z;
-  }
-  return q;
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
@@ -186,235 +130,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// A thread's share of every chunk: its 16-byte pieces are pieces
-// t + kThreads * i of each tile, which all hold the same 4 channels, so
-// the channels, their part and the prologue columns are fixed per thread;
-// only the voxels move. It keeps the prologue values of its channels for
-// the sample pro_n.
-struct Share {
-  int gv0, uv0;         // first voxel of its g and u pieces
-  int co;               // first output channel of its g pieces
-  int ci;               // first input channel of its u pieces
-  const float* part;    // the part that holds ci (null: beyond cin)
-  int pc, lc;           // its channels, ci's channel in it
-  int vec;              // u pieces by cp.async (else gathered)
-  int pro_n;            // the sample of sc, sf, cs (-1: none yet)
-  float sc[f32::E], sf[f32::E], cs[f32::E];
-
-  __device__ Share(const WgArgs& a, int cob, int cib) {
-    using namespace f32;
-    const int t = threadIdx.x;
-    gv0 = t / GG;
-    uv0 = t / GU;
-    co = cob * CO_TILE + (t % GG) * E;
-    ci = cib * CI_TILE + (t % GU) * E;
-    part = nullptr;
-    pc = vec = lc = 0;
-    if (ci < a.cin) {
-      const int pi = part_index(a, ci);
-      part = a.part[pi];
-      pc = a.part_c[pi];
-      vec = a.part_vec[pi];
-      lc = ci - a.part_off[pi];
-    }
-    pro_n = -1;
-  }
-
-  // the prologue values of channels ci.. at sample n (0 beyond cin)
-  __device__ void load_prologue(const WgArgs& a, int n) {
-    pro_n = n;
-#pragma unroll
-    for (int e = 0; e < f32::E; ++e) {
-      const bool real = ci + e < a.cin;
-      const int k = n * a.cin + ci + e;
-      sc[e] = real ? a.pro_scale[k] : 0.f;
-      sf[e] = real ? a.pro_shift[k] : 0.f;
-      cs[e] = real && a.pro_const ? a.pro_const[k] : 0.f;
-    }
-  }
-};
-
-// Starts the copies of this thread's pieces of a chunk into a stage: 16
-// bytes by cp.async where they are whole and aligned, zeros (st.shared)
-// outside the volume and beyond the channels, and a scalar gather (its
-// prologue applied at once) where a part's channels do not allow 16-byte
-// loads.
-__device__ __forceinline__ void fetch_chunk(const WgArgs& a, Share& sh,
-                                            const Chunk& c, int dz, float* gs,
-                                            float* us) {
-  using namespace f32;
-  const long long gbase = ((long long)c.n * a.d + c.z) * a.h;
-#pragma unroll
-  for (int i = 0; i < G_ITEMS; ++i) {
-    const int vox = sh.gv0 + kThreads / GG * i;
-    const int y = c.y0 + vox / PX, x = c.x0 + vox % PX;
-    float* dst = gs + vox * LDG + (threadIdx.x % GG) * E;
-    const bool in = y < a.h && x < a.w && sh.co < a.cout;
-    const float* src = a.g + ((gbase + y) * a.w + x) * a.cout + sh.co;
-    if (in && a.g_vec) {
-      cp_async16(dst, src);
-    } else {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      float* e4 = reinterpret_cast<float*>(&v);
-#pragma unroll
-      for (int e = 0; e < E; ++e)
-        if (in && sh.co + e < a.cout) e4[e] = src[e];
-      *reinterpret_cast<float4*>(dst) = v;
-    }
-  }
-  const long long ubase = ((long long)c.n * a.d + c.z + dz) * a.h;
-  if (a.pro_scale && !sh.vec && sh.pro_n != c.n) sh.load_prologue(a, c.n);
-#pragma unroll
-  for (int i = 0; i < U_ITEMS; ++i) {
-    const int vox = sh.uv0 + kThreads / GU * i;
-    if (vox >= UV) break;
-    const int r = vox / UX;
-    const int y = c.y0 - 1 + r, x = c.x0 - 1 + (vox - r * UX);
-    float* dst = us + vox * LDU + (threadIdx.x % GU) * E;
-    const bool in = sh.part != nullptr && (unsigned)y < (unsigned)a.h &&
-                    (unsigned)x < (unsigned)a.w;
-    const long long vx = (ubase + y) * a.w + x;
-    if (in && sh.vec) {
-      cp_async16(dst, sh.part + vx * sh.pc + sh.lc);
-      continue;
-    }
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    float* e4 = reinterpret_cast<float*>(&v);
-    if (in) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int ci = sh.ci + e;
-        if (ci >= a.cin) break;
-        const int pi = part_index(a, ci);
-        float val = a.part[pi][vx * a.part_c[pi] + (ci - a.part_off[pi])];
-        if (a.pro_scale)
-          val = prologue_f(val, sh.sc[e], sh.sf[e], sh.cs[e], a.pro_slope);
-        e4[e] = val;
-      }
-    }
-    *reinterpret_cast<float4*>(dst) = v;
-  }
-}
-
-// The prologue on the pieces this thread copied by cp.async, once they
-// have arrived; the halo stays 0.
-__device__ __forceinline__ void prologue_chunk(const WgArgs& a, Share& sh,
-                                               const Chunk& c, float* us) {
-  using namespace f32;
-  if (sh.part == nullptr || !sh.vec) return;
-  if (sh.pro_n != c.n) sh.load_prologue(a, c.n);
-#pragma unroll
-  for (int i = 0; i < U_ITEMS; ++i) {
-    const int vox = sh.uv0 + kThreads / GU * i;
-    if (vox >= UV) break;
-    const int r = vox / UX;
-    const int y = c.y0 - 1 + r, x = c.x0 - 1 + (vox - r * UX);
-    if ((unsigned)y >= (unsigned)a.h || (unsigned)x >= (unsigned)a.w)
-      continue;
-    float4* p = reinterpret_cast<float4*>(
-        us + vox * LDU + (threadIdx.x % GU) * E);
-    float4 v = *p;
-    float* e4 = reinterpret_cast<float*>(&v);
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-      e4[e] = prologue_f(e4[e], sh.sc[e], sh.sf[e], sh.cs[e], a.pro_slope);
-    *p = v;
-  }
-}
-
-// One chunk on the CUDA cores: acc[i * 18 + q] is Cout 4 tm + i and column
-// tn + 16 q: tap q / 2, input channel tn + 16 (q % 2).
-__device__ __forceinline__ void ffma_chunk(const float* gs, const float* us,
-                                           float* acc, int t) {
-  using namespace f32;
-  const int tm = t >> 4, tn = t & 15;
-#pragma unroll 2
-  for (int k = 0; k < KV; ++k) {
-    const float4 av =
-        *reinterpret_cast<const float4*>(gs + k * LDG + 4 * tm);
-    const float ai[4] = {av.x, av.y, av.z, av.w};
-    const int base = (k / PX) * UX + k % PX;
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const float* ur = us + (base + (tap / 3) * UX + tap % 3) * LDU + tn;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float b = ur[16 * h];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          acc[i * 18 + 2 * tap + h] =
-              fmaf(ai[i], b, acc[i * 18 + 2 * tap + h]);
-      }
-    }
-  }
-}
-
-// blockIdx.x: the tile (Cout block, Cin block, z tap), the tap fastest, so
-// the tiles of one split run together and share its chunks in L2;
-// blockIdx.y: the split of the chunks. The chunks flow through two stages,
-// one in flight while the other is multiplied.
-__global__ void __launch_bounds__(f32::kThreads, 1)
-conv3d_wgrad_f32_kernel(const WgArgs a) {
-  using namespace f32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* smem = reinterpret_cast<float*>(smem_raw);
-  const int t = threadIdx.x;
-  int bx = blockIdx.x;
-  const int dz = bx % 3 - 1;
-  bx /= 3;
-  const int cib = bx % a.ncib, cob = bx / a.ncib;
-  const int split = blockIdx.y;
-  const int q1 = min(a.nchunk, (split + 1) * a.per_split);
-  Share sh(a, cob, cib);
-
-  float acc[72];
-#pragma unroll
-  for (int i = 0; i < 72; ++i) acc[i] = 0.f;
-  // qi: the next chunk to fetch, into stage si; q: the chunk to multiply,
-  // from stage s
-  int qi = valid_from(a, split * a.per_split, dz), si = 0;
-  int q = qi, s = 0;
-  auto fetch = [&]() {
-    if (qi < q1) {
-      float* gs = smem + si * STAGE;
-      fetch_chunk(a, sh, chunk_at(a, qi), dz, gs, gs + KV * LDG);
-      qi = valid_from(a, qi + 1, dz);
-    }
-    cp_async_commit();          // an empty group past the last chunk
-    si = si + 1 == STAGES ? 0 : si + 1;
-  };
-#pragma unroll
-  for (int k = 0; k < STAGES - 1; ++k) fetch();
-  while (q < q1) {
-    fetch();                    // into the stage multiplied last round
-    cp_async_wait<STAGES - 1>();     // chunk q has arrived
-    float* gs = smem + s * STAGE;
-    if (a.pro_scale) prologue_chunk(a, sh, chunk_at(a, q), gs + KV * LDG);
-    __syncthreads();
-    ffma_chunk(gs, gs + KV * LDG, acc, t);
-    __syncthreads();            // the stage may be refilled
-    s = s + 1 == STAGES ? 0 : s + 1;
-    q = valid_from(a, q + 1, dz);
-  }
-  cp_async_wait<0>();
-
-  // every (co, ci, tap) of the tile is written, zeros where no chunk added
-  float* out = a.out + (long long)split * a.out_size;
-  const int tap0 = (dz + 1) * 9;
-  const int tm = t >> 4, tn = t & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int q2 = 0; q2 < 18; ++q2) {
-      const int co = cob * CO_TILE + 4 * tm + i;
-      const int col = tn + 16 * q2;
-      const int ci = cib * CI_TILE + col % CI_TILE;
-      if (co < a.cout && ci < a.cin)
-        out[((long long)co * a.cin + ci) * 27 + tap0 + col / CI_TILE] =
-            acc[i * 18 + q2];
-    }
 }
 
 // --------------------------------------------------------------- bf16 path
@@ -478,13 +193,15 @@ struct GChunk {
   int y0, x0, slice0, nz;
 };
 
-__device__ __forceinline__ int nchunks(const GArgs& a, int dz) {
+template <class A>
+__device__ __forceinline__ int nchunks(const A& a, int dz) {
   const int nz = a.d - (dz != 0);
   const int groups = (a.n * nz + a.slices - 1) / a.slices;
   return groups * a.nyt * a.nxt;
 }
 
-__device__ __forceinline__ GChunk gchunk_at(const GArgs& a, int q, int dz) {
+template <class A>
+__device__ __forceinline__ GChunk gchunk_at(const A& a, int q, int dz) {
   GChunk c;
   c.x0 = (q % a.nxt) * a.tx;
   q /= a.nxt;
@@ -496,10 +213,13 @@ __device__ __forceinline__ GChunk gchunk_at(const GArgs& a, int q, int dz) {
 
 // sample and z of slice s of the chunk; n == a.n past the last slice (TMA
 // then reads zeros)
-__device__ __forceinline__ void slice_nz(const GArgs& a, const GChunk& c,
-                                         int s, int dz, int& n, int& z) {
+template <class A>
+__device__ __forceinline__ void slice_nz(const A& a, const GChunk& c, int s,
+                                         int dz, int& n, int& z) {
   const int i = c.slice0 + s;
-  n = __umulhi(i, a.nz_mul[dz != 0]);
+  // a z tap of a 2-deep volume (or the middle one of a 1-deep volume) has
+  // one valid z a sample: 1 has no 32-bit reciprocal (magic(1) wraps to 0)
+  n = c.nz == 1 ? i : (int)__umulhi(i, a.nz_mul[dz != 0]);
   z = i - n * c.nz + (dz < 0 ? 1 : 0);
   if (n >= a.n) n = a.n;
 }
@@ -1064,6 +784,365 @@ conv3d_wgrad_wgmma_kernel(const __grid_constant__ GArgs a) {
   }
 }
 
+// ------------------------------------------------------------ float32 path
+// The prologue as the plain version and the forward kernel round it: the
+// product and each sum rounded on their own (no FMA contraction).
+__device__ __forceinline__ float prologue_rn(float x, float sc, float sh,
+                                             float cs, float slope) {
+  float u = __fadd_rn(__fmul_rn(x, sc), sh);
+  u = u >= 0.f ? u : __fmul_rn(u, slope);
+  return __fadd_rn(u, cs);
+}
+
+namespace tf {
+constexpr int kThreads = 256;      // 8 warps: 2 along Cout x 4 along Cin
+constexpr int CO = 64, CI = 32;    // a CTA tile's output and input channels
+// row strides in floats, 8 mod 32: a fragment's 32 loads (4 rows x 8
+// channels) hit 32 banks
+constexpr int LDG = CO + 8;
+constexpr int LDU = CI + 8;
+constexpr int GP = CO / 4;         // 16-byte pieces of a g row
+constexpr int UP = CI / 4;         // of a u row
+constexpr int STAGES = 2;
+constexpr int kMaxSmem = 227 * 1024;
+}  // namespace tf
+
+struct TArgs {
+  const float* g;                  // (n, d, h, w, cout)
+  const float* part[kMaxParts];    // NDHWC, part_c[i] channels each
+  int part_c[kMaxParts];
+  int part_off[kMaxParts];         // first concat channel of each part
+  int part_vec[kMaxParts];         // 16-byte loads: channels and offset a
+                                   // multiple of 4, pointer aligned
+  int nparts;
+  int g_vec;                       // cout a multiple of 4, g aligned
+  const float* pro_scale;          // (n, cin) or null: no prologue
+  const float* pro_shift;          // (n, cin)
+  const float* pro_const;          // (n, cin) or null
+  float pro_slope;                 // 1: no prologue activation
+  float* out;                      // (split, cout, cin, 27)
+  long long out_size;              // cout * cin * 27
+  int n, d, h, w, cin, cout;
+  // a chunk: `slices` (sample, z) slices x ty rows x tx columns, kv voxels
+  // (K), k8 of them padded to the k8 step with zero rows of g
+  int tx, ty, slices, kv, k8;
+  int ux, uvs;                     // u's halo row and slice tile (voxels)
+  int nyt, nxt, per_split, ncib;
+  int stage_floats;                // a stage: g (k8 x LDG), u tiles
+  int ring_floats;                 // the stages, or the staged tile
+  uint32_t nz_mul[2];              // i / (d - k) = umulhi(i, nz_mul[k])
+};
+
+// A thread's fixed share of every chunk's copies: the 16-byte pieces of g
+// rows t / GP, + kThreads / GP, ... (output channels co ..) and of u
+// voxels t / UP, ... (input channels ci ..). It keeps the prologue rows of
+// its channels for the sample pro_n.
+struct TShare {
+  int co, ci;
+  const float* part;               // the part that holds ci (null: beyond)
+  int pc, lc, vec;                 // its channels, ci's in it, cp.async
+  int pro_n;
+  float sc[4], sf[4], cs[4];
+
+  __device__ TShare(const TArgs& a, int cob, int cib) {
+    using namespace tf;
+    const int t = threadIdx.x;
+    co = cob * CO + (t % GP) * 4;
+    ci = cib * CI + (t % UP) * 4;
+    part = nullptr;
+    pc = lc = vec = 0;
+    if (ci < a.cin) {
+      const int pi = part_index(a, ci);
+      part = a.part[pi];
+      pc = a.part_c[pi];
+      lc = ci - a.part_off[pi];
+      vec = a.part_vec[pi];
+    }
+    pro_n = -1;
+  }
+
+  __device__ void load_prologue(const TArgs& a, int n) {
+    if (pro_n == n) return;
+    pro_n = n;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool real = ci + e < a.cin;
+      const int k = n * a.cin + ci + e;
+      sc[e] = real ? a.pro_scale[k] : 0.f;
+      sf[e] = real ? a.pro_shift[k] : 0.f;
+      cs[e] = real && a.pro_const ? a.pro_const[k] : 0.f;
+    }
+  }
+};
+
+// u voxel l of a chunk's tiles: its slice, and whether it lies in the
+// volume (vox: its flat index there).
+__device__ __forceinline__ bool u_voxel(const TArgs& a, const GChunk& c,
+                                        int l, int dz, int& n,
+                                        long long& vox) {
+  const int s = l / a.uvs, r = l - s * a.uvs;
+  const int hy = r / a.ux;
+  const int y = c.y0 - 1 + hy, x = c.x0 - 1 + (r - hy * a.ux);
+  int z;
+  slice_nz(a, c, s, dz, n, z);
+  vox = (((long long)n * a.d + z + dz) * a.h + y) * a.w + x;
+  return n < a.n && (unsigned)y < (unsigned)a.h &&
+         (unsigned)x < (unsigned)a.w;
+}
+
+// Starts the copies of this thread's pieces of a chunk into a stage: 16
+// bytes by cp.async where they are whole and aligned, zeros (st.shared)
+// outside the volume, past the chunk's voxels and beyond the channels,
+// and a gather (its prologue applied at once) where a part's channels do
+// not allow 16-byte loads.
+__device__ __forceinline__ void fetch_tf32(const TArgs& a, TShare& sh,
+                                           const GChunk& c, int dz,
+                                           float* gs, float* us) {
+  using namespace tf;
+  const int t = threadIdx.x, per = a.ty * a.tx;
+  for (int k = t / GP; k < a.k8; k += kThreads / GP) {
+    float* dst = gs + k * LDG + (t % GP) * 4;
+    const float* src = nullptr;
+    if (k < a.kv && sh.co < a.cout) {
+      const int s = k / per, r = k - s * per;
+      const int y = c.y0 + r / a.tx, x = c.x0 + r % a.tx;
+      int n, z;
+      slice_nz(a, c, s, dz, n, z);
+      if (n < a.n && y < a.h && x < a.w)
+        src = a.g + ((((long long)n * a.d + z) * a.h + y) * a.w + x) *
+                        a.cout + sh.co;
+    }
+    if (src != nullptr && a.g_vec) {
+      cp_async16(dst, src);
+      continue;
+    }
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    float* e4 = reinterpret_cast<float*>(&v);
+    if (src != nullptr) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (sh.co + e < a.cout) e4[e] = src[e];
+    }
+    *reinterpret_cast<float4*>(dst) = v;
+  }
+  for (int l = t / UP; l < a.slices * a.uvs; l += kThreads / UP) {
+    float* dst = us + l * LDU + (t % UP) * 4;
+    int n;
+    long long vox;
+    const bool in = sh.part != nullptr && u_voxel(a, c, l, dz, n, vox);
+    if (in && sh.vec) {
+      cp_async16(dst, sh.part + vox * sh.pc + sh.lc);
+      continue;
+    }
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    float* e4 = reinterpret_cast<float*>(&v);
+    if (in) {
+      if (a.pro_scale) sh.load_prologue(a, n);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ci = sh.ci + e;
+        if (ci >= a.cin) break;
+        const int pi = part_index(a, ci);
+        float val = a.part[pi][vox * a.part_c[pi] + (ci - a.part_off[pi])];
+        if (a.pro_scale)
+          val = prologue_rn(val, sh.sc[e], sh.sf[e], sh.cs[e], a.pro_slope);
+        e4[e] = val;
+      }
+    }
+    *reinterpret_cast<float4*>(dst) = v;
+  }
+}
+
+// The prologue on the u pieces this thread copied by cp.async, once they
+// have arrived; the halo stays 0.
+__device__ __forceinline__ void prologue_tf32(const TArgs& a, TShare& sh,
+                                              const GChunk& c, int dz,
+                                              float* us) {
+  using namespace tf;
+  if (sh.part == nullptr || !sh.vec) return;
+  for (int l = threadIdx.x / UP; l < a.slices * a.uvs;
+       l += kThreads / UP) {
+    int n;
+    long long vox;
+    if (!u_voxel(a, c, l, dz, n, vox)) continue;
+    sh.load_prologue(a, n);
+    float4* p = reinterpret_cast<float4*>(us + l * LDU +
+                                          (threadIdx.x % UP) * 4);
+    float4 v = *p;
+    float* e4 = reinterpret_cast<float*>(&v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      e4[e] = prologue_rn(e4[e], sh.sc[e], sh.sf[e], sh.cs[e], a.pro_slope);
+    *p = v;
+  }
+}
+
+// x as tf32 big and small: big = tf32(x), small = tf32(x - big), each
+// rounded to nearest, ties away (cvt.rna.tf32.f32); big's low 13 bits
+// are cleared so that x - big is the remainder the tensor cores miss
+// (they read neither operand's low 13 bits).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  uint32_t b, r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(b) : "f"(x));
+  b &= 0xffffe000u;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x - __uint_as_float(b)));
+  big = b;
+  small = r;
+}
+
+// d += A * B, m16n8k8 with tf32 operands, float32 sums.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One chunk on the tensor cores, 3xTF32: warp (wm, wn) adds A = g^T (its
+// 32 output channels, two m16 tiles) times B = u (8 input channels at each
+// of the nine (y, x) taps, one n8 tile a tap) over the chunk's k8 steps,
+// every product A_big B_big + A_big B_small + A_small B_big. Each thread
+// loads its own fragments (32-bit loads) and splits them in registers; u
+// at tap (dy, dx) of voxel k is row tab[k] + dy ux + dx of the stage.
+// Each k8 step's three MMAs make a sum of their own (the small products
+// first), added to acc in float32 (round to nearest): the tensor cores
+// align a sum to its largest term and drop the bits below, always toward
+// zero, so a running sum kept in them drifts with its MMAs (a split's
+// ~10^4 moved HybridMIM's L0 conv_1 dW by 1.8e-4 of its largest on an
+// H100; 1.5e-6 with these sums).
+__device__ __forceinline__ void mma_chunk_tf32(const TArgs& a,
+                                               const float* gs,
+                                               const float* us,
+                                               const int* tab,
+                                               float (&acc)[2][9][4]) {
+  using namespace tf;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane & 3, gc = lane >> 2;
+  const float* ga = gs + gr * LDG + 32 * (warp & 1) + gc;
+  const float* ub = us + 8 * (warp >> 1) + gc;
+  const int ux = a.ux;
+#pragma unroll 1
+  for (int k0 = 0; k0 < a.k8; k0 += 8) {
+    uint32_t ab[2][4], as[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const float* gk = ga + k0 * LDG + 16 * mi;
+      const float f[4] = {gk[0], gk[8], gk[4 * LDG], gk[4 * LDG + 8]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(f[e], ab[mi][e], as[mi][e]);
+    }
+    const int r0 = tab[k0 + gr], r1 = tab[k0 + gr + 4];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int off = (tap / 3) * ux + tap % 3;
+      uint32_t bb0, bs0, bb1, bs1;
+      split_tf32(ub[(r0 + off) * LDU], bb0, bs0);
+      split_tf32(ub[(r1 + off) * LDU], bb1, bs1);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(d, as[mi], bb0, bb1);
+        mma_tf32(d, ab[mi], bs0, bs1);
+        mma_tf32(d, ab[mi], bb0, bb1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][tap][e] += d[e];
+      }
+    }
+  }
+}
+
+// blockIdx.x: the tile (Cout block, Cin block, z tap), the tap fastest, so
+// the tiles of one split run together and share its chunks in L2;
+// blockIdx.y: the split of the chunks, enumerated densely (gchunk_at). The
+// chunks flow through two cp.async stages, one in flight while the other
+// is multiplied.
+__global__ void __launch_bounds__(tf::kThreads, 1)
+conv3d_wgrad_tf32_kernel(const __grid_constant__ TArgs a) {
+  using namespace tf;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  int* tab = reinterpret_cast<int*>(smem + a.ring_floats);
+  const int t = threadIdx.x;
+  int bx = blockIdx.x;
+  const int dz = bx % 3 - 1;
+  bx /= 3;
+  const int cib = bx % a.ncib, cob = bx / a.ncib;
+  const int q0 = blockIdx.y * a.per_split;
+  const int nq = min(nchunks(a, dz), q0 + a.per_split) - q0;
+  // voxel k's u row at tap (dy, dx) = (-1, -1), the same in every chunk
+  // (padding k: row 0, times the zero rows of g)
+  const int per = a.ty * a.tx;
+  for (int k = t; k < a.k8; k += kThreads) {
+    int row = 0;
+    if (k < a.kv) {
+      const int s = k / per, r = k - s * per;
+      row = s * a.uvs + (r / a.tx) * a.ux + r % a.tx;
+    }
+    tab[k] = row;
+  }
+  TShare sh(a, cob, cib);
+  float acc[2][9][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][tap][e] = 0.f;
+  auto fetch = [&](int it) {
+    if (it < nq) {
+      float* gs = smem + (it % STAGES) * a.stage_floats;
+      fetch_tf32(a, sh, gchunk_at(a, q0 + it, dz), dz, gs, gs + a.k8 * LDG);
+    }
+    cp_async_commit();             // an empty group past the last chunk
+  };
+  fetch(0);
+  for (int it = 0; it < nq; ++it) {
+    fetch(it + 1);                 // into the stage multiplied last round
+    cp_async_wait<1>();            // chunk it has arrived
+    float* gs = smem + (it % STAGES) * a.stage_floats;
+    if (a.pro_scale)
+      prologue_tf32(a, sh, gchunk_at(a, q0 + it, dz), dz, gs + a.k8 * LDG);
+    __syncthreads();
+    mma_chunk_tf32(a, gs, gs + a.k8 * LDG, tab, acc);
+    __syncthreads();               // the stage may be refilled
+  }
+  cp_async_wait<0>();
+
+  // ---- epilogue: the tile through shared memory (the stages are
+  // drained), then 9 consecutive taps of each (co, ci) to this split's
+  // partial dW, consecutive threads on consecutive (ci, tap), so a warp's
+  // stores fill whole sectors; every (co, ci, tap) of the tile is
+  // written, zeros where no chunk added. C fragment element e is row gc +
+  // 8 (e / 2), column 2 gr + e % 2.
+  constexpr int RS = CI * 9 + 1;           // a staged Cout row, floats
+  __syncthreads();
+  const int lane = t & 31, warp = t >> 5, gr = lane & 3, gc = lane >> 2;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = 32 * (warp & 1) + 16 * mi + gc + 8 * (e >> 1);
+      const int col = 8 * (warp >> 1) + 2 * gr + (e & 1);
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap)
+        smem[row * RS + col * 9 + tap] = acc[mi][tap][e];
+    }
+  __syncthreads();
+  float* out = a.out + (long long)blockIdx.y * a.out_size;
+  const int tap0 = (dz + 1) * 9;
+  for (int idx = t; idx < CO * CI * 9; idx += kThreads) {
+    const int row = idx / (CI * 9), rem = idx - row * (CI * 9);
+    const int co = cob * CO + row, ci = cib * CI + rem / 9;
+    if (co < a.cout && ci < a.cin)
+      out[((long long)co * a.cin + ci) * 27 + tap0 + rem % 9] =
+          smem[row * RS + rem];
+  }
+}
+
 // dW = the sum of the splits' partials, in split order.
 __global__ void wgrad_reduce_kernel(const float* __restrict__ partial,
                                     float* __restrict__ out, long long size,
@@ -1076,56 +1155,74 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-cudaError_t launch_f32(const void* g, const void* const* ps, const int* cs,
-                       int nparts, const float* pro_scale,
-                       const float* pro_shift, const float* pro_const,
-                       float pro_slope, float* out, int n, int d, int h,
-                       int w, int cin, int cout, int split, int per_split,
-                       cudaStream_t s) {
-  using namespace f32;
-  WgArgs a;
+cudaError_t launch_tf32(const void* g, const void* const* ps, const int* cs,
+                        int nparts, const float* pro_scale,
+                        const float* pro_shift, const float* pro_const,
+                        float pro_slope, float* out, int n, int d, int h,
+                        int w, int cin, int cout, int split, int per_split,
+                        int tx, int ty, int slices, cudaStream_t s) {
+  using namespace tf;
+  TArgs a;
   memset(&a, 0, sizeof(a));
+  if (tx < 1 || ty < 1 || slices < 1) return cudaErrorInvalidValue;
   int off = 0;
   for (int i = 0; i < kMaxParts; ++i) {
     const bool used = i < nparts;
     a.part[i] = static_cast<const float*>(used ? ps[i] : ps[0]);
     a.part_c[i] = used ? cs[i] : 0;
     a.part_off[i] = off;
-    a.part_vec[i] = used && cs[i] % E == 0 && off % E == 0 && aligned16(ps[i]);
+    a.part_vec[i] = used && cs[i] % 4 == 0 && off % 4 == 0 && aligned16(ps[i]);
     if (used) off += cs[i];
   }
   a.nparts = nparts;
   a.g = static_cast<const float*>(g);
-  a.g_vec = cout % E == 0 && aligned16(g);
+  a.g_vec = cout % 4 == 0 && aligned16(g);
   a.pro_scale = pro_scale;
   a.pro_shift = pro_shift;
   a.pro_const = pro_const;
   a.pro_slope = pro_slope;
+  a.out = out;
+  a.out_size = (long long)cout * cin * 27;
   a.n = n;
   a.d = d;
   a.h = h;
   a.w = w;
   a.cin = cin;
   a.cout = cout;
-  a.nyb = (h + PY - 1) / PY;
-  a.nxb = (w + PX - 1) / PX;
-  a.nchunk = n * d * a.nyb * a.nxb;
+  a.tx = tx;
+  a.ty = ty;
+  a.slices = slices;
+  a.kv = slices * ty * tx;
+  a.k8 = (a.kv + 7) / 8 * 8;
+  a.ux = tx + 2;
+  a.uvs = (ty + 2) * a.ux;
+  a.nyt = (h + ty - 1) / ty;
+  a.nxt = (w + tx - 1) / tx;
   a.per_split = per_split;
-  a.ncib = (cin + CI_TILE - 1) / CI_TILE;
-  a.out_size = (long long)cout * cin * 27;
-  a.out = out;
-  if ((long long)split * per_split < a.nchunk) return cudaErrorInvalidValue;
+  a.ncib = (cin + CI - 1) / CI;
+  a.stage_floats = a.k8 * LDG + slices * a.uvs * LDU;
+  auto magic = [](int v) {
+    return (uint32_t)((0x100000000ull + v - 1) / (unsigned)(v > 0 ? v : 1));
+  };
+  a.nz_mul[0] = magic(d);
+  a.nz_mul[1] = magic(d - 1);
+  a.ring_floats = max(STAGES * a.stage_floats, CO * (CI * 9 + 1));
+  const long long smem = (long long)(a.ring_floats + a.k8) * 4;
+  const long long nch =
+      (long long)((n * d + slices - 1) / slices) * a.nyt * a.nxt;
+  if (smem > kMaxSmem || (long long)split * per_split < nch)
+    return cudaErrorInvalidValue;
   static bool ready = false;
   if (!ready) {
     const cudaError_t err = cudaFuncSetAttribute(
-        conv3d_wgrad_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM);
+        conv3d_wgrad_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
     if (err != cudaSuccess) return err;
     ready = true;
   }
-  const int ncob = (cout + CO_TILE - 1) / CO_TILE;
+  const int ncob = (cout + CO - 1) / CO;
   const dim3 grid((unsigned)(ncob * a.ncib * 3), (unsigned)split);
-  conv3d_wgrad_f32_kernel<<<grid, kThreads, SMEM, s>>>(a);
+  conv3d_wgrad_tf32_kernel<<<grid, kThreads, (size_t)smem, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -1256,12 +1353,11 @@ cudaError_t launch_bf16(const void* g, const void* const* ps, const int* cs,
 // dW (cout, cin, 3, 3, 3) float32 from g (n, d, h, w, cout) and the input
 // parts (n, d, h, w, c_i), both bfloat16 (bf16 = 1) or float32, with the
 // optional prologue (scale, shift, const: (n, cin) float32; pro_slope 1 for
-// no activation). The chunks (bf16: `slices` (sample, z) slices x ty x tx
-// output voxels, Cin tiles of ci_tile; float32: 16 x 8 (y, x) voxels of
-// one slice, tx 8, ty 16, slices 1) are split in `split` runs of
-// `per_split`; split > 1 needs the float32 workspace `partial` of split *
-// cout * cin * 27 values. Returns the cudaError_t of the launches (0 on
-// success).
+// no activation). The chunks (`slices` (sample, z) slices x ty x tx
+// output voxels; bf16 in Cin tiles of ci_tile, float32 of 32) are split in
+// `split` runs of `per_split`; split > 1 needs the float32 workspace
+// `partial` of split * cout * cin * 27 values. Returns the cudaError_t of
+// the launches (0 on success).
 extern "C" int conv3x3_wgrad(
     const void* g, const void* p0, const void* p1, const void* p2,
     const void* p3, int c0, int c1, int c2, int c3, int nparts,
@@ -1291,10 +1387,8 @@ extern "C" int conv3x3_wgrad(
                       w, cin, cout, split, per_split, tx, ty, slices,
                       ci_tile, s);
   } else {
-    if (tx != f32::PX || ty != f32::PY || slices != 1)
-      return (int)cudaErrorInvalidValue;
-    err = launch_f32(g, ps, cs, nparts, sc, sh, cc, pro_slope, dst, n, d, h,
-                     w, cin, cout, split, per_split, s);
+    err = launch_tf32(g, ps, cs, nparts, sc, sh, cc, pro_slope, dst, n, d, h,
+                      w, cin, cout, split, per_split, tx, ty, slices, s);
   }
   if (err != cudaSuccess || split == 1) return (int)err;
   const long long blocks = (size + 255) / 256;

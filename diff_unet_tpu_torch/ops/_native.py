@@ -105,10 +105,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [p, p] + [i] * 10 + [p]
         fn.restype = i
     conv_head = [p, p, p, p, i, i, i, i, i, p, p, p, p, p, f, f, p, p, p]
-    lib.conv3x3_f32_forward.argtypes = conv_head + [i] * 7 + [p]
-    lib.conv3x3_f32_forward.restype = i
-    lib.conv3x3_bf16_forward.argtypes = conv_head + [p, p] + [i] * 10 + [p]
-    lib.conv3x3_bf16_forward.restype = i
+    lib.conv3x3_wgmma_forward.argtypes = [i] + conv_head + [p, p] \
+        + [i] * 10 + [p]
+    lib.conv3x3_wgmma_forward.restype = i
     lib.conv3x3_s8_forward.argtypes = ([p] * 4 + [i] * 6 + [p] * 7
                                        + [f, i] + [p] * 5 + [i] * 10 + [p])
     lib.conv3x3_s8_forward.restype = i

@@ -22,15 +22,19 @@ the compute dtype. ``weight`` is PyTorch's (Cout, Cin, 3, 3, 3). The
 compute dtype is that of the parts (float32 or bfloat16); products
 accumulate in float32, ``stats`` (N, 2, Cout) float32 are taken from that
 accumulator before the output is rounded to the compute dtype. The kernel
-source is ``csrc/conv3d.cu``. Its statistics are reproducible: each output
-tile stores its partial sums in a slot of its own, which a second kernel
-adds up in slot order, so two runs on the same inputs give the same bits.
+source is ``csrc/conv3d.cu``: bfloat16 on the tensor cores, float32 as
+3xTF32 on them (each value split into tf32 big and small parts, three
+products a term: float32 accuracy, about 1e-6 relative). Its statistics are
+reproducible: each output brick stores its partial sums in a slot of its
+own, which a second kernel adds up in slot order, so two runs on the same
+inputs give the same bits.
 
-The bfloat16 kernel's launch plan (``conv_plan``: output bricks, Cout
-block, the split of the channel chunks across CTAs, TMA or gathered halo)
-and its weight layout (``pack_weight``) are chosen here, in Python, from
-the shapes; the packed weights are kept per weight tensor and parameter
-version (``packed_weight``).
+The kernel's launch plan (``conv_plan``: output bricks, Cout block, the
+split of the channel chunks across CTAs, TMA or gathered halo) and its
+weight layout (``pack_weight``; float32 ``pack_weight_tf32``, the big and
+small parts side by side) are chosen here, in Python, from the shapes; the
+packed weights are kept per weight tensor and parameter version
+(``packed_weight``).
 
 Gradients (``_Conv3x3``, an autograd Function that ``conv3x3`` routes
 through when autograd needs one): with ``g`` the gradient at the conv's
@@ -66,15 +70,16 @@ from diff_unet_tpu_torch.ops import _native
 EPS = 1e-5
 MAX_PARTS = 4
 # Kernel against plain version on the card, as a fraction of the largest
-# |plain| value: both sum the same products in float32 and differ only in
-# order, so float32 outputs agree to 1e-4 and bfloat16 outputs to two bf16
-# ulps (2^-6) of the largest (one rounding of a near-tie can flip); the
-# float32 statistics to 1e-4 of the largest in either dtype.
+# |plain| value: both sum the same products in float32 and differ in order
+# (and, in float32, by the 3xTF32 split's ~1e-6 of each product), so
+# float32 outputs agree to 1e-4 and bfloat16 outputs to two bf16 ulps
+# (2^-6) of the largest (one rounding of a near-tie can flip); the float32
+# statistics to 1e-4 of the largest in either dtype.
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 STATS_TOL = 1e-4
 # the weight-gradient kernel against its plain version, as a fraction of
-# max |plain|: both sum the same products (of bf16 or fp32 values) in
-# float32, in another order, over up to ~10^7 voxels
+# max |plain|: both sum the same products (of bf16 values, or of fp32
+# values as 3xTF32) in float32, in another order, over up to ~10^7 voxels
 WGRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 # the Function's gradients against autograd through the plain version, as
 # a fraction of each gradient's max |g|: in bfloat16 the Function rounds g
@@ -83,14 +88,15 @@ GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # the wgmma kernel's geometry (csrc/conv3d.cu, namespace hw): a CTA owns a
 # (z, y, x) brick of output voxels of one sample, one z slice for each of
 # its two consumer warpgroups, and takes the input in chunks of CHUNK
-# bfloat16 or CHUNK_S8 int8 channels (32 bytes of K a voxel either way);
-# grids under MIN_CTAS CTAs split the chunks
+# bfloat16, CHUNK_F32 float32 (3xTF32) or CHUNK_S8 int8 channels (32 bytes
+# of K a voxel in each); grids under MIN_CTAS CTAs split the chunks
 BRICK = (2, 8, 8)
 CONSUMER_THREADS = 256
 CHUNK = 16
+CHUNK_F32 = 8
 CHUNK_S8 = 32
-MIN_CTAS = 2 * 132                 # two CTAs for each SM of an H100
-F32_TILE_ROWS = 64                 # output voxels of a float32 kernel tile
+SMS = 132                          # streaming multiprocessors of an H100
+MIN_CTAS = 2 * SMS                 # two CTAs for each SM
 Prologue = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
                  Optional[float]]
 
@@ -199,8 +205,8 @@ def _cdiv(a: int, b: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ConvPlan:
-    """Launch plan of the wgmma kernel (bfloat16 or int8) for one conv:
-    the work is
+    """Launch plan of the wgmma kernel (bfloat16, float32 or int8) for
+    one conv: the work is
     ``grid`` = (bricks, Cout blocks of ``bn``, ``split``) tiles, tile
     (brick, block, s) taking the channel chunks ``chunks(s)``. The kernel
     gives a small grid a CTA for each tile and runs a large one on
@@ -215,7 +221,8 @@ class ConvPlan:
     split: int                     # CTAs that share one output tile
     per_split: int                 # chunks per split (the last may be short)
     tma: bool                      # halo by TMA (else gathered)
-    chunk: int = CHUNK             # channels a chunk: CHUNK, int8 CHUNK_S8
+    chunk: int = CHUNK             # channels a chunk: CHUNK, CHUNK_F32,
+                                   # CHUNK_S8
 
     @property
     def blocks(self) -> Tuple[int, int, int]:
@@ -249,34 +256,43 @@ class ConvPlan:
         return tiles * self.split * CONSUMER_THREADS * self.bn // 2, tiles
 
 
-def stats_slots(n: int, dims: Sequence[int],
-                plan: Optional[ConvPlan] = None,
-                rows: int = F32_TILE_ROWS) -> int:
+def stats_slots(plan: ConvPlan) -> int:
     """Slots of the statistics' partial sums (each ``2 * Cout`` floats):
-    one per brick of the wgmma kernel's ``plan``; in float32 (no plan) one
-    per segment of a sample in a tile of ``rows`` voxels, segment (tile t,
-    sample s) in slot t + s. The kernel adds sample s's slots up in
-    order."""
-    if plan is not None:
-        return plan.grid[0]
-    return _cdiv(n * dims[0] * dims[1] * dims[2], rows) + n
+    one per brick of the wgmma kernel's ``plan``, sample s's the run s *
+    per .. (s + 1) * per - 1; the kernel adds them up in that order."""
+    return plan.grid[0]
 
 
 def conv_plan(n: int, dims: Sequence[int], chans: Sequence[int], cout: int,
               aligned: bool = True, chunk: int = CHUNK) -> ConvPlan:
     """The wgmma kernel's plan from the shapes, with chunks of ``chunk``
-    channels (``CHUNK``; int8 ``CHUNK_S8``): Cout blocks of 64 (Cout <= 64)
-    or 128; a grid under ``MIN_CTAS`` CTAs splits the channel chunks across
-    more; the halo comes by TMA when every part's channels are a multiple
-    of ``chunk`` (a chunk then lies in one part) and its pointer is 16-byte
-    aligned (``aligned``)."""
+    channels (``CHUNK``; float32 ``CHUNK_F32``, int8 ``CHUNK_S8``): Cout
+    blocks of 64 (Cout <= 64) or 128; a grid under ``MIN_CTAS`` CTAs
+    splits the channel chunks across more; the halo comes by TMA when
+    every part's channels are a multiple of ``chunk`` (a chunk then lies
+    in one part) and its pointer is 16-byte aligned (``aligned``).
+
+    float32 (3xTF32) runs one CTA an SM with Cout blocks of 64 (a tap's
+    sums beside the brick's fill the registers); the chunks split as far
+    as one wave of ``SMS`` holds. At 4^3 (HybridMIM, N 2) one wave of
+    BN-64 CTAs ran the dgrad rows of ``chip_smoke.py``'s phase 3h 1.4-3.6x
+    faster than BN 128 split over two waves (H100)."""
     cin = sum(chans)
     nchunk = _cdiv(cin, chunk)
-    bn = 64 if cout <= 64 else 128
     blocks = [_cdiv(s, b) for s, b in zip(dims, BRICK)]
-    ctas = n * blocks[0] * blocks[1] * blocks[2] * _cdiv(cout, bn)
-    split = min(nchunk, _cdiv(MIN_CTAS, ctas)) if ctas < MIN_CTAS else 1
-    per_split = _cdiv(nchunk, split)
+    bricks = n * blocks[0] * blocks[1] * blocks[2]
+    if chunk == CHUNK_F32:
+        # one CTA an SM, Cout blocks of 64; the chunks split as far as one
+        # wave holds
+        bn = 64
+        ctas = bricks * _cdiv(cout, bn)
+        split = max(1, min(nchunk, SMS // ctas))
+        per_split = _cdiv(nchunk, split)
+    else:
+        bn = 64 if cout <= 64 else 128
+        ctas = bricks * _cdiv(cout, bn)
+        split = min(nchunk, _cdiv(MIN_CTAS, ctas)) if ctas < MIN_CTAS else 1
+        per_split = _cdiv(nchunk, split)
     return ConvPlan(n=n, dims=tuple(dims), cin=cin, cout=cout, bn=bn,
                     nchunk=nchunk, split=_cdiv(nchunk, per_split),
                     per_split=per_split,
@@ -284,14 +300,19 @@ def conv_plan(n: int, dims: Sequence[int], chans: Sequence[int], cout: int,
                     chunk=chunk)
 
 
-# the weight-gradient kernel's geometry (csrc/conv3d_wgrad.cu). float32: a
-# CTA owns WGRAD_TILE (Cout, Cin) channels x the nine (y, x) taps of one z
-# tap, and walks chunks of WGRAD_PATCH (y, x) output voxels of one (sample,
-# z) slice; the chunks are split across CTAs until the grid has about
-# WGRAD_CTAS of them
-WGRAD_TILE = (64, 32)
-WGRAD_PATCH = (16, 8)
-WGRAD_CTAS = 8 * 132
+# the weight-gradient kernel's geometry (csrc/conv3d_wgrad.cu). float32
+# (3xTF32 mma.sync): a CTA owns WGRAD_F32_TILE (Cout, Cin) channels x the
+# nine (y, x) taps of one z tap; a chunk is whole (sample, z) slices where
+# a slice has at most WGRAD_F32_SLICE voxels (as many as fit WGRAD_F32_K
+# voxels and two stages in WGRAD_F32_RING_BYTES), else a patch of
+# WGRAD_F32_PATCH[1] x's by one of WGRAD_F32_ROWS rows (WGRAD_F32_PATCH
+# where h is a multiple of 16) of one slice; K is padded to the k8 step.
+WGRAD_F32_TILE = (64, 32)
+WGRAD_F32_PATCH = (16, 8)
+WGRAD_F32_ROWS = (8, 12, 16, 24)
+WGRAD_F32_SLICE = 160
+WGRAD_F32_K = 128
+WGRAD_F32_RING_BYTES = 200 * 1024
 # bfloat16 (wgmma): a CTA owns WGRAD_BF16_TILE[0] Cout x WGRAD_BF16_TILE[1]
 # Cin (WGRAD_STEM_CI at Cin <= WGRAD_STEM_CI: the stems) x the nine (y, x)
 # taps of one z tap; a chunk is whole slices where a slice is at most
@@ -308,10 +329,11 @@ WGRAD_WORKSPACE = 32e6
 # with: a chunk must fit three times
 WGRAD_RING_BYTES = 200 * 1024
 WGRAD_MIN_STAGES = 3
-SMS = 132                          # streaming multiprocessors of an H100
 # for the split estimate: a CTA's multiply-adds a second (60% of an SM's
-# bf16 peak) and the bytes a second of the partials' second pass
+# bf16 peak; float32, one CTA an SM, 40% of its TF32 peak over the three
+# products of 3xTF32) and the bytes a second of the partials' second pass
 _WGRAD_FMA_PER_S = 0.6 * 989e12 / 2 / SMS
+_WGRAD_F32_FMA_PER_S = 0.4 * 495e12 / 3 / 2 / SMS
 _WGRAD_REDUCE_BYTES_PER_S = 2.5e12
 
 
@@ -322,10 +344,9 @@ class WgradPlan:
     ``per_split`` chunks; each run's partial dW goes to a workspace that a
     second pass sums in a fixed order (split 1 writes dW itself). A chunk
     is ``slices`` (sample, z) slices x ``ty`` x ``tx`` output voxels at one
-    (y, x) tile; ``nchunk`` counts those of the middle z tap. ``dense``
-    (bfloat16): a z tap's chunks enumerate only the slices whose z + dz
-    lies in the volume; float32 enumerates every slice and skips the
-    others."""
+    (y, x) tile; ``nchunk`` counts those of the middle z tap. ``dense``: a
+    z tap's chunks enumerate only the slices whose z + dz lies in the
+    volume (both kernels do)."""
     n: int
     dims: Tuple[int, int, int]
     groups: int
@@ -415,25 +436,49 @@ def _wgrad_split(nchunk: int, groups: int, chunk_s: float,
     return best[1], best[2]
 
 
+def wgrad_f32_stage_bytes(tx: int, ty: int, slices: int) -> int:
+    """Shared memory of one stage of the float32 kernel: the g rows (K
+    padded to 8, WGRAD_F32_TILE[0] + 8 floats each) and each slice's (ty +
+    2) x (tx + 2) halo tile of u (WGRAD_F32_TILE[1] + 8 floats a voxel)."""
+    k8 = _cdiv(slices * ty * tx, 8) * 8
+    co, ci = WGRAD_F32_TILE
+    return 4 * (k8 * (co + 8) + slices * (ty + 2) * (tx + 2) * (ci + 8))
+
+
+def _wgrad_chunk_f32(h: int, w: int) -> Tuple[int, int, int]:
+    """(tx, ty, slices) of a float32 chunk: whole slices where a slice has
+    at most WGRAD_F32_SLICE voxels, as many as WGRAD_F32_K voxels hold (at
+    least one) while two stages fit WGRAD_F32_RING_BYTES; else a patch of
+    WGRAD_F32_PATCH[1] x's and the most rows of WGRAD_F32_ROWS that pad h
+    the least (at 24^3, 24 rows and not 16: none of them padding)."""
+    if h * w > WGRAD_F32_SLICE:
+        tx = WGRAD_F32_PATCH[1]
+        ty = min(WGRAD_F32_ROWS, key=lambda t: (_cdiv(h, t) * t, -t))
+        return tx, ty, 1
+    slices = max(1, WGRAD_F32_K // (h * w))
+    while (slices > 1 and 2 * wgrad_f32_stage_bytes(w, h, slices)
+           > WGRAD_F32_RING_BYTES):
+        slices -= 1
+    return w, h, slices
+
+
 @functools.lru_cache(maxsize=None)
 def wgrad_plan(n: int, dims: Tuple[int, int, int], cin: int, cout: int,
                dtype: torch.dtype = torch.bfloat16) -> WgradPlan:
     d, h, w = dims
     if dtype != torch.bfloat16:
-        nchunk = n * d * _cdiv(h, WGRAD_PATCH[0]) * _cdiv(w, WGRAD_PATCH[1])
-        groups = _cdiv(cout, WGRAD_TILE[0]) * _cdiv(cin, WGRAD_TILE[1]) * 3
-        split = max(1, min(nchunk, _cdiv(WGRAD_CTAS, groups)))
-        per_split = _cdiv(nchunk, split)
-        return WgradPlan(n=n, dims=(d, h, w), groups=groups, nchunk=nchunk,
-                         split=_cdiv(nchunk, per_split), per_split=per_split,
-                         ci_tile=WGRAD_TILE[1], tx=WGRAD_PATCH[1],
-                         ty=WGRAD_PATCH[0], slices=1, dense=False)
-    ci_tile = WGRAD_STEM_CI if cin <= WGRAD_STEM_CI else WGRAD_BF16_TILE[1]
-    tx, ty, slices = _wgrad_chunk(h, w, ci_tile)
-    co_tile = WGRAD_BF16_TILE[0]
+        tx, ty, slices = _wgrad_chunk_f32(h, w)
+        co_tile, ci_tile = WGRAD_F32_TILE
+        fma_per_s = _WGRAD_F32_FMA_PER_S
+    else:
+        ci_tile = (WGRAD_STEM_CI if cin <= WGRAD_STEM_CI
+                   else WGRAD_BF16_TILE[1])
+        tx, ty, slices = _wgrad_chunk(h, w, ci_tile)
+        co_tile = WGRAD_BF16_TILE[0]
+        fma_per_s = _WGRAD_FMA_PER_S
     nchunk = _cdiv(n * d, slices) * _cdiv(h, ty) * _cdiv(w, tx)
     groups = _cdiv(cout, co_tile) * _cdiv(cin, ci_tile) * 3
-    chunk_s = slices * ty * tx * co_tile * ci_tile * 9 / _WGRAD_FMA_PER_S
+    chunk_s = slices * ty * tx * co_tile * ci_tile * 9 / fma_per_s
     split, per_split = _wgrad_split(nchunk, groups, chunk_s,
                                     cout * cin * 27 * 4)
     return WgradPlan(n=n, dims=(d, h, w), groups=groups, nchunk=nchunk,
@@ -477,15 +522,46 @@ def unpack_weight(packed: torch.Tensor, cout: int, cin: int) -> torch.Tensor:
     return w[:cout, :cin].reshape(cout, cin, 3, 3, 3)
 
 
-def pack_weight_f32(weight: torch.Tensor) -> torch.Tensor:
-    """The float32 kernel's layout: (Cout_pad, K_pad), k = tap * Cin + ci,
-    K padded to a multiple of 32 and Cout to 64 with zeros."""
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to tf32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest, ties away from zero (half an ulp added to the magnitude's bit
+    pattern), the low 13 bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) of float32 ``x``: big = tf32(x), small = tf32(x - big)
+    (x - big is exact in float32). big + small is x within 2^-22 of |x|:
+    the operands of the 3xTF32 products."""
+    big = tf32_round(x)
+    return big, tf32_round(x - big)
+
+
+def pack_weight_tf32(weight: torch.Tensor, bn: int) -> torch.Tensor:
+    """The float32 kernel's layout: ``pack_weight`` with chunks of
+    ``CHUNK_F32`` of the tf32 big and small parts (``tf32_split``), side by
+    side in each (Cout block, chunk, dz) stage: (Cout_pad / bn, nchunk, 3,
+    2, 9, 2, bn, 4), element [cb, j, dz, p, t, g, c, e] part p of
+    weight[cb * bn + c, 8 j + 4 g + e, 9 dz + t]. A stage is 2 * 9 * 32 *
+    bn bytes, one bulk copy, and its small half lies 9 * 32 * bn bytes past
+    its big half."""
     cout, cin = weight.shape[:2]
-    k = 27 * cin
-    w = torch.zeros((_cdiv(cout, 64) * 64, _cdiv(k, 32) * 32),
-                    dtype=weight.dtype, device=weight.device)
-    w[:cout, :k] = weight.permute(0, 2, 3, 4, 1).reshape(cout, k)
-    return w
+    ncb, nchunk = _cdiv(cout, bn), _cdiv(cin, CHUNK_F32)
+    w = weight.new_zeros((2, ncb * bn, nchunk * CHUNK_F32, 27))
+    for p, v in enumerate(tf32_split(weight.reshape(cout, cin, 27))):
+        w[p, :cout, :cin] = v
+    w = w.reshape(2, ncb, bn, nchunk, 2, CHUNK_F32 // 2, 3, 9)
+    return w.permute(1, 3, 6, 0, 7, 4, 2, 5).contiguous()
+
+
+def unpack_weight_tf32(packed: torch.Tensor, cout: int, cin: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The inverse of ``pack_weight_tf32``: the (big, small) parts, each
+    (Cout, Cin, 3, 3, 3)."""
+    ncb, nchunk, _, _, _, _, bn, half = packed.shape
+    return tuple(unpack_weight(packed[:, :, :, p].reshape(
+        ncb, nchunk, 27, 2, bn, half), cout, cin) for p in range(2))
 
 
 # (id(weight), transposed) -> (weakref to the weight, key, packed weights)
@@ -497,7 +573,7 @@ def packed_weight(weight: torch.Tensor, dtype: torch.dtype,
                   transposed: bool = False) -> torch.Tensor:
     """``weight`` in the kernel's layout for ``dtype`` (``pack_weight``
     with Cout blocks of ``bn`` for bfloat16, ``pack_weight_s8`` with them
-    for an int8 ``weight``, ``pack_weight_f32`` for float32), on
+    for an int8 ``weight``, ``pack_weight_tf32`` for float32), on
     ``device``;
     with ``transposed``, the dgrad weights ``flip_weight(weight)``
     instead, kept beside the forward pack. The
@@ -522,7 +598,7 @@ def packed_weight(weight: torch.Tensor, dtype: torch.dtype,
     elif dtype == torch.bfloat16:
         packed = pack_weight(w, bn)
     else:
-        packed = pack_weight_f32(w)
+        packed = pack_weight_tf32(w, bn)
     if key is not None:
         _PACKED[slot] = (
             weakref.ref(weight, lambda _: _PACKED.pop(slot, None)), key,
@@ -622,14 +698,14 @@ def _launch(parts: Sequence[torch.Tensor], weight: torch.Tensor,
         bias = bias.to(dev, torch.float32).contiguous()
     pro, pro_slope = _prologue_args(prologue, n, cin, dev)
     out = torch.empty((n, d, h, w, cout), dtype=dt, device=dev)
-    plan = (conv_plan(n, (d, h, w), chans, cout,
-                      aligned=all(p.data_ptr() % 16 == 0 for p in parts))
-            if dt == torch.bfloat16 else None)
+    plan = conv_plan(n, (d, h, w), chans, cout,
+                     aligned=all(p.data_ptr() % 16 == 0 for p in parts),
+                     chunk=CHUNK if dt == torch.bfloat16 else CHUNK_F32)
     stats = stats_part = None
     if with_stats:
-        # each output tile's partial sums get a slot of their own, which a
+        # each output brick's partial sums get a slot of their own, which a
         # second kernel adds up in order (reproducible, no float atomics)
-        slots = stats_slots(n, (d, h, w), plan)
+        slots = stats_slots(plan)
         stats = torch.zeros((n, 2, cout), dtype=torch.float32, device=dev)
         stats_part = torch.empty(slots * 2 * cout, dtype=torch.float32,
                                  device=dev)
@@ -637,25 +713,18 @@ def _launch(parts: Sequence[torch.Tensor], weight: torch.Tensor,
     epilogue = (_ptr(bias), *map(_ptr, pro), pro_slope,
                 1.0 if negative_slope is None else float(negative_slope),
                 out.data_ptr(), _ptr(stats), _ptr(stats_part))
-    stream = _native.stream_ptr(dev)
-    if plan is not None:
-        wt = packed_weight(weight, dt, dev, plan.bn, transposed)
-        n_partial, n_counter = plan.workspace()
-        partial = counter = None
-        if plan.split > 1:
-            partial = torch.empty(n_partial, dtype=torch.float32, device=dev)
-            counter = torch.zeros(n_counter, dtype=torch.int32, device=dev)
-        err = _native.load().conv3x3_bf16_forward(
-            *common, wt.data_ptr(), *epilogue, _ptr(partial), _ptr(counter),
-            n, d, h, w, cout, plan.bn, plan.nchunk, plan.split,
-            plan.per_split, int(plan.tma), stream)
-        _native.check(err, "conv3x3_bf16_forward")
-    else:
-        wt = packed_weight(weight, dt, dev, transposed=transposed)
-        err = _native.load().conv3x3_f32_forward(
-            *common, wt.data_ptr(), *epilogue, n, d, h, w, cout,
-            wt.shape[1], wt.shape[0], stream)
-        _native.check(err, "conv3x3_f32_forward")
+    wt = packed_weight(weight, dt, dev, plan.bn, transposed)
+    n_partial, n_counter = plan.workspace()
+    partial = counter = None
+    if plan.split > 1:
+        partial = torch.empty(n_partial, dtype=torch.float32, device=dev)
+        counter = torch.zeros(n_counter, dtype=torch.int32, device=dev)
+    err = _native.load().conv3x3_wgmma_forward(
+        int(dt == torch.float32), *common, wt.data_ptr(), *epilogue,
+        _ptr(partial), _ptr(counter), n, d, h, w, cout, plan.bn,
+        plan.nchunk, plan.split, plan.per_split, int(plan.tma),
+        _native.stream_ptr(dev))
+    _native.check(err, "conv3x3_wgmma_forward")
     return (out, stats) if with_stats else out
 
 

@@ -227,7 +227,7 @@ def _launch(parts: list, wq: torch.Tensor, sa, sw, bias, out_dtype,
     stats = stats_part = partial = counter = None
     if with_stats:
         stats = torch.zeros((n, 2, cout), dtype=torch.float32, device=dev)
-        stats_part = torch.empty(stats_slots(n, (d, h, w), plan) * 2 * cout,
+        stats_part = torch.empty(stats_slots(plan) * 2 * cout,
                                  dtype=torch.float32, device=dev)
     if plan.split > 1:
         n_partial, n_counter = plan.workspace()

@@ -46,8 +46,11 @@ top device kernels by summed device time; ``--out`` gets the whole
 ``TwoConv`` blocks (DiffUNet, SmoothDiffUNet; AttentionDiffUNet also from
 ``ConvBNReLU2`` and ``UpConv``) it also counts the 3x3x3 conv operations
 of a batch (forward hooks on the blocks' outputs) and sets them beside
-the conv kernel's device time and the peak of the compute dtype (bf16,
-float32 FFMA, or int8 for a quantized model). Needs a CUDA card; it fails without one.
+the conv kernels' device time (each conv kernel named with its own time:
+``mim_train``'s are the 3xTF32 instances) and the peak of the compute
+dtype (bf16; float32 as 3xTF32 on the tensor cores, with the FFMA peak
+beside it; int8 for a quantized model). Needs a CUDA card; it fails
+without one.
 """
 from __future__ import annotations
 
@@ -60,9 +63,12 @@ from types import SimpleNamespace
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-# H100 SXM, dense (NVIDIA data sheet): bf16 tensor cores, float32 FFMA
+# H100 SXM, dense (NVIDIA data sheet): bf16 tensor cores, float32 FFMA;
+# the float32 convs run as 3xTF32 (three tf32 products at 495 TFLOP/s a
+# float32 product)
 PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
                    torch.int8: 1979e12}
+TF32X3_FLOP_PER_S = 495e12 / 3
 
 
 def _device_us(evt, self_only: bool) -> float:
@@ -267,7 +273,14 @@ def main() -> None:
               f"time) = "
               f"{conv_flops[0] / conv_ms / 1e9:.1f} TFLOP/s; bound at the "
               f"{str(dt)[6:]} peak "
-              f"{conv_flops[0] / PEAK_FLOP_PER_S[dt] * 1e3:.1f} ms")
+              f"{conv_flops[0] / PEAK_FLOP_PER_S[dt] * 1e3:.1f} ms"
+              + (f", at the 3xTF32 rate "
+                 f"{conv_flops[0] / TF32X3_FLOP_PER_S * 1e3:.1f} ms"
+                 if dt == torch.float32 else ""))
+        for e in sorted((e for e in kernels if "conv3d_" in e.key),
+                        key=lambda e: _device_us(e, True), reverse=True):
+            print(f"  conv kernel {_device_us(e, True) / 1e3:8.2f} ms "
+                  f"{e.count:5d} calls  {e.key[:110]}")
     rows = sorted(kernels, key=lambda e: _device_us(e, True), reverse=True)
     print(f"{'device ms':>10} {'share':>7} {'calls':>6}  kernel")
     for e in rows[:args.top]:

@@ -34,17 +34,19 @@ from diff_unet_tpu_torch.ops import blocks as tb
 from diff_unet_tpu_torch.ops.conv3d import (
     BRICK,
     CHUNK,
+    CHUNK_F32,
     MIN_CTAS,
     conv3x3,
     conv3x3_plain,
-    F32_TILE_ROWS,
     conv_plan,
     norm_affine_from_stats,
     pack_weight,
-    pack_weight_f32,
+    pack_weight_tf32,
     packed_weight,
     stats_slots,
+    tf32_split,
     unpack_weight,
+    unpack_weight_tf32,
 )
 from diff_unet_tpu_torch.utils.weights import load_jax_params
 from tests.test_torch_port_swin import random_flax_params
@@ -205,10 +207,12 @@ def test_pack_weight_unpacks_to_the_original(cout, cin, bn):
     assert packed[cb, j, tap, r // 8, c, r % 8] == w[co, ci, 2, 2, 2]
     # the zero padding of both channel axes
     assert packed.count_nonzero() == w.count_nonzero()
-    f32 = pack_weight_f32(w)
-    assert f32.shape[0] % 64 == 0 and f32.shape[1] % 32 == 0
-    assert torch.equal(f32[:cout, :27 * cin].reshape(cout, 3, 3, 3, cin)
-                       .permute(0, 4, 1, 2, 3), w)
+    # float32: the tf32 big and small parts, side by side in each stage
+    f32 = pack_weight_tf32(w, bn)
+    assert f32.shape == (-(-cout // bn), -(-cin // CHUNK_F32), 3, 2, 9, 2,
+                         bn, 4)
+    assert all(torch.equal(a, b) for a, b in
+               zip(unpack_weight_tf32(f32, cout, cin), tf32_split(w)))
 
 
 @pytest.mark.parametrize("dims,chans,cout", AMOS_CONVS + SMALL_CONVS)
@@ -241,27 +245,22 @@ def test_conv_plan_covers_voxels_and_taps_once(dims, chans, cout):
                                     (2, (6, 7, 9)), (3, (4, 4, 4)),
                                     (4, (12, 12, 12)), (10, (6, 6, 6))])
 def test_stats_slots_are_distinct_and_in_sample_order(n, dims):
-    """The statistics' partial-sum slots: in float32 each (64-voxel tile,
-    sample) segment gets slot tile + sample, distinct, within
-    ``stats_slots``, and sample s's slots are the run the reducing kernel
-    reads (tiles first..last of s, plus s); in bfloat16 one slot per brick,
-    sample s's the run s * bricks .. (s + 1) * bricks - 1."""
-    v = dims[0] * dims[1] * dims[2]
-    rows = np.arange(n * v)
-    segments = sorted(set(zip(rows // F32_TILE_ROWS, rows // v)))
-    slots = [t + s for t, s in segments]
-    assert len(set(slots)) == len(slots)
-    assert max(slots) < stats_slots(n, dims)
-    for s in range(n):
-        first = s * v // F32_TILE_ROWS
-        last = ((s + 1) * v - 1) // F32_TILE_ROWS
-        assert [t + q for t, q in segments if q == s] == \
-            list(range(first + s, last + s + 1))
-    plan = conv_plan(n, dims, [64], 64)
-    per = plan.grid[0] // n
-    assert stats_slots(n, dims, plan) == n * per
-    assert [plan.brick(i)[0] for i in range(plan.grid[0])] == \
-        [i // per for i in range(plan.grid[0])]
+    """The statistics' partial-sum slots, in float32 (3xTF32) and bfloat16
+    alike: one slot per brick, every output voxel's brick of one sample,
+    sample s's slots the run s * bricks .. (s + 1) * bricks - 1 that the
+    reducing kernel reads."""
+    for chunk in (CHUNK_F32, CHUNK):
+        plan = conv_plan(n, dims, [64], 64, chunk=chunk)
+        per = plan.grid[0] // n
+        assert stats_slots(plan) == n * per == plan.grid[0]
+        assert [plan.brick(i)[0] for i in range(plan.grid[0])] == \
+            [i // per for i in range(plan.grid[0])]
+        seen = np.zeros((n, *dims), np.int32)
+        for i in range(plan.grid[0]):
+            s, z0, y0, x0 = plan.brick(i)
+            seen[s, z0:z0 + BRICK[0], y0:y0 + BRICK[1],
+                 x0:x0 + BRICK[2]] += 1
+        assert (seen == 1).all()
 
 
 def test_packed_weight_is_reused_until_the_weight_changes():
@@ -271,7 +270,7 @@ def test_packed_weight_is_reused_until_the_weight_changes():
     packs = packed_weight.packs
     assert packed_weight(w, torch.bfloat16, cpu, 64) is first
     assert packed_weight.packs == packs
-    assert packed_weight(w, torch.float32, cpu) is not first   # dtype
+    assert packed_weight(w, torch.float32, cpu, 64) is not first  # dtype
     w.add_(1.0)                                                # version
     again = packed_weight(w, torch.bfloat16, cpu, 64)
     assert again is not first and packed_weight.packs == packs + 2

@@ -14,8 +14,9 @@ import pytest
 import torch
 
 from diff_unet_tpu_torch.ops.conv3d import (
-    WGRAD_PATCH,
-    WGRAD_TILE,
+    WGRAD_BF16_TILE,
+    WGRAD_F32_RING_BYTES,
+    WGRAD_F32_TILE,
     WGRAD_WORKSPACE,
     conv3x3,
     conv3x3_dgrad,
@@ -26,6 +27,7 @@ from diff_unet_tpu_torch.ops.conv3d import (
     flip_weight,
     packed_weight,
     unpack_weight,
+    wgrad_f32_stage_bytes,
     wgrad_plan,
     wgrad_stage_bytes,
 )
@@ -213,13 +215,17 @@ def test_wgrad_plain_rounds_like_the_forward_in_bf16():
 # the deep levels of the small DiffUNet of the card tests (32^3 patches)
 TINY_CONVS = [((4,) * 3, [32], 64), ((2,) * 3, [64], 64),
               ((2,) * 3, [64, 64], 8)]
+# HybridMIM pretraining's deep levels (batch 2 of 64^3): 8^3 and 4^3
+MIM_DEEP_CONVS = [((8,) * 3, [128], 256), ((8,) * 3, [256], 256),
+                  ((8,) * 3, [128, 128], 128), ((4,) * 3, [256], 512),
+                  ((4,) * 3, [512], 512), ((4,) * 3, [256, 256], 256)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,dims,chans,cout",
                          [(10, *c) for c in AMOS_CONVS]
                          + [(1, *c) for c in SMALL_CONVS]
-                         + [(2, *c) for c in TINY_CONVS])
+                         + [(2, *c) for c in TINY_CONVS + MIM_DEEP_CONVS])
 def test_wgrad_plan_covers_every_chunk_and_weight_once(n, dims, chans,
                                                        cout, dtype):
     """For each z tap, every output voxel whose input slice z + dz lies in
@@ -227,14 +233,18 @@ def test_wgrad_plan_covers_every_chunk_and_weight_once(n, dims, chans,
     others in none; every chunk of the middle tap in exactly one split, no
     split empty; the tiles cover every (Cout, Cin, tap) once; the
     workspace stays within its bound; a bf16 chunk fits the kernel's ring
-    three times."""
+    three times; a float32 chunk (whole slices, or a patch of one) fits
+    the kernel's two stages."""
     cin = sum(chans)
     plan = wgrad_plan(n, dims, cin, cout, dtype)
     d, h, w = dims
+    assert plan.dense
     if dtype == torch.float32:
-        assert (plan.ty, plan.tx, plan.slices) == WGRAD_PATCH + (1,)
-        assert plan.nchunk == n * d * -(-h // WGRAD_PATCH[0]) \
-            * -(-w // WGRAD_PATCH[1])
+        assert plan.ci_tile == WGRAD_F32_TILE[1]
+        assert 2 * wgrad_f32_stage_bytes(plan.tx, plan.ty, plan.slices) \
+            <= WGRAD_F32_RING_BYTES
+        assert plan.nchunk == -(-n * d // plan.slices) \
+            * -(-h // plan.ty) * -(-w // plan.tx)
     else:
         assert plan.slices * plan.ty * plan.tx % 64 == 0
         stage = wgrad_stage_bytes(plan.tx, plan.ty, plan.slices,
@@ -261,7 +271,8 @@ def test_wgrad_plan_covers_every_chunk_and_weight_once(n, dims, chans,
         valid = np.zeros(d, bool)
         valid[max(0, -dz):d - max(0, dz)] = True
         assert (cells[:, valid] == 1).all() and (cells[:, ~valid] == 0).all()
-    to, ti = (WGRAD_TILE[0], plan.ci_tile)
+    to, ti = ((WGRAD_F32_TILE if dtype == torch.float32
+               else WGRAD_BF16_TILE)[0], plan.ci_tile)
     ncob, ncib = -(-cout // to), -(-cin // ti)
     assert plan.groups == ncob * ncib * 3
     cover = np.zeros((ncob * to, ncib * ti, 27), np.int32)
@@ -272,8 +283,7 @@ def test_wgrad_plan_covers_every_chunk_and_weight_once(n, dims, chans,
               9 * tz:9 * tz + 9] += 1
     assert (cover == 1).all()
     size = plan.split * cout * cin * 27 * 4
-    bound = WGRAD_WORKSPACE if dtype == torch.bfloat16 else 150e6
-    assert plan.split == 1 or size <= bound
+    assert plan.split == 1 or size <= WGRAD_WORKSPACE
 
 
 def _wgrad_emulated(plan, g, u):

@@ -19,6 +19,7 @@ from diff_unet_tpu_torch.ops.conv3d import (
     KERNEL_TOL,
     STATS_TOL,
     WGRAD_TOL,
+    _no_tf32,
     conv3x3,
     conv3x3_dgrad,
     conv3x3_dgrad_plain,
@@ -278,9 +279,17 @@ CONV_KERNEL_CASES = [
     ([1, 2], None, True, (4, 16, 16, 16), 64),
     ([1, 2], None, True, (2, 13, 11, 21), 64),
     ([256, 256], None, True, (2, 12, 12, 12), 256),
-    # fp32 tiles of 64 voxels that span samples: 8 and 27 voxels a sample
+    # many samples of a few voxels: a brick a sample, mostly masked
     ([8], "const", True, (10, 2, 2, 2), 16),
     ([8], None, True, (5, 3, 3, 3), 16),
+    # HybridMIM pretraining (batch 2 of 64^3): the stem and L0 conv_1, the
+    # decoder's two-part convs and the split chunks at 8^3 and 4^3
+    ([1], None, True, (2, 64, 64, 64), 64),
+    ([64], "const", True, (2, 64, 64, 64), 64),
+    ([128, 128], None, True, (2, 8, 8, 8), 128),
+    ([256], "const", True, (2, 8, 8, 8), 256),
+    ([512], "const", True, (2, 4, 4, 4), 512),
+    ([256, 256], None, True, (2, 4, 4, 4), 256),
 ]
 
 
@@ -428,6 +437,16 @@ CONV_GRAD_CASES = [
     ([20], 5, (1, 5, 7, 11), True),
     ([1, 2], 64, (4, 16, 16, 16), False),        # the MSD denoiser stem
     ([1, 2], 64, (2, 13, 11, 21), False),
+    # HybridMIM pretraining's shapes (batch 2): 64^3 and 32^3 (16 x 8
+    # patches), 8^3 and 4^3 (whole slices, split chunks)
+    ([64], 64, (2, 64, 64, 64), True),
+    ([64, 64], 64, (2, 32, 32, 32), False),
+    ([256], 256, (2, 8, 8, 8), True),
+    ([128, 128], 128, (2, 8, 8, 8), False),
+    ([512], 512, (2, 4, 4, 4), True),
+    ([256], 512, (2, 4, 4, 4), False),
+    # a 2-deep volume: one valid z a sample at the z taps +-1
+    ([64], 64, (3, 2, 2, 2), True),
 ]
 
 
@@ -495,7 +514,8 @@ def test_conv3x3_function_gradients_match_plain(dev, dtype, chans, cout,
                                                 shape, prologue):
     """The whole backward on the card (the kernels and the adjoint chain)
     against autograd through the plain version, through y and the
-    statistics."""
+    statistics. cuDNN's backward of the plain version runs with TF32 off,
+    as its forward does: in TF32 the reference itself errs by ~1e-3."""
     parts, w, b, pro, gy = _grad_inputs(dev, dtype, chans, cout, shape,
                                         prologue)
     cs = torch.randn((shape[0], 2, cout), device=dev)
@@ -506,9 +526,10 @@ def test_conv3x3_function_gradients_match_plain(dev, dtype, chans, cout,
         w_, b_ = inputs[:2]
         pro_ = (*inputs[2:5], 0.1) if pro else None
         parts_ = inputs[5 if pro else 2:]
-        y, st = fn(parts_, w_, b_, prologue=pro_, with_stats=True)
-        grads.append(torch.autograd.grad(
-            (y.float() * gy.float()).sum() + (st * cs).sum(), inputs))
+        with _no_tf32():
+            y, st = fn(parts_, w_, b_, prologue=pro_, with_stats=True)
+            grads.append(torch.autograd.grad(
+                (y.float() * gy.float()).sum() + (st * cs).sum(), inputs))
     torch.cuda.synchronize()
     for got, want in zip(*grads):
         scale = want.float().abs().max().item()
