@@ -238,7 +238,40 @@ PyTorch built for CUDA. Phases, each of which must pass:
       mean dice of at least OVERFIT_DICE_FLOOR; then its ``.npz`` served
       in bf16, int8 weights-only and int8 calibrated (``quant_calibrate:
       1``), each int8 mean dice within INT8_DICE_TOL of bf16's, with the
-      share of differing binary voxels.
+      share of differing binary voxels;
+10. W8A8 int8 serving of DiffSwinUNETR at ``cfg/btcv/test.yaml`` (run
+   among the phases above: a right after 9a, b after phase 4's small
+   DiffSwinUNETR, c-d after 9d):
+   a. the s8 kernel at every distinct 3x3x3 conv shape of the UNETR
+      blocks at N 2 (S8_SWIN_CASES: the stems [1] and [1, 14] -> 48 and
+      the 48-channel convs at 96^3 on the gathered halo, 48 -> 48 at 48^3,
+      96 at 24^3, 192 at 12^3, 768 at 3^3, and the decoders' two-part
+      conv1s [384, 384] at 6^3 down to [48, 48] at 96^3) as in 9a (int8
+      parts and their concat, float32 stems or bf16 parts on load, bf16 y
+      through the prologue at slope 0.01 with a film and without), with
+      the bf16 kernel's and cuDNN's bf16 times beside and, printed as an
+      estimate, their sums over a window batch's 208 launches; then
+      ``conv1x1_int8`` (one
+      ``torch._int_mm``) at its 7 shapes against its plain version, bit
+      for bit, with ``torch._int_mm`` alone timed;
+   b. a small DiffSwinUNETR(quantize=True) (feature 12, 32^3, fp32, int8
+      state recorded on the CPU) on the card against the CPU, within
+      INT8_SMALL_TOL of max |y|, with the share of int8 inputs that differ;
+   c. one BTCV window batch (2 x 96^3, seeded full-width weights) served
+      bf16, int8 dynamic and int8 static as 9b: exactly 208 s8 launches,
+      61 int8 GEMMs and no float 3x3x3 UNETR conv (cuDNN) or bf16 conv
+      kernel launch a batch, no weight packed again, the distance from
+      bf16, its binary flips and its correlation (above INT8_SWIN_CORR);
+      then one more batch of each under ``torch.profiler``: the device
+      time of its s8 convs and int8 GEMMs, or of bf16's UNETR convs on
+      cuDNN, which the kernels line's s8 entry reports;
+   d. ``Predictor(quantize=True)`` serving the 96x192x192 CT (path
+      ``btcv_int8_serve``: 208 s8 launches and 61 int8 GEMMs per window
+      batch, 1040 and 305 in all, and the Swin kernels' counts); then,
+      calibrated on it, ``serve_volumes`` over CONT_BTCV_SHAPES against
+      serial: bit for bit where the batch sizes match, elsewhere the
+      binaries within CONT_FLIPS and the logits within INT8_CONT_FACTOR
+      times the bf16 model's distance on the same volume, read here.
 
 Serving outputs are checked for shape, finiteness and a binary mask. Each
 path is driven with its kernels' launch counters set to 0 just before it
@@ -265,6 +298,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -339,6 +373,64 @@ CONV_REPORT = ("L0 conv_1", torch.bfloat16)   # the kernels line's conv entry
 S8_CASES = [c[:4] for c in CONV_CASES[:15]]
 S8_REPORT = "L0 conv_1"
 INT8_PER_BATCH = 10 + 18 * 10
+# W8A8 int8 serving of DiffSwinUNETR at the BTCV config (sw_batch_size 2
+# of 96^3 windows): every distinct 3x3x3 conv shape of its UNETR blocks,
+# (tag, part channels, Cout, side, {input mode: launches a window batch})
+# with static scales (conv2 takes its norm prologue; a dynamic scale
+# quantizes the materialised bf16 input instead); the blocks with a 1x1
+# projection (the encoder1s and the decoders) quantize their input once
+# to one int8 tensor for conv1 and conv3. 8 s8 launches in the encoder and
+# 20 in each of the 10 denoiser passes; 1 + 6 * 10 int8 GEMMs (the 1x1
+# projections: (tag, Cin, Cout, side))
+BTCV_N = 2
+UNETR_SLOPE = 0.01
+_PRO, _PRO0, _BF = ("bf16 y + prologue", "bf16 y + prologue, no film",
+                    "bfloat16 parts")
+S8_SWIN_CASES = [
+    ("encoder1 conv1 (encoder)", [1], 48, 96, {"int8 parts": 1}),
+    ("encoder1 conv1 (denoiser)", [1, 14], 48, 96, {"int8 concat": 10}),
+    ("encoder1 conv2, decoder1 conv2", [48], 48, 96, {_PRO0: 1, _PRO: 20}),
+    ("encoder2, decoder2 conv2", [48], 48, 48,
+     {_BF: 11, _PRO0: 1, _PRO: 20}),
+    ("encoder3, decoder3 conv2", [96], 96, 24,
+     {_BF: 11, _PRO0: 1, _PRO: 20}),
+    ("encoder4, decoder4 conv2", [192], 192, 12,
+     {_BF: 11, _PRO0: 1, _PRO: 20}),
+    ("encoder10", [768], 768, 3, {_BF: 10, _PRO: 10}),
+    ("decoder5 conv1", [384, 384], 384, 6, {"int8 concat": 10}),
+    ("decoder5 conv2", [384], 384, 6, {_PRO: 10}),
+    ("decoder4 conv1", [192, 192], 192, 12, {"int8 concat": 10}),
+    ("decoder3 conv1", [96, 96], 96, 24, {"int8 concat": 10}),
+    ("decoder2 conv1", [48, 48], 48, 48, {"int8 concat": 10}),
+    ("decoder1 conv1", [48, 48], 48, 96, {"int8 concat": 10}),
+]
+S8_SWIN_1X1 = [("encoder1 (encoder)", 1, 48, 96),
+               ("encoder1 (denoiser)", 15, 48, 96),
+               ("decoder5", 768, 384, 6), ("decoder4", 384, 192, 12),
+               ("decoder3", 192, 96, 24), ("decoder2", 96, 48, 48),
+               ("decoder1", 96, 48, 96)]
+BTCV_INT8_PER_BATCH = 8 + 20 * 10
+BTCV_GEMM_PER_BATCH = 1 + 6 * 10
+# the int8 DDIM logits of a BTCV window batch must correlate with the bf16
+# model's above this, the bar of the JAX package's own test of the
+# quantized DiffSwinUNETR against the float one
+# (tests/test_torch_parity_swin.py)
+INT8_SWIN_CORR = 0.98
+# a small quantized DiffSwinUNETR on the card against the CPU, as a
+# fraction of max |y|: an activation within float32 rounding of a .5
+# quotient lands one int8 step apart, and such flips pass through the
+# blocks: a relative perturbation of 1e-7 of the inputs moves the CPU's
+# own denoise by 1.6e-2 of max |y| (4378 of 5.2e6 int8 inputs differ)
+INT8_SMALL_TOL = 5e-2
+# continuous against serial BTCV int8 serving (static scales), where a
+# window ran at another batch size: its logits' distance as a multiple of
+# the bf16 model's on the same volume, read in the same phase. The bf16
+# model's differs by the Swin's rounding at another batch size, and the
+# int8 steps magnify a perturbation (INT8_SMALL_TOL): 1.487e-1 of max |y|
+# against bf16's 1.854e-2 on the 80x160x176 volume (8.0x; H100, random
+# weights). Twice that; a window served with another's data or scale
+# moves its logits by the order of max |y| and flips about half its voxels
+INT8_CONT_FACTOR = 16.0
 # the activation scales of the quantizer's exhaustive check: quotients from
 # far beyond the clamp to a few units, over several binades of the scale
 S8_QUANT_SCALES = (3.0e-3, 0.0173, 0.25, 3.7, 97.0)
@@ -495,7 +587,8 @@ MIM_REPORT = "L0 conv_1"
 SMALL_MIM = ((8, 8, 16, 32, 64, 8), 32, 8, 2, 1e-3)
 # the paths whose launches the kernels line reports, in order of choice:
 # this slice's path first
-LAUNCH_ORDER = ("amos_int8_serve", "overfit_int8", "amos_continuous", "amos_attention_continuous",
+LAUNCH_ORDER = ("btcv_int8_serve", "amos_int8_serve", "overfit_int8",
+                "amos_continuous", "amos_attention_continuous",
                 "btcv_continuous", "amos_test_continuous",
                 "mim_pretrain", "amos_attention_train",
                 "amos_attention_serve", "amos_smooth_train",
@@ -3138,16 +3231,20 @@ def batch_sizes(pred, shapes) -> tuple:
 
 
 def compare_served(name: str, pred, shapes, serial: list, cont: list,
-                   fail_on_mismatch: bool = True) -> float:
+                   fail_on_mismatch: bool = True,
+                   logit_tol=CONT_TOL) -> list:
     """Each volume's continuous answer against its serial one: bit for bit
     where every window ran at the same batch size on both paths, else
-    logits within CONT_TOL of max |y| and binaries on all but CONT_FLIPS
-    of the voxels (``fail_on_mismatch``; else only printed). Returns the
-    largest logit difference."""
+    logits within ``logit_tol`` of max |y| (one fraction, or one for each
+    volume) and binaries on all but CONT_FLIPS of the voxels
+    (``fail_on_mismatch``; else only printed). Returns each volume's
+    largest logit difference as a fraction of its max |y|."""
     sizes_serial, sizes_cont = batch_sizes(pred, shapes)
-    worst = 0.0
-    for shape, (sl, sb), (cl, cb), ns, nc in zip(
-            shapes, serial, cont, sizes_serial, sizes_cont):
+    tols = (logit_tol if isinstance(logit_tol, (list, tuple))
+            else [logit_tol] * len(shapes))
+    dists = []
+    for shape, (sl, sb), (cl, cb), ns, nc, tol in zip(
+            shapes, serial, cont, sizes_serial, sizes_cont, tols):
         want = (*shape, pred.num_classes)
         if tuple(cl.shape) != want or tuple(cb.shape) != want:
             fail(f"{name}: output shape {tuple(cl.shape)} != {want}")
@@ -3159,7 +3256,7 @@ def compare_served(name: str, pred, shapes, serial: list, cont: list,
         scale = float(sl.abs().max())
         flips = float((cb != sb).float().mean())
         same = torch.equal(cl, sl) and torch.equal(cb, sb)
-        worst = max(worst, diff)
+        dists.append(diff / scale)
         log(f"{name} {shape}: batch sizes serial {ns}, continuous {nc}; "
             f"logits {'bit for bit' if same else f'max diff {diff:.3e}'} "
             f"(max |y| {scale:.3f}, {diff / scale:.3e} of it), binaries "
@@ -3169,11 +3266,11 @@ def compare_served(name: str, pred, shapes, serial: list, cont: list,
         if ns == nc and not same:
             fail(f"{name} {shape}: every window ran at the same batch size "
                  "on both paths, but the answers differ")
-        if diff > CONT_TOL * scale or flips > CONT_FLIPS:
+        if diff > tol * scale or flips > CONT_FLIPS:
             fail(f"{name} {shape}: continuous differs from serial by "
-                 f"{diff / scale:.3e} of max |y| (tol {CONT_TOL}) and on "
+                 f"{diff / scale:.3e} of max |y| (tol {tol:.3e}) and on "
                  f"{flips:.3e} of the binaries (tol {CONT_FLIPS})")
-    return worst
+    return dists
 
 
 def phase_continuous_amos(dev: torch.device, spans: list) -> dict:
@@ -3260,12 +3357,13 @@ def phase_continuous_attention(dev: torch.device, spans: list) -> dict:
         vols, seeds=[pred.seed] * len(vols)), spans)
     counts = conv_counts()
     plan = [len(b) for b in pred._continuous.plan(CONT_ATT_SHAPES)]
-    worst = compare_served("AMOS attention continuous", pred,
-                           CONT_ATT_SHAPES, serial, cont,
-                           fail_on_mismatch=False)
+    worst = max(compare_served("AMOS attention continuous", pred,
+                               CONT_ATT_SHAPES, serial, cont,
+                               fail_on_mismatch=False))
     log(f"AMOS attention_diff_unet continuous: plan {plan}, {wall_c:.3f} s "
         f"(busy {busy_c:.3f}) against serial {wall_s:.3f} s (busy "
         f"{busy_s:.3f}); largest logit difference from serial {worst:.4e} "
+        f"of max |y| "
         f"(batch statistics: recorded, not checked); launches {counts}")
     if plan != [4, 4, 4, 4, 2]:
         fail(f"AMOS attention continuous plan {plan}, not [4, 4, 4, 4, 2]")
@@ -3522,21 +3620,120 @@ def check_int8_deconv(dev: torch.device) -> None:
         "bf16 bit for bit")
 
 
+def s8_modes(dev: torch.device, g: torch.Generator, name: str,
+             chans: list, cout: int, shape: tuple, float_dtypes: tuple,
+             slope: float, no_film: bool = False, concat: bool = False):
+    """The s8 conv kernel against its plain version at one shape (random
+    int8 weights over the whole int8 range, a bias, the (Cout,) weight
+    scales) in its input modes: int8 parts over the whole int8 range (with
+    ``concat`` and more than one part, also their concat as one part);
+    float parts with ``sa``, quantized on load, in each of
+    ``float_dtypes``; and bf16 y through a random norm prologue (a and b
+    rounded to bf16, a film, ``slope``; with ``no_film`` also without the
+    film) with a static ``sa``. In each mode the raw int32 sums and the rescaled bf16 output
+    bit for bit against the plain version (``quantize_input``, then a
+    float64 convolution of the int8 values), the statistics within
+    STATS_TOL; fails otherwise. Returns ({mode: (kernel ms, bound, max
+    abs err of the int32 sums, plain ms)}, the int8 parts, wq, bias)."""
+    from diff_unet_tpu_torch.ops import int8 as q
+    from diff_unet_tpu_torch.ops.conv3d import STATS_TOL
+
+    n, side = shape[0], shape[1]
+    cin = sum(chans)
+    wq = torch.randint(-127, 128, (cout, cin, 3, 3, 3), generator=g,
+                       device=dev, dtype=torch.int8)
+    sw = 1e-4 + 1e-3 * torch.rand((cout,), generator=g, device=dev)
+    b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+    flops = 2.0 * math.prod(shape) * cout * 27 * cin
+    reps = 3 if side == 96 else 10
+    int8_parts = [torch.randint(-127, 128, (*shape, c), generator=g,
+                                device=dev, dtype=torch.int8)
+                  for c in chans]
+    modes = [("int8 parts", int8_parts, None, None)]
+    if concat and len(chans) > 1:
+        modes.append(("int8 concat", [torch.cat(int8_parts, -1)], None,
+                      None))
+    for fdt in float_dtypes:
+        x = [(2.0 * torch.randn((*shape, c), generator=g, device=dev))
+             .to(fdt) for c in chans]
+        modes.append((f"{str(fdt)[6:]} parts", x, q.act_scale(x), None))
+    y = [torch.randn((*shape, c), generator=g, device=dev)
+         .to(torch.bfloat16) for c in chans]
+    pro = tuple((torch.randn((n, cin), generator=g, device=dev) * sd
+                 + mu).to(torch.bfloat16)
+                for mu, sd in ((1.0, 0.3), (0.0, 0.3), (0.0, 0.2))
+                ) + (slope,)
+    modes.append(("bf16 y + prologue", y,
+                  torch.tensor(3.0 / 127, device=dev), pro))
+    if no_film:
+        modes.append(("bf16 y + prologue, no film", y,
+                      torch.tensor(3.0 / 127, device=dev),
+                      (*pro[:2], None, slope)))
+    times = {}
+    for mode, parts, sa, pr in modes:
+        kw = dict(prologue=pr)
+        if sa is None:
+            acc = q.conv3x3_int8(parts, wq)
+            sa = torch.tensor(0.02, device=dev)
+        else:
+            acc = q.conv3x3_int8(parts, wq, sa, None, None, torch.int32,
+                                 **kw)
+        want = q.conv3x3_int8_plain(parts, wq, sa, pr)
+        raw_exact = torch.equal(acc, want)
+        err = (acc.double() - want.double()).abs().max().item()
+        yk = q.conv3x3_int8(parts, wq, sa, sw, b, torch.bfloat16, **kw)
+        y_exact = torch.equal(yk, q.rescale(want, sa, sw, b,
+                                            torch.bfloat16))
+        ys, st = q.conv3x3_int8(parts, wq, sa, sw, b, torch.bfloat16,
+                                with_stats=True, **kw)
+        _, wst = q._finish(want, sa, sw, b, torch.bfloat16, True)
+        st_err = (st - wst).abs().max().item()
+        st_tol = STATS_TOL * wst.abs().max().item()
+        if not (raw_exact and y_exact and torch.equal(ys, yk)
+                and st_err <= st_tol):
+            fail(f"{name} ({mode}) disagrees with its plain version: "
+                 f"int32 exact {raw_exact} (max err {err:.3e}), "
+                 f"rescaled exact {y_exact}, stats err {st_err:.3e} "
+                 f"(tol {st_tol:.3e})")
+        del acc, want, wst, yk
+        ms = cuda_ms(lambda: q.conv3x3_int8(parts, wq, sa, sw, b,
+                                            torch.bfloat16,
+                                            with_stats=True, **kw),
+                     reps, 1)
+        bnd = bound(nbytes(*parts, wq, ys, st, sw, b,
+                           *(pr or ())[:3]), flops, torch.int8)
+        plain_ms = cuda_ms(lambda: q._finish(
+            q.conv3x3_int8_plain(parts, wq, sa, pr), sa, sw, b,
+            torch.bfloat16, True), 1, 1)
+        times[mode] = (ms, bnd, err, plain_ms)
+        log(f"{name} {mode}: int32 and rescaled bf16 bit for bit, "
+            f"stats err {st_err:.3e} (tol {st_tol:.3e}); kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+            f"{flops / ms / 1e9:.1f} TOP/s")
+        del ys, st
+    return times, int8_parts, wq, b
+
+
+def int_mm_ms(m: int, k: int, n: int, dev: torch.device, reps: int) -> float:
+    """ms of one ``torch._int_mm`` of an int8 (m, k) by (k, n) product,
+    k and n padded to multiples of 8 as it requires."""
+    k8, n8 = -(-k // 8) * 8, -(-n // 8) * 8
+    a_mat = torch.full((max(m, 32), k8), 3, dtype=torch.int8, device=dev)
+    b_t = torch.full((n8, k8), 2, dtype=torch.int8, device=dev)
+    return cuda_ms(lambda: torch._int_mm(a_mat, b_t.t()), reps, 1)
+
+
 def phase_conv_s8(dev: torch.device) -> dict:
     """The s8 conv kernel against its plain version at every S8_CASES shape
-    (N = CONV_N, int8 weights over the whole int8 range) in its three input
-    modes: int8 parts over the whole int8 range; float parts with ``sa``,
-    quantized on load (bf16; the stems also float32, the main path's
-    dtype there); and bf16 y through a random norm prologue (a and b
-    rounded to bf16, a film, slope 0.1) with a static ``sa``. In each mode
-    the raw int32 sums and the rescaled bf16 output bit for bit against
-    the plain version (``quantize_input``, then a float64 convolution of
-    the int8 values), the statistics within STATS_TOL; times of each mode
-    and of its plain version (with its statistics), the bf16 kernel at the same shape and switches, and
+    (N = CONV_N) in its three input modes (``s8_modes``: int8 parts; float
+    parts quantized on load, bf16, the stems also float32, the main path's
+    dtype there; bf16 y through a norm prologue with a film, slope 0.1),
+    with the times of each mode and of its plain version (with its
+    statistics), the bf16 kernel at the same shape and switches, and
     ``torch._int_mm`` on the im2col GEMM's shape (the product alone), and
     each mode's bound at the int8 peak (its own input bytes)."""
-    from diff_unet_tpu_torch.ops import int8 as q
-    from diff_unet_tpu_torch.ops.conv3d import STATS_TOL, conv3x3
+    from diff_unet_tpu_torch.ops.conv3d import conv3x3
 
     check_s8_quantizer(dev)
     check_int8_deconv(dev)
@@ -3548,92 +3745,27 @@ def phase_conv_s8(dev: torch.device) -> dict:
         shape = (CONV_N, side, side, side)
         cin = sum(chans)
         name = f"conv3x3_int8 {tag} {chans}->{cout} at {CONV_N}x{side}^3"
-        wq = torch.randint(-127, 128, (cout, cin, 3, 3, 3), generator=g,
-                           device=dev, dtype=torch.int8)
-        sw = 1e-4 + 1e-3 * torch.rand((cout,), generator=g, device=dev)
-        b = 0.1 * torch.randn((cout,), generator=g, device=dev)
-        m, k = CONV_N * side ** 3, -(-27 * cin // 8) * 8
-        flops = 2.0 * m * cout * 27 * cin
         reps = 3 if side == 96 else 10
-        int8_parts = [torch.randint(-127, 128, (*shape, c), generator=g,
-                                    device=dev, dtype=torch.int8)
-                      for c in chans]
-        modes = [("int8 parts", int8_parts, None, None)]
-        for fdt in ((torch.float32, torch.bfloat16) if tag in STEMS
-                    else (torch.bfloat16,)):
-            x = [(2.0 * torch.randn((*shape, c), generator=g, device=dev))
-                 .to(fdt) for c in chans]
-            modes.append((f"{str(fdt)[6:]} parts", x, q.act_scale(x), None))
-        y = [torch.randn((*shape, c), generator=g, device=dev)
-             .to(torch.bfloat16) for c in chans]
-        pro = tuple((torch.randn((CONV_N, cin), generator=g, device=dev) * sd
-                     + mu).to(torch.bfloat16)
-                    for mu, sd in ((1.0, 0.3), (0.0, 0.3), (0.0, 0.2))
-                    ) + (0.1,)
-        modes.append(("bf16 y + prologue", y,
-                      torch.tensor(3.0 / 127, device=dev), pro))
-        times = {}
-        for mode, parts, sa, pr in modes:
-            kw = dict(prologue=pr)
-            if sa is None:
-                acc = q.conv3x3_int8(parts, wq)
-                sa = torch.tensor(0.02, device=dev)
-            else:
-                acc = q.conv3x3_int8(parts, wq, sa, None, None, torch.int32,
-                                     **kw)
-            want = q.conv3x3_int8_plain(parts, wq, sa, pr)
-            raw_exact = torch.equal(acc, want)
-            err = (acc.double() - want.double()).abs().max().item()
-            yk = q.conv3x3_int8(parts, wq, sa, sw, b, torch.bfloat16, **kw)
-            y_exact = torch.equal(yk, q.rescale(want, sa, sw, b,
-                                                torch.bfloat16))
-            ys, st = q.conv3x3_int8(parts, wq, sa, sw, b, torch.bfloat16,
-                                    with_stats=True, **kw)
-            _, wst = q._finish(want, sa, sw, b, torch.bfloat16, True)
-            st_err = (st - wst).abs().max().item()
-            st_tol = STATS_TOL * wst.abs().max().item()
-            if not (raw_exact and y_exact and torch.equal(ys, yk)
-                    and st_err <= st_tol):
-                fail(f"{name} ({mode}) disagrees with its plain version: "
-                     f"int32 exact {raw_exact} (max err {err:.3e}), "
-                     f"rescaled exact {y_exact}, stats err {st_err:.3e} "
-                     f"(tol {st_tol:.3e})")
-            del acc, want, wst, yk
-            ms = cuda_ms(lambda: q.conv3x3_int8(parts, wq, sa, sw, b,
-                                                torch.bfloat16,
-                                                with_stats=True, **kw),
-                         reps, 1)
-            bnd = bound(nbytes(*parts, wq, ys, st, sw, b,
-                               *(pr or ())[:3]), flops, torch.int8)
-            plain_ms = cuda_ms(lambda: q._finish(
-                q.conv3x3_int8_plain(parts, wq, sa, pr), sa, sw, b,
-                torch.bfloat16, True), 1, 1)
-            times[mode] = (ms, bnd, err, plain_ms)
-            log(f"{name} {mode}: int32 and rescaled bf16 bit for bit, "
-                f"stats err {st_err:.3e} (tol {st_tol:.3e}); kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
-                f"{flops / ms / 1e9:.1f} TOP/s")
-            del ys, st
+        times, int8_parts, wq, b = s8_modes(
+            dev, g, name, chans, cout, shape,
+            (torch.float32, torch.bfloat16) if tag in STEMS
+            else (torch.bfloat16,), 0.1)
         parts_bf = [p.to(torch.bfloat16) for p in int8_parts]
         w_bf = wq.float() * 1e-3
         bf16_ms = cuda_ms(lambda: conv3x3(parts_bf, w_bf, b,
                                           with_stats=True), reps, 1)
         del parts_bf
-        a_mat = torch.full((m, k), 3, dtype=torch.int8, device=dev)
-        b_t = torch.full((cout, k), 2, dtype=torch.int8, device=dev)
-        int_mm_ms = cuda_ms(lambda: torch._int_mm(a_mat, b_t.t()), reps, 1)
-        del a_mat, b_t
+        mm_ms = int_mm_ms(CONV_N * side ** 3, 27 * cin, cout, dev, reps)
         fmode = f"{'float32' if tag in STEMS else 'bfloat16'} parts"
         log(f"{name}: bf16 kernel {bf16_ms:.4f} ms, torch._int_mm on the im2col GEMM (product alone) "
-            f"{int_mm_ms:.4f} ms; s8 kernel / bf16 kernel: int8 parts "
+            f"{mm_ms:.4f} ms; s8 kernel / bf16 kernel: int8 parts "
             f"{times['int8 parts'][0] / bf16_ms:.3f}, {fmode} "
             f"{times[fmode][0] / bf16_ms:.3f}, prologue "
             f"{times['bf16 y + prologue'][0] / bf16_ms:.3f}")
         for key, v in (("ms", times["int8 parts"][0]),
                        ("float_ms", times[fmode][0]),
                        ("prologue_ms", times["bf16 y + prologue"][0]),
-                       ("bf16_ms", bf16_ms), ("int_mm_ms", int_mm_ms),
+                       ("bf16_ms", bf16_ms), ("int_mm_ms", mm_ms),
                        ("bound_ms", times["int8 parts"][1]["bound_ms"]),
                        ("prologue_bound_ms",
                         times["bf16 y + prologue"][1]["bound_ms"])):
@@ -3647,8 +3779,8 @@ def phase_conv_s8(dev: torch.device) -> dict:
                 int8_parts_ms=times["int8 parts"][0],
                 prologue_ms=times["bf16 y + prologue"][0],
                 prologue_bound_ms=times["bf16 y + prologue"][1]["bound_ms"],
-                bf16_kernel_ms=bf16_ms, int_mm_product_ms=int_mm_ms, **bnd)
-        del int8_parts, modes, y, parts
+                bf16_kernel_ms=bf16_ms, int_mm_product_ms=mm_ms, **bnd)
+        del int8_parts, times
     log("conv3x3_int8 over the S8_CASES shapes (one each): kernel int8 "
         f"parts {sums['ms']:.3f} ms, float parts {sums['float_ms']:.3f} "
         f"ms, bf16 y + prologue {sums['prologue_ms']:.3f} ms; bf16 kernel "
@@ -3656,6 +3788,128 @@ def phase_conv_s8(dev: torch.device) -> dict:
         f"ms, bound {sums['bound_ms']:.3f} ms (prologue mode "
         f"{sums['prologue_bound_ms']:.3f})")
     return report
+
+
+def check_conv1x1_int8(dev: torch.device) -> None:
+    """``conv1x1_int8`` at each S8_SWIN_1X1 shape (N = BTCV_N): on the card
+    (one ``torch._int_mm``, K and Cout padded to 8) against its plain
+    version (a float64 product of the int8 values), the raw int32 sums and
+    the rescaled bf16 output bit for bit; the times of the wrapper, of its
+    plain version and of the library product alone (``torch._int_mm``
+    over the same (voxels, Cin) x (Cin, Cout))."""
+    from diff_unet_tpu_torch.ops import int8 as q
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    total = dict(ms=0.0, plain_ms=0.0, int_mm_ms=0.0, bound_ms=0.0)
+    for tag, cin, cout, side in S8_SWIN_1X1:
+        shape = (BTCV_N, side, side, side)
+        xq = torch.randint(-127, 128, (*shape, cin), generator=g,
+                           device=dev, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (cout, cin, 1, 1, 1), generator=g,
+                           device=dev, dtype=torch.int8)
+        sa = torch.tensor(0.02, device=dev)
+        sw = 1e-4 + 1e-3 * torch.rand((cout,), generator=g, device=dev)
+        b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        want = q.conv1x1_int8_plain(xq, wq)
+        raw = torch.equal(q.conv1x1_int8(xq, wq), want)
+        y = q.conv1x1_int8(xq, wq, sa, sw, b, torch.bfloat16)
+        y_exact = torch.equal(y, q.rescale(want, sa, sw, b, torch.bfloat16))
+        name = f"conv1x1_int8 {tag} {cin}->{cout} at {BTCV_N}x{side}^3"
+        if not (raw and y_exact):
+            fail(f"{name}: int32 exact {raw}, rescaled bf16 exact {y_exact}")
+        reps = 5 if side == 96 else 20
+        ms = cuda_ms(lambda: q.conv1x1_int8(xq, wq, sa, sw, b,
+                                            torch.bfloat16), reps, 1)
+        plain_ms = cuda_ms(lambda: q.rescale(q.conv1x1_int8_plain(xq, wq),
+                                             sa, sw, b, torch.bfloat16), 1, 1)
+        mm_ms = int_mm_ms(xq.numel() // cin, cin, cout, dev, reps)
+        bnd = bound(nbytes(xq, wq, y, sw, b), 2.0 * y.numel() * cin,
+                    torch.int8)
+        log(f"{name}: int32 and rescaled bf16 bit for bit; wrapper {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, torch._int_mm alone "
+            f"{mm_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']})")
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("int_mm_ms", mm_ms),
+                     ("bound_ms", bnd["bound_ms"])):
+            total[k] += v
+        del xq, want, y
+    log(f"conv1x1_int8 over the {len(S8_SWIN_1X1)} BTCV 1x1 shapes (one "
+        f"each): wrapper {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} "
+        f"ms, torch._int_mm {total['int_mm_ms']:.4f} ms, bound "
+        f"{total['bound_ms']:.4f} ms")
+
+
+def phase_conv_s8_swin(dev: torch.device) -> None:
+    """The s8 conv kernel at every DiffSwinUNETR 3x3x3 conv shape of a BTCV
+    window batch (S8_SWIN_CASES, N = BTCV_N) against its plain version in
+    the input modes of ``s8_modes`` (int8 parts and their concat, which
+    the blocks with a 1x1 projection take: one quantization for both
+    convs; float parts quantized on load, float32 at the stems and bf16
+    elsewhere; bf16 y through the norm prologue at slope 0.01, with a film
+    and, where the encoder's un-timed blocks run the shape, without), with
+    times beside the bf16 kernel and cuDNN's bf16 ``F.conv3d`` (on the
+    channels_last_3d view, ``var_mean`` of its output for the statistics)
+    at the same shape, and the bound at the int8 peak; an estimate of one
+    window batch's s8 time (each mode's time times the launches S8_SWIN_CASES
+    gives it a batch), printed beside what phase 10c measures in a real
+    batch; then ``conv1x1_int8`` at its 7 shapes
+    (``check_conv1x1_int8``)."""
+    from diff_unet_tpu_torch.ops.conv3d import conv3x3
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    sums = {k: 0.0 for k in ("static", "dynamic", "static_bound",
+                             "dynamic_bound", "bf16_ms", "cudnn_ms")}
+    for tag, chans, cout, side, per_mode in S8_SWIN_CASES:
+        shape = (BTCV_N, side, side, side)
+        cin = sum(chans)
+        name = (f"conv3x3_int8 BTCV {tag} {chans}->{cout} at "
+                f"{BTCV_N}x{side}^3")
+        reps = 3 if side == 96 else 10
+        stem = cin < 32
+        times, int8_parts, wq, b = s8_modes(
+            dev, g, name, chans, cout, shape,
+            (torch.float32,) if stem else (torch.bfloat16,), UNETR_SLOPE,
+            no_film=any(m.endswith("no film") for m in per_mode),
+            concat=True)
+        parts_bf = [p.to(torch.bfloat16) for p in int8_parts]
+        w_bf = wq.float() * 1e-3
+        bf16_ms = cuda_ms(lambda: conv3x3(parts_bf, w_bf, b,
+                                          with_stats=True), reps, 1)
+        x_cl = torch.cat(parts_bf, -1).permute(0, 4, 1, 2, 3)
+        w_cl = w_bf.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last_3d)
+        b_l = b.to(torch.bfloat16)
+
+        def cudnn():
+            y = torch.nn.functional.conv3d(x_cl, w_cl, b_l, padding=1)
+            torch.var_mean(y, dim=(2, 3, 4))
+
+        cudnn_ms = cuda_ms(cudnn, reps, 1)
+        del parts_bf, x_cl
+        launches = sum(per_mode.values())
+        for mode, c in per_mode.items():
+            # a dynamic scale on conv2 materialises its bf16 input
+            dyn = "bfloat16 parts" if mode.startswith("bf16 y") else mode
+            for key, m in (("static", mode), ("dynamic", dyn)):
+                sums[key] += c * times[m][0]
+                sums[f"{key}_bound"] += c * times[m][1]["bound_ms"]
+        sums["bf16_ms"] += launches * bf16_ms
+        sums["cudnn_ms"] += launches * cudnn_ms
+        path = ", ".join(f"{m} x{c} {times[m][0]:.4f} ms"
+                         for m, c in per_mode.items())
+        log(f"{name}: a window batch's launches {path}; bf16 kernel "
+            f"{bf16_ms:.4f} ms, cuDNN bf16 {cudnn_ms:.4f} ms; s8 (path "
+            f"modes, mean) / cuDNN "
+            f"{sum(times[m][0] * c for m, c in per_mode.items()) / launches / cudnn_ms:.3f}")
+        del int8_parts, times
+    log("conv3x3_int8 at the BTCV shapes, an estimate of one window batch "
+        "(this phase's times by the launches S8_SWIN_CASES gives each mode;"
+        f" phase 10c measures a real batch): s8 static scales "
+        f"{sums['static']:.3f} ms (bound {sums['static_bound']:.3f}), "
+        f"dynamic {sums['dynamic']:.3f} ms (bound "
+        f"{sums['dynamic_bound']:.3f}); bf16 kernel {sums['bf16_ms']:.3f} "
+        f"ms, cuDNN bf16 {sums['cudnn_ms']:.3f} ms")
+    check_conv1x1_int8(dev)
 
 
 def phase_int8_window(dev: torch.device) -> None:
@@ -3721,6 +3975,359 @@ def phase_int8_window(dev: torch.device) -> None:
                     f"voxels differing {flips:.4e}")
         log(msg)
     del bf, qp, out
+
+
+@contextlib.contextmanager
+def unetr_conv_count():
+    """Count the float 3x3x3 convs of the UNETR blocks while open: every
+    forward of ``ops/blocks.py:Conv`` with a 3x3x3 kernel (cuDNN), which a
+    quantized block never runs. Yields a one-element list."""
+    from diff_unet_tpu_torch.ops import blocks
+
+    count = [0]
+    inner = blocks.Conv.forward
+
+    def forward(self, x):
+        count[0] += self.weight.shape[-1] == 3
+        return inner(self, x)
+
+    blocks.Conv.forward = forward
+    try:
+        yield count
+    finally:
+        blocks.Conv.forward = inner
+
+
+def btcv_windows(dev: torch.device, pred):
+    """The window batch of phases 9e-f: the first sw_batch_size 96^3 windows
+    (along W) of a synthetic 96x192x192 CT, and one x_T for them."""
+    from diff_unet_tpu_torch.data.synthetic import synthetic_ct
+
+    vol = synthetic_ct(AMOS_BODY, SEED + 7, dev)
+    r = pred._inferer.roi[0]
+    windows = torch.stack([vol[:, :r, x:x + r]
+                           for x in (0, r)][:pred.sw_batch_size])
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    noise = torch.randn((len(windows), r, r, r, pred.num_classes),
+                        generator=g, device=dev)
+    return vol, windows, noise
+
+
+def traced_btcv_batch(pred, windows, noise) -> dict:
+    """One more window batch of ``pred`` under ``torch.profiler``, each
+    ``conv3x3_int8``, ``conv1x1_int8`` and float 3x3x3 UNETR conv call
+    (``ops/blocks.py``) in a ``record_function`` range of its name: the
+    device ms of every kernel, of each range (every kernel that its calls
+    launched through PyTorch), of ``torch._int_mm``, of the s8 calls (the
+    kernels of the native library, ``conv3d_wgmma`` and its
+    ``stats_reduce``, which the profiler does not place in the range and
+    are taken by name, and the range's own), and the s8 launches' summed
+    bound, each computed from that launch's own tensors at the int8
+    peak."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from diff_unet_tpu_torch.ops import blocks
+    from diff_unet_tpu_torch.profile_batch import _device_us
+
+    s8, gemm, conv_fwd = (blocks.conv3x3_int8, blocks.conv1x1_int8,
+                          blocks.Conv.forward)
+    bound_ms = [0.0]
+
+    def s8_call(parts, wq, sa=None, sw=None, bias=None, *a, **kw):
+        with record_function("conv3x3_int8"):
+            out = s8(parts, wq, sa, sw, bias, *a, **kw)
+        y = out[0] if isinstance(out, tuple) else out
+        pro = [t for t in (kw.get("prologue") or ())[:3]
+               if isinstance(t, torch.Tensor)]
+        flops = 2.0 * y.numel() * 27 * sum(p.shape[-1] for p in parts)
+        bound_ms[0] += bound(nbytes(*parts, wq, y, sw, bias, *pro), flops,
+                             torch.int8)["bound_ms"]
+        return out
+
+    def gemm_call(*a, **kw):
+        with record_function("conv1x1_int8"):
+            return gemm(*a, **kw)
+
+    def conv_call(self, x):
+        if self.weight.shape[-1] != 3:
+            return conv_fwd(self, x)
+        with record_function("unetr_conv3x3"):
+            return conv_fwd(self, x)
+
+    blocks.conv3x3_int8, blocks.conv1x1_int8 = s8_call, gemm_call
+    blocks.Conv.forward = conv_call
+    try:
+        with torch.inference_mode(), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pred.seg.ddim_sample(windows, noise=noise)
+            torch.cuda.synchronize()
+    finally:
+        blocks.conv3x3_int8, blocks.conv1x1_int8 = s8, gemm
+        blocks.Conv.forward = conv_fwd
+    avgs = prof.key_averages()
+    host = {e.key for e in avgs if e.device_type == DeviceType.CPU}
+    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.key not in host]
+
+    def kernel_ms(*names):
+        return sum(_device_us(e, True) for e in kernels
+                   if any(n in e.key for n in names)) / 1e3
+
+    def range_ms(name):
+        return sum(_device_us(e, False) for e in avgs if e.key == name
+                   and e.device_type == DeviceType.CPU) / 1e3
+
+    s8_kernel_ms = kernel_ms("conv3d_wgmma", "stats_reduce")
+    return {"device_ms": kernel_ms(""), "s8_kernel_ms": s8_kernel_ms,
+            "s8_ms": s8_kernel_ms + range_ms("conv3x3_int8"),
+            "gemm_ms": range_ms("conv1x1_int8"),
+            "int_mm_ms": range_ms("aten::_int_mm"),
+            "cudnn_ms": range_ms("unetr_conv3x3"),
+            "s8_bound_ms": bound_ms[0]}
+
+
+def phase_int8_window_btcv(dev: torch.device) -> dict:
+    """One BTCV window batch (``cfg/btcv/test.yaml``: sw_batch_size 2 of
+    96^3 windows of a synthetic 96x192x192 CT, seeded full-width weights,
+    one x_T) through ``ddim_sample`` served bf16, int8 with dynamic scales
+    and int8 with static scales calibrated on the CT's first window:
+    seconds per batch over INT8_REPS (after a warm-up), DDIM
+    window-steps/s, exactly BTCV_INT8_PER_BATCH s8 launches and
+    BTCV_GEMM_PER_BATCH int8 GEMMs per int8 batch and no float 3x3x3 conv
+    of a UNETR block (cuDNN, ``unetr_conv_count``) nor a bf16 conv kernel
+    launch, no weight packed again in the timed batches, finite outputs;
+    each int8 answer's largest distance from bf16 as a fraction of max
+    |y|, its share of differing binary voxels and its correlation with
+    bf16, which must exceed INT8_SWIN_CORR (the JAX package's own test of
+    the quantized DiffSwinUNETR against the float one). Then one more batch
+    of each, traced (``traced_btcv_batch``): the device time of the s8
+    convs and the int8 GEMMs in the int8 batches and of the UNETR blocks'
+    cuDNN 3x3x3 convs in the bf16 one. Returns those measurements for the
+    kernels line's s8 entry."""
+    from diff_unet_tpu_torch.engine.engine import Predictor
+    from diff_unet_tpu_torch.ops.conv3d import conv3x3, packed_weight
+    from diff_unet_tpu_torch.ops.int8 import conv1x1_int8, conv3x3_int8
+
+    kw = dict(model_path=None, classes=str(ROOT / "cfg/btcv/classes.yaml"),
+              device=dev, seed=SEED)
+    bf = Predictor.from_config(ROOT / "cfg/btcv/test.yaml", **kw)
+    qp = Predictor.from_config(ROOT / "cfg/btcv/test.yaml", quantize=True,
+                               **kw)
+    vol, windows, noise = btcv_windows(dev, bf)
+    steps = bf.seg.sample_steps
+    out, traced = {}, {}
+    for name, pred in (("bf16", bf), ("int8 dynamic", qp),
+                       ("int8 static", qp)):
+        if name == "int8 static":
+            pred.calibrate(vol)
+        with torch.inference_mode(), unetr_conv_count() as cudnn:
+            pred.seg.ddim_sample(windows, noise=noise)     # warm-up
+            torch.cuda.synchronize()
+            reset({"conv3x3": conv3x3, "conv3x3_int8": conv3x3_int8,
+                   "conv1x1_int8": conv1x1_int8})
+            cudnn[0] = 0
+            packs = packed_weight.packs
+            t0 = time.perf_counter()
+            for _ in range(INT8_REPS):
+                y = pred.seg.ddim_sample(windows, noise=noise)
+            torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / INT8_REPS
+        launches = (cudnn[0], conv3x3.launches, conv3x3_int8.launches,
+                    conv1x1_int8.launches)
+        packs = packed_weight.packs - packs
+        want = ((BTCV_INT8_PER_BATCH * INT8_REPS, 0, 0, 0) if name == "bf16"
+                else (0, 0, BTCV_INT8_PER_BATCH * INT8_REPS,
+                      BTCV_GEMM_PER_BATCH * INT8_REPS))
+        if launches != want or packs or not torch.isfinite(y).all():
+            fail(f"BTCV window batch {name}: (cuDNN 3x3x3, bf16 kernel, s8, "
+                 f"int8 GEMM) launches {launches}, predicted {want}; weight "
+                 f"packs in the timed batches {packs} (0: packed once); "
+                 f"finite {bool(torch.isfinite(y).all())}")
+        out[name] = y
+        msg = (f"BTCV window batch {name}: {sec:.4f} s, "
+               f"{len(windows) * steps / sec:.2f} DDIM window-steps/s, "
+               f"launches {launches}")
+        if name != "bf16":
+            ref = out["bf16"]
+            dist = ((y - ref).abs().max() / ref.abs().max()).item()
+            flips = ((y > 0) != (ref > 0)).float().mean().item()
+            corr = torch.corrcoef(torch.stack([y.flatten().double(),
+                                               ref.flatten().double()])
+                                  )[0, 1].item()
+            msg += (f", max |y - y_bf16| / max |y_bf16| {dist:.4e}, binary "
+                    f"voxels differing {flips:.4e}, correlation with bf16 "
+                    f"{corr:.6f}")
+            if not corr > INT8_SWIN_CORR:
+                fail(f"{msg}: correlation at most {INT8_SWIN_CORR}")
+        log(msg)
+        tr = traced_btcv_batch(pred, windows, noise)
+        traced[name] = tr
+        log(f"BTCV window batch {name}, traced: device {tr['device_ms']:.3f}"
+            f" ms; " + (f"UNETR 3x3x3 convs on cuDNN {tr['cudnn_ms']:.3f} ms"
+                        if name == "bf16" else
+                        f"conv3x3_int8 calls {tr['s8_ms']:.3f} ms (the s8 "
+                        f"kernel and its stats reduce {tr['s8_kernel_ms']:.3f}"
+                        f" ms; bound {tr['s8_bound_ms']:.3f} ms), "
+                        f"conv1x1_int8 calls {tr['gemm_ms']:.3f} ms "
+                        f"(torch._int_mm {tr['int_mm_ms']:.3f} ms)"))
+        key = "cudnn_ms" if name == "bf16" else "s8_kernel_ms"
+        if not tr[key] > 0 or not tr["device_ms"] > 0:
+            fail(f"BTCV window batch {name}, traced: no device time "
+                 f"in {key} ({tr})")
+    del bf, qp, out
+    dyn, sta = traced["int8 dynamic"], traced["int8 static"]
+    return {"btcv_batch_s8_dynamic_ms": dyn["s8_ms"],
+            "btcv_batch_s8_static_ms": sta["s8_ms"],
+            "btcv_batch_s8_static_bound_ms": sta["s8_bound_ms"],
+            "btcv_batch_s8_dynamic_bound_ms": dyn["s8_bound_ms"],
+            "btcv_batch_int8_gemm_dynamic_ms": dyn["gemm_ms"],
+            "btcv_batch_int8_gemm_static_ms": sta["gemm_ms"],
+            "btcv_batch_cudnn_bf16_ms": traced["bf16"]["cudnn_ms"]}
+
+
+def phase_serve_btcv_int8(dev: torch.device) -> dict:
+    """``Predictor.from_config("cfg/btcv/test.yaml", quantize=True)`` on one
+    96x192x192 CT (``phase_serve``: 5 window batches, each with exactly
+    BTCV_INT8_PER_BATCH s8 launches, BTCV_GEMM_PER_BATCH int8 GEMMs, the
+    Swin kernels' SERVE_PER_BATCH and no bf16 conv); then, calibrated on
+    that CT, ``serve_volumes`` over CONT_BTCV_SHAPES against ``infer`` of
+    each (``compare_served``: bit for bit where every window ran at the
+    same batch size on both paths, since static scales make a window's int8
+    inputs independent of its companions; elsewhere the binaries within
+    CONT_FLIPS and the logits within INT8_CONT_FACTOR times the bf16
+    model's own distance, read in this phase on the same volumes). Returns
+    the launches under ``btcv_int8_serve``."""
+    from diff_unet_tpu_torch.data.synthetic import synthetic_ct
+    from diff_unet_tpu_torch.engine.engine import Predictor
+    from diff_unet_tpu_torch.ops.conv3d import conv3x3
+    from diff_unet_tpu_torch.ops.int8 import conv1x1_int8, conv3x3_int8
+    from diff_unet_tpu_torch.ops.window_attention import window_attention
+    from diff_unet_tpu_torch.ops.window_partition import (
+        partition_windows, reverse_windows)
+    from diff_unet_tpu_torch.ops.window_shift import shift_windows
+
+    counters = {"window_attention": window_attention,
+                "shift_windows": shift_windows,
+                "window_partition": partition_windows,
+                "window_reverse": reverse_windows, "conv3x3": conv3x3,
+                "conv3x3_int8": conv3x3_int8, "conv1x1_int8": conv1x1_int8}
+    per_batch = dict(SERVE_PER_BATCH, conv3x3=0,
+                     conv3x3_int8=BTCV_INT8_PER_BATCH,
+                     conv1x1_int8=BTCV_GEMM_PER_BATCH)
+    paths = phase_serve(dev, "btcv", counters, per_batch,
+                        path="btcv_int8_serve", shapes=((96, 192, 192),),
+                        quantize=True)
+    kw = dict(model_path=None, classes=str(ROOT / "cfg/btcv/classes.yaml"),
+              device=dev, seed=SEED)
+    vols = [synthetic_ct(s, SEED + i, dev)
+            for i, s in enumerate(CONT_BTCV_SHAPES)]
+    dists = {}
+    for name, quantize in (("bf16", False), ("int8 static", True)):
+        pred = Predictor.from_config(ROOT / "cfg/btcv/test.yaml",
+                                     quantize=quantize, **kw)
+        if quantize:
+            pred.calibrate(vols[0])
+        with ddim_spans() as spans:
+            serial, wall_s, _ = timed_run(
+                lambda: [pred.infer(v) for v in vols], spans)
+            cont, wall_c, busy_c = timed_run(lambda: pred.serve_volumes(
+                vols, seeds=[pred.seed] * len(vols)), spans)
+        plan = [len(b) for b in pred._continuous.plan(CONT_BTCV_SHAPES)]
+        log(f"BTCV {name} continuous: plan {plan}, {wall_c:.3f} s (busy "
+            f"{busy_c:.3f}) against serial {wall_s:.3f} s")
+        # a window in a batch of another size rounds the bf16 Swin
+        # otherwise; the int8 model's distance is held to INT8_CONT_FACTOR
+        # times the bf16 model's on the same volume
+        tol = (CONT_TOL if name == "bf16" else
+               [INT8_CONT_FACTOR * d for d in dists["bf16"]])
+        dists[name] = compare_served(f"BTCV {name} continuous", pred,
+                                     CONT_BTCV_SHAPES, serial, cont,
+                                     logit_tol=tol)
+        del pred, serial, cont
+    log("BTCV continuous against serial, logits' largest difference as a "
+        "fraction of max |y| per volume: int8 static "
+        f"{', '.join(f'{d:.4e}' for d in dists['int8 static'])}; bf16 "
+        f"{', '.join(f'{d:.4e}' for d in dists['bf16'])} (int8 held to "
+        f"{INT8_CONT_FACTOR} times bf16)")
+    del vols
+    return paths
+
+
+def phase_small_int8_swin(dev: torch.device) -> None:
+    """A small DiffSwinUNETR(quantize=True) (feature 12, 32^3, fp32, TF32
+    off, phase 4's weights and inputs) on the card against the CPU, its
+    int8 state recorded on the CPU (kernels and scales calibrated by one
+    DDIM-2 window there) and copied: the denoise within INT8_SMALL_TOL of
+    max |y|. The card's float32 Swin rounds otherwise than the CPU's, and
+    an activation within that rounding of a .5 quotient quantizes one
+    int8 step (1/127 of the tensor's range) apart; the share of the
+    int8 inputs that differ is printed."""
+    from diff_unet_tpu_torch.api import DiffusionSegmenter
+    from diff_unet_tpu_torch.engine.quantize import \
+        quantize_inference_params
+    from diff_unet_tpu_torch.models.swin_unetr import DiffSwinUNETR
+    from diff_unet_tpu_torch.ops import blocks
+    from diff_unet_tpu_torch.ops.int8 import quantize_input
+    from diff_unet_tpu_torch.utils.weights import init_random
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    s, classes = 32, 3
+    cpu = init_random(DiffSwinUNETR(classes, image_size=(s,) * 3,
+                                    feature_size=12, quantize=True),
+                      SEED).eval()
+    rng = np.random.default_rng(SEED)
+    image = torch.from_numpy(rng.standard_normal((2, s, s, s, 1),
+                                                 np.float32))
+    x = torch.from_numpy(rng.standard_normal((2, s, s, s, classes),
+                                             np.float32))
+    t = torch.tensor([5, 250])
+    quantize_inference_params(DiffusionSegmenter(cpu, classes,
+                                                 sample_steps=2),
+                              [image[:1]])
+    gpu = DiffSwinUNETR(classes, image_size=(s,) * 3, feature_size=12,
+                        quantize=True)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(dev).eval()
+    copies = {}             # by identity: a shared scale stays shared
+    for (o, p, *_), (og, *_) in zip(blocks.quant_sites(cpu),
+                                    blocks.quant_sites(gpu)):
+        for k in ("wq", "sw", "sa"):
+            v = getattr(o, p + k)
+            if id(v) not in copies:
+                copies[id(v)] = v.to(dev)
+            setattr(og, p + k, copies[id(v)])
+    seen = {"cpu": [], "cuda": []}
+    inner = blocks.conv3x3_int8
+
+    def record(parts, wq, sa, *a, **kw):
+        xq = (parts if parts[0].dtype == torch.int8
+              else quantize_input(parts, sa, kw.get("prologue")))
+        seen[parts[0].device.type].append(torch.cat(xq, -1).cpu())
+        return inner(parts, wq, sa, *a, **kw)
+
+    blocks.conv3x3_int8 = record
+    try:
+        with torch.inference_mode():
+            want = cpu.denoise(image, x, t)
+            got = gpu.denoise(image.to(dev), x.to(dev), t.to(dev)).cpu()
+    finally:
+        blocks.conv3x3_int8 = inner
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    diff = sum(int((a != b).sum()) for a, b in zip(seen["cpu"],
+                                                   seen["cuda"]))
+    total = sum(a.numel() for a in seen["cpu"])
+    log(f"small DiffSwinUNETR int8 denoise (feature 12, {s}^3, fp32, "
+        f"static scales) cuda vs cpu: max_abs_err {err:.3e} = "
+        f"{err / scale:.3e} of max |y| {scale:.3f} (tol {INT8_SMALL_TOL}); "
+        f"the int8 inputs of its {len(seen['cuda'])} 3x3x3 convs: {diff} of "
+        f"{total} values differ from the CPU's")
+    if not (torch.isfinite(got).all() and err <= INT8_SMALL_TOL * scale):
+        fail("small quantized DiffSwinUNETR on the card disagrees with the "
+             "CPU")
 
 
 def phase_overfit(dev: torch.device, work: Path) -> dict:
@@ -3837,6 +4444,7 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
     report.update(phase_shift(dev))
     report.update(phase_conv(dev))
     report.update(phase_conv_s8(dev))
+    phase_conv_s8_swin(dev)
     report.update(phase_conv_backward(dev))
     phase_conv_msd(dev)
     phase_cout32(dev)
@@ -3844,6 +4452,7 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
     report.update(phase_partition(dev))
     report.update(phase_backward(dev))
     phase_small_model(dev)
+    phase_small_int8_swin(dev)
     phase_small_diff_unet(dev)
     phase_small_unet(dev, "smooth_diff_unet")
     phase_small_unet(dev, "attention_diff_unet")
@@ -3882,6 +4491,13 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
         paths[k].update(v)
     for k, v in phase_overfit(dev, work).items():
         paths[k].update(v)
+    # W8A8 int8 serving of DiffSwinUNETR at the BTCV config: the UNETR
+    # blocks' 3x3x3 convs on the s8 kernel, their 1x1 projections as int8
+    # GEMMs, no float 3x3x3 conv
+    report["conv3x3_int8"].update(phase_int8_window_btcv(dev))
+    for k, v in phase_serve_btcv_int8(dev).items():
+        if k in paths:
+            paths[k].update(v)
     # SmoothDiffUNet: the same 190 convs per window batch (its layer-norm
     # denoiser's convs bias-only) on one 96x192x192 volume
     for k, v in phase_serve(dev, "amos", {"conv3x3": conv3x3,

@@ -27,10 +27,11 @@ best-checkpoint gate, ``epoch_{n}.pt`` every ``save_freq`` and resume from
 run on ``device`` (default ``cuda``) and raise where there is no card
 unless the caller asks for ``device="cpu"``.
 
-``quantize`` serves ``diff_unet`` W8A8 int8 (``ops/int8.py``): the
-Predictor records the int8 kernels at build and ``calibrate(volume)``
-records static activation scales from the first ``quant_calibrate`` ROI
-windows of a volume; the Tester calibrates on its first validation case
+``quantize`` serves ``diff_unet`` and ``diff_swin_unetr`` W8A8 int8
+(``ops/int8.py``): the Predictor records the int8 kernels at build and
+``calibrate(volume)`` records static activation scales from the first
+``quant_calibrate`` ROI windows of a volume; the Tester calibrates on its
+first validation case
 when ``quant_calibrate`` > 0; otherwise each conv takes a dynamic scale
 over its window batch. Training raises on it, as in the JAX engine.
 

@@ -4,7 +4,8 @@
 A model built with ``quantize=True`` quantizes its conv kernels and takes
 a dynamic activation scale in every forward unless its int8 state is
 recorded (``ops/blocks.py``: buffers ``wq``, ``sw``, ``sa``, ``up_wq``,
-``up_sw``, ``up_sa``). ``quantize_inference_params`` records it:
+``up_sw``, ``up_sa`` of DiffUNet; ``conv1_*``, ``conv2_*``, ``conv3_*`` of
+DiffSwinUNETR's UNETR blocks). ``quantize_inference_params`` records it:
 
 - always the int8 kernels and their per-Cout scales, from the float
   weights, so a serving forward never quantizes a weight again; any
@@ -40,7 +41,8 @@ def _segmenter(target) -> DiffusionSegmenter:
         return DiffusionSegmenter(module=target,
                                   num_classes=target.out_channels)
     raise TypeError(f"expected an Engine, a DiffusionSegmenter or a "
-                    f"quantized DiffUNet, got {type(target).__name__}")
+                    f"quantized DiffUNet or DiffSwinUNETR, got "
+                    f"{type(target).__name__}")
 
 
 @torch.no_grad()
@@ -89,6 +91,8 @@ def quantize_inference_params(
         for o in owners:
             for prefix, sa in o.calibration.items():
                 setattr(o, prefix + "sa", sa)
+            for prefix, source in getattr(o, "shared_scales", {}).items():
+                setattr(o, prefix + "sa", getattr(o, source + "sa"))
     finally:
         for o in owners:
             o.calibration = None

@@ -1,8 +1,8 @@
 """Model factory and model types (counterpart of
 ``diff_unet_tpu/models/model_hub.py``): every model family of the JAX
-package's factory, with its ``quantize`` switch for ``diff_unet`` (W8A8
-int8 serving); its ``pack`` and ``remat`` switches are TPU layout and
-memory work and are not ported."""
+package's factory, with its ``quantize`` switch for ``diff_unet`` and
+``diff_swin_unetr`` (W8A8 int8 serving); its ``pack`` and ``remat``
+switches are TPU layout and memory work and are not ported."""
 from __future__ import annotations
 
 import enum
@@ -54,18 +54,14 @@ def create_model(model_name: str, *, in_channels: int = 1,
     64)) and the level widths of AttentionDiffUNet (default (32, 64, 128,
     256, 512)); SmoothDiffUNet's smoothing weights take the (spatial_size,
     image_size, image_size) window's shape. ``quantize`` builds DiffUNet
-    for W8A8 int8 serving; the JAX package also quantizes DiffSwinUNETR's
-    UNETR blocks, which the port does not yet (ROADMAP.md queue 1), and no
+    (its 3x3x3 convs and transposed convs) or DiffSwinUNETR (its UNETR
+    blocks' convs) for W8A8 int8 serving, as the JAX package does, and no
     other family."""
     if quantize and model_name not in ("diff_unet", "diff_swin_unetr"):
         raise ValueError(
             f"quantize=True is only supported for diff_unet and "
             f"diff_swin_unetr (got {model_name}); W8A8 int8 inference "
             "covers their conv stacks (ops/int8.py)")
-    if quantize and model_name == "diff_swin_unetr":
-        raise NotImplementedError(
-            "quantize=True for diff_swin_unetr (its int8 UNETR blocks) is "
-            "not ported yet (ROADMAP.md queue 1, int8 UNETR blocks)")
     kw = {"features": tuple(features)} if features else {}
     if model_name == "diff_unet":
         from diff_unet_tpu_torch.models.diff_unet import DiffUNet
@@ -87,7 +83,7 @@ def create_model(model_name: str, *, in_channels: int = 1,
         return DiffSwinUNETR(
             out_channels=out_channels, in_channels=in_channels,
             image_size=parse_image_size(image_size, spatial_size),
-            feature_size=feature_size, dtype=dtype)
+            feature_size=feature_size, dtype=dtype, quantize=quantize)
     if model_name == "swin_unetr":
         from diff_unet_tpu_torch.models.swin_unetr import SwinUNETR
         return SwinUNETR(

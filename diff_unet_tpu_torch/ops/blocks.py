@@ -26,8 +26,8 @@ from torch import nn
 from diff_unet_tpu_torch.ops.conv3d import _acc_dtype, conv3x3, \
     norm_affine_from_stats
 from diff_unet_tpu_torch.ops.int8 import QUANT_ON_LOAD, act_scale, \
-    apply_prologue, conv3x3_int8, deconv2_int8, quantize_act, \
-    quantize_input, quantize_kernel
+    apply_prologue, conv1x1_int8, conv3x3_int8, deconv2_int8, \
+    quantize_act, quantize_input, quantize_kernel
 
 TEMB_DIM = 128
 TEMB_FEATURES = 512
@@ -369,9 +369,13 @@ class ChannelLayerNorm(nn.Module):
 # after the JAX package's sow names: ``wq`` (the int8 kernel, in the float
 # kernel's layout), ``sw`` (its (Cout,) float32 scales) and ``sa`` (the
 # static activation scale) on ``ConvNormAct``; ``up_wq``, ``up_sw`` and
-# ``up_sa`` on ``UpCat`` for its transposed conv. Checkpoints never carry
-# them. Unrecorded, each forward quantizes the kernel and takes a dynamic
-# scale in the graph; ``engine/quantize.py`` records them.
+# ``up_sa`` on ``UpCat`` for its transposed conv; ``conv1_*``, ``conv2_*``
+# and ``conv3_*`` on the Swin-UNETR ``UnetResBlock``. Checkpoints never
+# carry them. Unrecorded, each forward quantizes the kernel and takes a
+# dynamic scale in the graph; ``engine/quantize.py`` records them. Each
+# quantized module lists its int8 convs in ``int8_sites()``, and in
+# ``shared_scales`` ({prefix: source prefix}) the convs that read another's
+# input and so take its activation scale, recorded as the same tensor.
 
 
 def _quant_init(mod: nn.Module, prefix: str) -> None:
@@ -405,14 +409,55 @@ def quant_act_scale(mod: nn.Module, prefix: str,
     return sa
 
 
+def norm_affine(norm: nn.Module, stats: torch.Tensor, count: int,
+                dt: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``InstanceNorm`` ``norm`` as the (N, C) affine (a, b) from a conv's
+    statistics over ``count`` voxels, rounded to the compute dtype ``dt``
+    as the norm rounds it."""
+    a, b = norm_affine_from_stats(stats, norm.weight, norm.bias, count)
+    return a.to(dt), b.to(dt)
+
+
+def quant_conv3x3(mod: nn.Module, prefix: str, conv: nn.Module,
+                  parts: Sequence[torch.Tensor], out_dtype: torch.dtype,
+                  prologue=None, sa: Optional[torch.Tensor] = None):
+    """The W8A8 3x3x3 conv of ``mod``'s int8 site ``prefix`` (float
+    ``conv``) over the parts' concat, with its (N, 2, Cout) statistics:
+    int8 parts with their scale ``sa``, or float parts with one activation
+    scale over all of them (``sa``, or the site's own), each quantized in
+    its dtype by the s8 kernel as it loads them, after the norm
+    ``prologue`` (a, b, film, slope) where one is given (which needs a
+    recorded scale: a dynamic one is the abs-max of the parts as given).
+    float64 parts (the CPU's exact parity dtype, which the kernel does not
+    take) are quantized here first, as the JAX blocks quantize before
+    ``conv_int8``: the int8 input stands at the conv's boundary, where the
+    parity tests read it."""
+    wq, sw = quant_weights(mod, prefix, conv.weight, 0)
+    if sa is None:
+        sa = quant_act_scale(mod, prefix, parts)
+    if parts[0].dtype not in (torch.int8, *QUANT_ON_LOAD):
+        parts, prologue = quantize_input(parts, sa, prologue), None
+    return conv3x3_int8(parts, wq, sa, sw, conv.bias, out_dtype,
+                        with_stats=True, prologue=prologue)
+
+
+def quant_conv1x1(mod: nn.Module, prefix: str, conv: nn.Module,
+                  xq: torch.Tensor, sa: torch.Tensor,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """The W8A8 1x1x1 conv of ``mod``'s int8 site ``prefix`` (float
+    ``conv``) of int8 ``xq`` quantized with ``sa``, rescaled to
+    ``out_dtype``."""
+    wq, sw = quant_weights(mod, prefix, conv.weight, 0)
+    return conv1x1_int8(xq, wq, sa, sw, conv.bias, out_dtype)
+
+
 def quant_sites(module: nn.Module):
     """(owner, prefix, float kernel, Cout axis) of every int8 conv of
-    ``module``."""
+    ``module``, as each quantized module lists them (``int8_sites``)."""
     for m in module.modules():
-        if isinstance(m, ConvNormAct) and m.quantize:
-            yield m, "", m.conv.weight, 0
-        elif isinstance(m, UpCat) and m.quantize:
-            yield m, "up_", m.upsample.weight, 1
+        if getattr(m, "quantize", False) and hasattr(m, "int8_sites"):
+            for prefix, weight, axis in m.int8_sites():
+                yield m, prefix, weight, axis
 
 
 class ConvNormAct(nn.Module):
@@ -441,23 +486,14 @@ class ConvNormAct(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.leaky_relu(self.norm(self.conv(x)), self.negative_slope)
 
+    def int8_sites(self):
+        yield "", self.conv.weight, 0
+
     def conv_int8(self, parts: Sequence[torch.Tensor],
                   out_dtype: torch.dtype, prologue=None):
-        """W8A8 conv of the parts' concat: one activation scale over all
-        parts, each quantized in its dtype by the s8 kernel as it loads
-        them, after the norm ``prologue`` (a, b, film, slope) where one is
-        given (which needs a recorded scale: a dynamic one is the abs-max
-        of the parts as given); (y in ``out_dtype``, its (N, 2, Cout)
-        statistics). float64 parts (the CPU's exact parity dtype, which
-        the kernel does not take) are quantized here first, as the JAX
-        block quantizes before ``conv_int8``: the int8 input stands at the
-        conv's boundary, where the parity tests read it."""
-        wq, sw = quant_weights(self, "", self.conv.weight, 0)
-        sa = quant_act_scale(self, "", parts)
-        if parts[0].dtype not in QUANT_ON_LOAD:
-            parts, prologue = quantize_input(parts, sa, prologue), None
-        return conv3x3_int8(parts, wq, sa, sw, self.conv.bias, out_dtype,
-                            with_stats=True, prologue=prologue)
+        """W8A8 conv of the parts' concat (``quant_conv3x3``): (y in
+        ``out_dtype``, its (N, 2, Cout) statistics)."""
+        return quant_conv3x3(self, "", self.conv, parts, out_dtype, prologue)
 
 
 class TwoConv(nn.Module):
@@ -548,23 +584,18 @@ class TwoConv(nn.Module):
         c0, c1 = self.conv_0, self.conv_1
         slope = self.negative_slope
         count = math.prod(parts[0].shape[1:4])
-
-        def affine(conv, stats):
-            # InstanceNorm's affine rounded to the compute dtype, applied in
-            # it (with the FiLM add) by apply_prologue or the kernel
-            a, b = norm_affine_from_stats(stats, conv.norm.weight,
-                                          conv.norm.bias, count)
-            return a.to(dt), b.to(dt)
-
+        # InstanceNorm's affine rounded to the compute dtype, applied in it
+        # (with the FiLM add) by apply_prologue or the kernel
         y0, st0 = c0.conv_int8(parts, dt)
-        pro = (*affine(c0, st0), None if film is None else film.to(dt),
-               slope)
+        pro = (*norm_affine(c0.norm, st0, count, dt),
+               None if film is None else film.to(dt), slope)
         if c1.sa is None:
             # a dynamic scale is the abs-max of u: materialize it
             y1, st1 = c1.conv_int8(apply_prologue([y0], pro), dt)
         else:
             y1, st1 = c1.conv_int8([y0], dt, prologue=pro)
-        return apply_prologue([y1], (*affine(c1, st1), None, slope))[0]
+        return apply_prologue([y1], (*norm_affine(c1.norm, st1, count, dt),
+                                     None, slope))[0]
 
 
 class Down(nn.Module):
@@ -604,6 +635,9 @@ class UpCat(nn.Module):
                              quantize=quantize)
         if quantize:
             _quant_init(self, "up_")
+
+    def int8_sites(self):
+        yield "up_", self.upsample.weight, 1
 
     def forward(self, x: torch.Tensor, x_skip: torch.Tensor,
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -18,8 +18,9 @@ as written; XLA on the CPU may keep the quotient in float32, so a bf16
 comparison with the JAX package can differ by one at exact .5 quotients.
 
 The convs: ``conv3x3_int8`` (3x3x3 SAME over NDHWC parts whose channel
-concat is the input, as ``ops/conv3d.py:conv3x3`` takes them) and
-``deconv2_int8`` (the k2 s2 transposed conv of ``UpCat``). Each returns the
+concat is the input, as ``ops/conv3d.py:conv3x3`` takes them),
+``conv1x1_int8`` (the 1x1x1 residual projection of the Swin-UNETR blocks)
+and ``deconv2_int8`` (the k2 s2 transposed conv of ``UpCat``). Each returns the
 raw int32 sums, or with ``sa`` and ``sw`` the rescaled output (and, for
 the conv, the per-(sample, channel) sum and sum of squares of the float32
 values, as the bf16 conv takes its statistics). The conv takes int8 parts,
@@ -31,11 +32,12 @@ rounded to the parts' dtype). CPU tensors take the plain versions: that
 tensor code, then a float64 convolution of the int8 values, exact since
 |acc| <= 127^2 * 27 * Cin < 2^53 (float32 is not), rounded to int32. CUDA
 tensors take ``csrc/conv3d.cu``'s s8 instance of the wgmma conv kernel
-(the conv; its launches are counted in ``conv3x3_int8.launches``) and, for
-the deconv, one int8 GEMM (voxels, Cin) x (Cin, 8 Cout) through
-``torch._int_mm`` (the JAX package leaves it to XLA: no Pallas kernel),
-then the rescale on that compact output and the scatter of the result
-into the 2x grid in tensor code.
+(the conv; its launches are counted in ``conv3x3_int8.launches``); the
+1x1 conv is one int8 GEMM (voxels, Cin) x (Cin, Cout) through
+``torch._int_mm`` (counted in ``conv1x1_int8.launches``), the deconv one
+(voxels, Cin) x (Cin, 8 Cout), then the rescale on that compact output and
+the scatter of the result into the 2x grid in tensor code (the JAX package
+leaves both to XLA: no Pallas kernel).
 """
 from __future__ import annotations
 
@@ -294,15 +296,56 @@ conv3x3_int8.launches = 0
 
 def _int_mm_padded(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     """a (M, K) @ b_t.T -> int32 (M, N) through ``torch._int_mm``, with M
-    padded past 16 and K to a multiple of 8 by zeros, as it requires; b_t
-    is (N, K) row-major (the column-major right operand)."""
+    padded past 16 and K and N to multiples of 8 by zeros, as it requires;
+    b_t is (N, K) row-major (the column-major right operand)."""
     m, k = a.shape
-    kp = _cdiv(k, 8) * 8
+    n = b_t.shape[0]
+    kp, np8 = _cdiv(k, 8) * 8, _cdiv(n, 8) * 8
     mp = max(m, 32)
     if kp != k or mp != m:
         a = F.pad(a, (0, kp - k, 0, mp - m))
-        b_t = F.pad(b_t, (0, kp - k))
-    return torch._int_mm(a.contiguous(), b_t.contiguous().t())[:m]
+    if kp != k or np8 != n:
+        b_t = F.pad(b_t, (0, kp - k, 0, np8 - n))
+    out = torch._int_mm(a.contiguous(), b_t.contiguous().t())
+    return out[:m] if np8 == n else out[:m, :n]
+
+
+def conv1x1_int8_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """int32 (N, D, H, W, Cout): the 1x1x1 conv of int8 NDHWC xq with the
+    int8 (Cout, Cin, 1, 1, 1) kernel, as a float64 product of the int8
+    values (exact: |acc| <= 127^2 * Cin < 2^53), rounded."""
+    y = torch.einsum("ndhwc,oc->ndhwo", xq.double(), wq.double().flatten(1))
+    return torch.round(y).to(torch.int32).contiguous()
+
+
+def conv1x1_int8(xq: torch.Tensor, wq: torch.Tensor,
+                 sa: Optional[torch.Tensor] = None,
+                 sw: Optional[torch.Tensor] = None,
+                 bias: Optional[torch.Tensor] = None,
+                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The W8A8 1x1x1 conv of int8 NDHWC ``xq`` with int8 (Cout, Cin, 1,
+    1, 1) ``wq``: int32 (N, D, H, W, Cout), or the ``rescale``d output in
+    ``out_dtype`` with ``sa`` and ``sw``. CPU tensors take the plain
+    version; on the card it is one int8 GEMM (voxels, Cin) x (Cin, Cout)."""
+    if (sa is None) != (sw is None):
+        raise ValueError("sa and sw go together")
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise TypeError("conv1x1_int8 takes int8 xq and wq")
+    cout, cin = wq.shape[:2]
+    if xq.dim() != 5 or xq.shape[-1] != cin or tuple(wq.shape[2:]) != (1,) * 3:
+        raise ValueError(f"xq (N, D, H, W, {cin}) and wq ({cout}, {cin}, 1, "
+                         f"1, 1) expected, got {tuple(xq.shape)} and "
+                         f"{tuple(wq.shape)}")
+    if xq.device.type == "cpu":
+        acc = conv1x1_int8_plain(xq, wq)
+    else:
+        acc = _int_mm_padded(xq.reshape(-1, cin), wq.reshape(cout, cin)
+                             ).reshape(*xq.shape[:4], cout)
+        conv1x1_int8.launches += 1
+    return _finish(acc, sa, sw, bias, out_dtype, False)
+
+
+conv1x1_int8.launches = 0
 
 
 def deconv2_int8(xq: torch.Tensor, wq: torch.Tensor,

@@ -13,6 +13,8 @@ train step of its training path, on the card.
     python -m diff_unet_tpu_torch.profile_batch attention_serve [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch int8_serve [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch int8_static_serve [--out FILE]
+    python -m diff_unet_tpu_torch.profile_batch btcv_int8_serve [--out FILE]
+    python -m diff_unet_tpu_torch.profile_batch btcv_int8_static_serve [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch attention_train [--out FILE]
     python -m diff_unet_tpu_torch.profile_batch mim_train [--out FILE]
 
@@ -32,7 +34,9 @@ the BTCV config with that model; ``smooth_serve``, ``attention_serve``:
 the AMOS config with ``smooth_diff_unet`` or ``attention_diff_unet``;
 ``int8_serve``: the AMOS config with ``quantize``, W8A8 int8 with dynamic
 scales; ``int8_static_serve``: the same with static scales calibrated on
-the profiled batch's own trajectory) with seeded random weights and run
+the profiled batch's own trajectory; ``btcv_int8_serve`` and
+``btcv_int8_static_serve``: the same on the BTCV config's DiffSwinUNETR)
+with seeded random weights and run
 what
 it runs for each window batch: the image embedding and the DDIM loop over
 ``sw_batch_size`` windows of the ROI, or the plain model's one forward
@@ -87,7 +91,9 @@ _CONFIGS = {"btcv": ("btcv", {}), "amos": ("amos", {}), "msd": ("msd", {}),
             "smooth": ("amos", {"model_name": "smooth_diff_unet"}),
             "attention": ("amos", {"model_name": "attention_diff_unet"}),
             "int8": ("amos", {"quantize": True}),
-            "int8_static": ("amos", {"quantize": True})}
+            "int8_static": ("amos", {"quantize": True}),
+            "btcv_int8": ("btcv", {"quantize": True}),
+            "btcv_int8_static": ("btcv", {"quantize": True})}
 
 
 def _window_batch(dev: torch.device, data: str):
@@ -107,7 +113,7 @@ def _window_batch(dev: torch.device, data: str):
     noise = torch.randn((sw, *roi, pred.num_classes), generator=g,
                         device=dev)
 
-    if data == "int8_static":
+    if data.endswith("int8_static"):
         from diff_unet_tpu_torch.engine.quantize import \
             quantize_inference_params
         quantize_inference_params(pred, [windows], noise=[noise])
@@ -175,7 +181,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("data", choices=(
         "amos", "btcv", "swin_unetr", "smooth_serve", "attention_serve",
-        "int8_serve", "int8_static_serve",
+        "int8_serve", "int8_static_serve", "btcv_int8_serve",
+        "btcv_int8_static_serve",
         *(f"{k}_train" for k in _TRAIN), "mim_train"))
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--top", type=int, default=25)

@@ -164,25 +164,29 @@ def load_jax_quant(module: nn.Module, quant: Mapping) -> nn.Module:
     ``quant`` collection (with or without the top-level ``"quant"`` key):
     ``wq`` = (int8 DHWIO kernel, (Cout,) scales) and ``sa`` of each
     quantized ``ConvNormAct`` scope, ``up_wq`` and ``up_sa`` of each
-    ``UpCat``. Every int8 conv needs its kernel; the activation scales are
-    all there (calibrated) or none (dynamic). Raises on a key without a
-    counterpart and on a missing one."""
+    ``UpCat``, ``conv1_``, ``conv2_`` and ``conv3_`` ``wq`` and ``sa`` of
+    each Swin-UNETR ``UnetResBlock`` (3x3x3 and 1x1x1 DHWIO kernels). Every
+    int8 conv needs its kernel; the activation scales are all there
+    (calibrated) or none (dynamic), and a conv that reads another's input
+    (``shared_scales``) takes its scale as the same tensor. Raises on a key
+    without a counterpart, on a missing one and on a shared scale that
+    differs from its source's."""
     if set(quant.keys()) == {"quant"}:
         quant = quant["quant"]
     names = {id(m): n for n, m in module.named_modules()}
-    sites = {(names[id(o)], prefix): (o, w)
-             for o, prefix, w, _ in quant_sites(module)}
-    for (_, prefix), (owner, _) in sites.items():
+    sites = {(names[id(o)], prefix): (o, w, axis)
+             for o, prefix, w, axis in quant_sites(module)}
+    for (_, prefix), (owner, *_) in sites.items():
         setattr(owner, prefix + "sa", None)
     seen = {"wq": set(), "sa": set()}
     for path, value in _flatten(quant):
         scope, leaf = ".".join(path[:-1]), path[-1]
-        prefix = "up_" if leaf.startswith("up_") else ""
-        kind = leaf[len(prefix):]
+        head, _, kind = leaf.rpartition("_")
+        prefix = head + "_" if head else ""
         if kind not in seen or (scope, prefix) not in sites:
             raise KeyError(f"flax quant entry {'/'.join(path)} has no "
                            "counterpart in the module")
-        owner, weight = sites[(scope, prefix)]
+        owner, weight, axis = sites[(scope, prefix)]
         dev = weight.device
         if kind == "sa":
             setattr(owner, leaf, torch.tensor(float(np.asarray(value)),
@@ -190,14 +194,15 @@ def load_jax_quant(module: nn.Module, quant: Mapping) -> nn.Module:
                                               device=dev))
         else:
             kq, sw = (np.asarray(v) for v in value)
-            kq = (kq.transpose(4, 3, 0, 1, 2) if prefix == "" else
+            # a conv's DHWIO kernel, or the transposed conv's flipped
+            kq = (kq.transpose(4, 3, 0, 1, 2) if axis == 0 else
                   kq[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2))
             if kq.shape != tuple(weight.shape) or kq.dtype != np.int8:
                 raise ValueError(f"{'/'.join(path)}: int8 kernel {kq.dtype} "
                                  f"{kq.shape} for the module's "
                                  f"{tuple(weight.shape)}")
             setattr(owner, prefix + "wq", torch.from_numpy(
-                np.ascontiguousarray(kq)).to(dev))
+                np.array(kq)).to(dev))
             setattr(owner, prefix + "sw", torch.tensor(
                 np.asarray(sw, np.float32), device=dev))
         seen[kind].add((scope, prefix))
@@ -208,4 +213,13 @@ def load_jax_quant(module: nn.Module, quant: Mapping) -> nn.Module:
     if seen["sa"] and seen["sa"] != set(sites):
         raise KeyError("activation scales missing from the flax quant "
                        f"tree: {sorted(set(sites) - seen['sa'])[:8]}")
+    for (scope, prefix), (owner, *_) in sites.items():
+        source = getattr(owner, "shared_scales", {}).get(prefix)
+        sa = getattr(owner, prefix + "sa")
+        if source is None or sa is None:
+            continue
+        if not torch.equal(sa, getattr(owner, source + "sa")):
+            raise ValueError(f"{scope}: {prefix}sa {float(sa)} differs from "
+                             f"{source}sa, whose input it reads")
+        setattr(owner, prefix + "sa", getattr(owner, source + "sa"))
     return module

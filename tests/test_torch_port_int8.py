@@ -359,8 +359,9 @@ def test_offline_equals_in_graph_and_checkpoints_stay_clean(tmp_path):
 
 
 def test_engine_keys(workspace, tmp_path, monkeypatch):  # noqa: F811
-    """quantize raises in training and for the other families; the
-    Predictor records kernels at build and ``predict_volume`` calibrates on
+    """quantize raises in training and for the other families, and builds
+    DiffSwinUNETR with its 35 int8 convs; the Predictor records kernels at
+    build and ``predict_volume`` calibrates on
     the first volume under ``quant_calibrate``; ``Tester(quantize=True,
     quant_calibrate=1)`` calibrates on its first case and runs; with
     static scales ``continuous=2`` gives the serial dices."""
@@ -372,8 +373,9 @@ def test_engine_keys(workspace, tmp_path, monkeypatch):  # noqa: F811
     for name in ("smooth_diff_unet", "attention_diff_unet", "swin_unetr"):
         with pytest.raises(ValueError, match="only supported for diff_unet"):
             create_model(name, out_channels=2, quantize=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("diff_swin_unetr", out_channels=2, quantize=True)
+    swin = create_model("diff_swin_unetr", out_channels=2, image_size=32,
+                        spatial_size=32, feature_size=12, quantize=True)
+    assert len(list(quant_sites(swin))) == 28 + 7     # 3x3x3 and 1x1x1
     kw = dict(COMMON, classes=str(classes), model_path=str(root / "epoch_4"))
     pred = Predictor(quantize=True, quant_calibrate=2, **kw)
     conv = pred.module.model.conv_0.conv_0
