@@ -271,12 +271,36 @@ PyTorch built for CUDA. Phases, each of which must pass:
       calibrated on it, ``serve_volumes`` over CONT_BTCV_SHAPES against
       serial: bit for bit where the batch sizes match, elsewhere the
       binaries within CONT_FLIPS and the logits within INT8_CONT_FACTOR
-      times the bf16 model's distance on the same volume, read here.
+      times the bf16 model's distance on the same volume, read here;
+11. the rest of the diffusion core (run right after 9d):
+   a. a small DiffUNet (CORE_SMALL, fp32, TF32 off) on the card against
+      the CPU with the same weights, x_T and step noise: ``ddpm_sample``,
+      ``ddim_sample(eta=1)``, the DDIM reverse loop, ``training_losses``
+      of the four loss types and ``calc_bpd_loop`` over a respaced
+      CORE_BPD_STEPS-step schedule, within MODEL_TOL of max |y|; a
+      parametric toy emitting 2C channels, its LEARNED_RANGE
+      ``training_losses`` and their gradients within ATT_GRAD_TOL;
+   b. the AMOS DiffUNet at full width (bf16, seeded random weights), one
+      window batch of 4 x 96^3: ``ddim_sample`` at eta 0 equal bit for
+      bit to the old loop (``parent_ddim_sample``); ``ddpm_sample``
+      (path ``amos_ddpm``), ``ddim_sample(eta=1)`` (``amos_ddim_eta``)
+      and the reverse loop from the eta-0 answer (``amos_ddim_reverse``),
+      each timed once with CUDA events and the wall clock, finite, 190
+      conv launches; ``training_losses`` at 2 x 96^3 forward and backward
+      for ``mse`` and ``rescaled_kl`` (``amos_vb_train``: 28 / 26 / 28
+      conv, dgrad and wgrad launches each, finite loss and gradient norm,
+      peak memory); ``calc_bpd_loop`` at batch 1 over the whole 1000-step
+      train schedule, the embedding hoisted (``amos_bpd``: 10 + 18 x 1000
+      launches, every array finite, its seconds);
+   c. phase 9d's trained model served on its 4 volumes by DDIM-10 at eta
+      0, DDIM-10 at eta 1 and DDPM over the respaced 10 steps, each from
+      the x_T that ``infer`` draws: each mean dice (finite, in [0, 1]) and
+      the share of binary voxels that differ from eta 0.
 
 Serving outputs are checked for shape, finiteness and a binary mask. Each
 path is driven with its kernels' launch counters set to 0 just before it
 and read just after; the kernels line reports each kernel's launches on
-the first path of ``LAUNCH_ORDER`` it ran on (continuous serving first)
+the first path of ``LAUNCH_ORDER`` it ran on (the diffusion core first)
 and all of them under ``launches_by_path``; its float32 entries (the
 3xTF32 conv, forward and dgrad, and weight gradient) report HybridMIM
 pretraining's launches and phase 3h's L0 conv_1. Phases 2-8
@@ -291,7 +315,9 @@ exits non-zero before that.
 
 runs phases 1 and 2 and then only the named phases (the ``phase_*``
 functions of this file that take the device alone), and prints no JSON:
-a way to time two checkouts in turns with the same script.
+a way to time two checkouts in turns with the same script. Alone,
+``diffusion_core`` runs 11a and 11b and reports 11c as not run: its model
+comes from phase 9d.
 """
 from __future__ import annotations
 
@@ -587,7 +613,8 @@ MIM_REPORT = "L0 conv_1"
 SMALL_MIM = ((8, 8, 16, 32, 64, 8), 32, 8, 2, 1e-3)
 # the paths whose launches the kernels line reports, in order of choice:
 # this slice's path first
-LAUNCH_ORDER = ("btcv_int8_serve", "amos_int8_serve", "overfit_int8",
+LAUNCH_ORDER = ("amos_ddpm", "amos_ddim_eta", "amos_ddim_reverse",
+                "amos_vb_train", "amos_bpd", "btcv_int8_serve", "amos_int8_serve", "overfit_int8",
                 "amos_continuous", "amos_attention_continuous",
                 "btcv_continuous", "amos_test_continuous",
                 "mim_pretrain", "amos_attention_train",
@@ -618,6 +645,17 @@ CONT_FLIPS = 1e-2
 EDT_SHAPE = (96, 192, 192)
 EDT_TOL = 1e-6                          # of the largest distance
 METRIC_TOL = 1e-6
+# phase 11, the diffusion core: the small model's widths, side and classes
+# (card against CPU within MODEL_TOL of max |y|; the toy's gradients
+# within ATT_GRAD_TOL of the largest), the bits-per-dim loop's respaced
+# steps there, the full-width training_losses batch and loss types, and
+# the full-width bits-per-dim loop's batch (over the whole 1000-step
+# train schedule)
+CORE_SMALL = ((8, 8, 16, 32, 64, 8), 32, 3)
+CORE_BPD_STEPS = 20
+CORE_TRAIN_N = 2
+CORE_LOSSES = ("mse", "rescaled_kl")
+CORE_BPD_N = 1
 
 
 def fail(msg: str) -> None:
@@ -3180,10 +3218,10 @@ def ddim_spans():
     spans = []
     inner = DiffusionSegmenter.ddim_sample
 
-    def ddim_sample(self, image, *, noise):
+    def ddim_sample(self, image, **kw):
         a = torch.cuda.Event(enable_timing=True)
         a.record()
-        out = inner(self, image, noise=noise)
+        out = inner(self, image, **kw)
         b = torch.cuda.Event(enable_timing=True)
         b.record()
         spans.append((a, b))
@@ -4391,6 +4429,382 @@ def phase_overfit(dev: torch.device, work: Path) -> dict:
         log(msg)
     return {"conv3x3_int8": {"overfit_int8": counts["int8 calibrated"]}}
 
+def parent_ddim_sample(seg, image: torch.Tensor,
+                       noise: torch.Tensor) -> torch.Tensor:
+    """DDIM-10 at eta 0 as ``DiffusionSegmenter.ddim_sample`` computed it
+    before the stochastic samplers came (START_X, FIXED_LARGE): the
+    reference that the main path must still equal bit for bit."""
+    from diff_unet_tpu_torch.diffusion.schedule import extract
+
+    sched = seg.sample_schedule
+    embeddings = seg.module.embed(image)
+    x = noise.float()
+    accum = torch.zeros_like(x)
+    for step in range(sched.num_timesteps - 1, -1, -1):
+        t = torch.full((x.shape[0],), step, dtype=torch.int64,
+                       device=x.device)
+        nd = x.dim()
+        pred = torch.clamp(seg.module.denoise_with_embeddings(
+            x, sched.map_timesteps(t), embeddings, image), -1.0, 1.0)
+        eps = ((extract(sched, "sqrt_recip_alphas_cumprod", t, nd) * x
+                - pred) / extract(sched, "sqrt_recipm1_alphas_cumprod", t,
+                                  nd))
+        abp = extract(sched, "alphas_cumprod_prev", t, nd)
+        x = pred * torch.sqrt(abp) + torch.sqrt(1.0 - abp) * eps
+        accum = accum + pred
+    return accum
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want| (got moved to want's device)."""
+    got, want = got.detach().float(), want.detach().float()
+    return ((got.to(want.device) - want).abs().max()
+            / want.abs().max()).item()
+
+
+def core_small(dev: torch.device) -> None:
+    """Phase 11a: the diffusion core on a small DiffUNet (CORE_SMALL, fp32,
+    TF32 off), card against CPU with the same weights, x_T and step noise
+    (made with numpy): ``ddpm_sample``, ``ddim_sample(eta=1)``, the DDIM
+    reverse loop, ``training_losses`` of every loss type and
+    ``calc_bpd_loop`` over a respaced CORE_BPD_STEPS-step schedule, within
+    MODEL_TOL of max |y|; then a parametric toy emitting 2C channels:
+    LEARNED_RANGE ``training_losses`` of every loss type and its
+    gradients, within ATT_GRAD_TOL of the largest."""
+    from diff_unet_tpu_torch.api import DiffusionSegmenter
+    from diff_unet_tpu_torch.diffusion import gaussian, sampling
+    from diff_unet_tpu_torch.diffusion.schedule import Schedule
+    from diff_unet_tpu_torch.models.diff_unet import DiffUNet
+    from diff_unet_tpu_torch.utils.weights import init_random
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fea, s, classes = CORE_SMALL
+    cpu = init_random(DiffUNet(classes, features=fea), SEED).eval()
+    gpu = DiffUNet(classes, features=fea)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(dev).eval()
+    rng = np.random.default_rng(SEED + 11)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32))
+
+    shape = (2, s, s, s, classes)
+    image = normal(2, s, s, s, 1)
+    x_t, draws = normal(*shape), [normal(*shape) for _ in range(20)]
+    labels = torch.from_numpy(rng.random(shape, np.float32) < 0.2)
+    x_start = labels.float() * 2.0 - 1.0
+    t = torch.tensor([5, 250])
+    bpd_sched = Schedule.create("linear", 1000, respace=[CORE_BPD_STEPS])
+
+    def run(model, d):
+        seg = DiffusionSegmenter(model, classes)
+        im = image.to(d)
+        step_noise = [n.to(d) for n in draws]
+
+        def denoise(x, tt):
+            return model.denoise(im, x, tt)
+
+        out = {}
+        ddpm = seg.ddpm_sample(im, noise=x_t.to(d), step_noise=step_noise)
+        out["ddpm sample"], out["ddpm sum"] = ddpm.sample, \
+            ddpm.pred_xstart_sum
+        ddim = seg.ddim_sample(im, noise=x_t.to(d), eta=1.0,
+                               step_noise=step_noise, return_all=True)
+        out["ddim eta 1 sample"], out["ddim eta 1 sum"] = ddim.sample, \
+            ddim.pred_xstart_sum
+        x0 = seg.ddim_sample(im, noise=x_t.to(d), return_all=True).sample
+        out["ddim reverse x_T"] = sampling.ddim_reverse_sample_loop(
+            seg.embedded_denoiser(im), seg.sample_schedule, x0)
+        for loss_type in gaussian.LOSS_TYPES:
+            out[f"{loss_type} loss"] = gaussian.training_losses(
+                denoise, seg.train_schedule, x_start.to(d), t.to(d),
+                loss_type=loss_type, noise=x_t.to(d))["loss"]
+        bpd = gaussian.calc_bpd_loop(seg.embedded_denoiser(im), bpd_sched,
+                                     x_start.to(d), step_noise=step_noise)
+        out.update({f"bpd {k}": v for k, v in bpd.items()})
+        return out
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = run(cpu, torch.device("cpu"))
+        cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = run(gpu, dev)
+        torch.cuda.synchronize()
+    errs = {k: rel_err(got[k], want[k]) for k in want}
+    log(f"11a small DiffUNet diffusion core (features {fea}, {s}^3, fp32, "
+        f"TF32 off) cuda vs cpu, error / max|y| (tol {MODEL_TOL:.0e}): "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+        + f"; card {time.perf_counter() - t0:.2f} s, cpu {cpu_s:.2f} s")
+    if not all(torch.isfinite(v).all() for v in got.values()) or \
+            max(errs.values()) > MODEL_TOL:
+        fail("11a: the diffusion core on the card disagrees with the CPU")
+
+    # a parametric toy with a learned-range variance: 2C output channels
+    w0, b0 = normal(classes, 2 * classes) * 0.7, normal(2 * classes) * 0.3
+
+    def toy(d):
+        w = w0.to(d).requires_grad_()
+        b = b0.to(d).requires_grad_()
+
+        def fn(x, tt):
+            return torch.tanh(x @ w + b + 1e-3 * tt.reshape(-1, 1, 1, 1, 1))
+        res = {}
+        for loss_type in gaussian.LOSS_TYPES:
+            terms = gaussian.training_losses(
+                fn, Schedule.create("cosine", 100), x_start.to(d),
+                t.to(d) % 100, var_type=gaussian.LEARNED_RANGE,
+                loss_type=loss_type, noise=x_t.to(d))
+            gw, gb = torch.autograd.grad(terms["loss"].sum(), (w, b))
+            res.update({f"{loss_type} loss": terms["loss"],
+                        f"{loss_type} dW": gw, f"{loss_type} db": gb})
+        return res
+
+    want, got = toy(torch.device("cpu")), toy(dev)
+    errs = {k: rel_err(got[k], want[k]) for k in want}
+    log("11a toy LEARNED_RANGE training_losses cuda vs cpu, error / max "
+        f"(tol {ATT_GRAD_TOL:.0e}): "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()))
+    if max(errs.values()) > ATT_GRAD_TOL:
+        fail("11a: the toy's LEARNED_RANGE losses or gradients on the card "
+             "disagree with the CPU")
+
+
+def core_full_width(dev: torch.device) -> dict:
+    """Phase 11b: the diffusion core at the AMOS DiffUNet widths
+    (``cfg/amos/test.yaml``, bf16, seeded random weights) on one window
+    batch of 4 x 96^3: ``ddim_sample`` at eta 0 equal bit for bit to
+    ``parent_ddim_sample``; ``ddpm_sample``, ``ddim_sample(eta=1)`` and
+    the DDIM reverse loop from the eta-0 answer's final sample, each timed
+    once (CUDA events and wall clock), finite, AMOS_CONV_PER_BATCH conv
+    launches; ``training_losses`` at CORE_TRAIN_N x 96^3 forward and
+    backward for CORE_LOSSES (finite, AMOS_TRAIN_PER_STEP launches, peak
+    memory); ``calc_bpd_loop`` at CORE_BPD_N x 96^3 over the whole train
+    schedule, the embedding hoisted: finite, with its seconds. Returns
+    the launches by kernel and path."""
+    from diff_unet_tpu_torch.api import DiffusionSegmenter
+    from diff_unet_tpu_torch.data.synthetic import synthetic_ct
+    from diff_unet_tpu_torch.diffusion import gaussian, sampling
+    from diff_unet_tpu_torch.engine.engine import Predictor
+    from diff_unet_tpu_torch.models.model_hub import create_model
+    from diff_unet_tpu_torch.utils.weights import init_random
+
+    pred = Predictor.from_config(
+        ROOT / "cfg/amos/test.yaml", model_path=None,
+        classes=str(ROOT / "cfg/amos/classes.yaml"), device=dev, seed=SEED)
+    seg = pred.seg
+    vol = synthetic_ct(AMOS_BODY, SEED + 5, dev)
+    r = pred._inferer.roi[0]
+    windows = torch.stack([vol[:, y:y + r, x:x + r] for y in (0, r)
+                           for x in (0, r)])
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    noise = torch.randn((len(windows), r, r, r, pred.num_classes),
+                        generator=g, device=dev)
+    paths = {"conv3x3": {}, "conv3x3_dgrad": {}, "conv3x3_wgrad": {}}
+
+    def counted(path, fn):
+        """fn() with the conv counts set to 0 before and read after, its
+        CUDA-event ms and wall s."""
+        torch.cuda.synchronize()
+        reset_conv()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = conv_counts()
+        if path:
+            for k, c in counts.items():
+                paths[k][path] = c
+        return out, a.elapsed_time(b), wall, counts
+
+    with torch.inference_mode():
+        parent = parent_ddim_sample(seg, windows, noise)
+        out0, ms, wall, counts = counted(None, lambda: seg.ddim_sample(
+            windows, noise=noise, return_all=True))
+        same = torch.equal(out0.pred_xstart_sum, parent)
+        log(f"11b AMOS window batch (4 x 96^3, bf16) ddim_sample eta 0: "
+            f"{ms:.1f} ms, {wall:.4f} s, {counts['conv3x3']} conv launches;"
+            f" equal bit for bit to the parent's DDIM loop: {same}")
+        if not same or counts["conv3x3"] != AMOS_CONV_PER_BATCH:
+            fail("11b: ddim_sample at eta 0 moved from the parent's answer "
+                 f"(max |diff| {rel_err(out0.pred_xstart_sum, parent):.3e}"
+                 " of max |y|) or ran "
+                 f"{counts['conv3x3']} conv launches")
+        runs = {
+            "amos_ddpm": lambda: seg.ddpm_sample(
+                windows, generator=g).pred_xstart_sum,
+            "amos_ddim_eta": lambda: seg.ddim_sample(
+                windows, noise=noise, eta=1.0, generator=g),
+            "amos_ddim_reverse": lambda: sampling.ddim_reverse_sample_loop(
+                seg.embedded_denoiser(windows), seg.sample_schedule,
+                out0.pred_xstart),
+        }
+        outs = {}
+        for path, fn in runs.items():
+            y, ms, wall, counts = counted(path, fn)
+            outs[path] = y
+            msg = (f"11b {path}: {ms:.1f} ms (CUDA events), {wall:.4f} s "
+                   f"wall, {len(windows) * seg.sample_steps / wall:.2f} "
+                   f"window-steps/s, {counts['conv3x3']} conv launches, "
+                   f"max |y| {y.abs().max().item():.3f}")
+            if path != "amos_ddim_reverse":
+                flips = ((y > 0) != (out0.pred_xstart_sum > 0)).float()
+                msg += (f", binary voxels differing from eta 0 "
+                        f"{flips.mean().item():.4e}")
+            log(msg)
+            if not torch.isfinite(y).all() or \
+                    counts["conv3x3"] != AMOS_CONV_PER_BATCH:
+                fail(f"11b {path}: non-finite output or "
+                     f"{counts['conv3x3']} conv launches, predicted "
+                     f"{AMOS_CONV_PER_BATCH}")
+    del outs, out0, parent
+
+    model = init_random(create_model(
+        "diff_unet", out_channels=15, features=(64, 64, 128, 256, 512, 64),
+        dtype=torch.bfloat16), SEED).to(dev)
+    tseg = DiffusionSegmenter(model, 15)
+    n = CORE_TRAIN_N
+    image = torch.rand((n, r, r, r, 1), generator=g, device=dev)
+    x_start = (torch.rand((n, r, r, r, 15), generator=g, device=dev)
+               < 0.1).float() * 2.0 - 1.0
+
+    def denoise(x, tt):
+        return model.denoise(image, x, tt).float()
+
+    train = {}
+    for loss_type in CORE_LOSSES:
+        model.zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        def step():
+            t = gaussian.uniform_timesteps(g, n, tseg.timesteps, dev)
+            terms = gaussian.training_losses(
+                denoise, tseg.train_schedule, x_start, t, g,
+                loss_type=loss_type)
+            terms["loss"].mean().backward()
+            return terms
+
+        terms, ms, wall, counts = counted(None, step)
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(gr.float()) for gr in grads])).item()
+        loss = terms["loss"].detach()
+        train[loss_type] = counts
+        log(f"11b training_losses {loss_type} at {n} x 96^3 (bf16 over "
+            f"fp32), forward + backward: loss {loss.tolist()}, grad norm "
+            f"{norm:.5f} over {len(grads)} tensors, {ms:.1f} ms, "
+            f"{wall:.4f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB, "
+            f"launches {counts}")
+        if not (torch.isfinite(loss).all() and np.isfinite(norm)
+                and norm > 0):
+            fail(f"11b training_losses {loss_type}: non-finite loss or "
+                 "gradient")
+        if counts != AMOS_TRAIN_PER_STEP:
+            fail(f"11b training_losses {loss_type}: launches {counts}, "
+                 f"predicted {AMOS_TRAIN_PER_STEP}")
+    for k in paths:
+        paths[k]["amos_vb_train"] = sum(c[k] for c in train.values())
+    del model, tseg, image, x_start
+
+    sched = seg.train_schedule
+    image = windows[:CORE_BPD_N]
+    x_start = (torch.rand((CORE_BPD_N, r, r, r, 15), generator=g,
+                          device=dev) < 0.1).float() * 2.0 - 1.0
+
+    def bpd():
+        inner = seg.embedded_denoiser(image)
+        return gaussian.calc_bpd_loop(
+            lambda x, tt: inner(x, tt).float(), sched, x_start, g)
+
+    with torch.inference_mode():
+        out, ms, wall, counts = counted("amos_bpd", bpd)
+    steps = sched.num_timesteps
+    log(f"11b calc_bpd_loop at {CORE_BPD_N} x 96^3 over "
+        f"the whole {steps}-step train schedule: "
+        f"total_bpd {out['total_bpd'].tolist()}, prior_bpd "
+        f"{out['prior_bpd'].tolist()}, vb[t=0] {out['vb'][:, -1].tolist()},"
+        f" vb[t=T-1] {out['vb'][:, 0].tolist()}, {wall:.2f} s wall "
+        f"({ms / steps:.2f} ms a step), {counts['conv3x3']} conv launches")
+    want = 10 + 18 * steps
+    if not all(torch.isfinite(v).all() for v in out.values()) or \
+            out["vb"].shape != (CORE_BPD_N, steps) or \
+            counts["conv3x3"] != want:
+        fail(f"11b calc_bpd_loop: non-finite, shape {tuple(out['vb'].shape)}"
+             f" or {counts['conv3x3']} conv launches (predicted {want})")
+    return paths
+
+
+def core_learned(dev: torch.device, work: Path) -> None:
+    """Phase 11c: phase 9d's trained ``overfit.npz`` (4 volumes of 48^3,
+    one window each) served by DDIM-10 at eta 0, DDIM-10 at eta 1 and
+    DDPM over the respaced 10 steps, each from the x_T that ``infer``
+    draws: each mean dice, finite in [0, 1], and the share of binary
+    voxels that differ from eta 0."""
+    from diff_unet_tpu_torch import overfit
+    from diff_unet_tpu_torch.engine.sliding_window import window_seed
+    from diff_unet_tpu_torch.metrics.metrics import validation_dice
+
+    npz = None if work is None else work / "overfit.npz"
+    if npz is None or not npz.exists():
+        log("11c not run: no phase-9d overfit.npz (it runs in the full "
+            "script)")
+        return
+    pred = overfit.build_predictor(device=dev, model_path=str(npz))
+    images, _, onehot = overfit.make_cases()
+    samplers = {
+        "DDIM-10 eta 0": lambda im, x_t, g: pred.seg.ddim_sample(
+            im, noise=x_t),
+        "DDIM-10 eta 1": lambda im, x_t, g: pred.seg.ddim_sample(
+            im, noise=x_t, eta=1.0, generator=g),
+        "DDPM respaced 10": lambda im, x_t, g: pred.seg.ddpm_sample(
+            im, noise=x_t, generator=g).pred_xstart_sum,
+    }
+    binaries = {}
+    for name, sample in samplers.items():
+        dices, bins = [], []
+        t0 = time.perf_counter()
+        for i, (img, lab) in enumerate(zip(images, onehot)):
+            im = torch.from_numpy(img)[None].to(dev)
+            x0 = torch.Generator(device=dev).manual_seed(
+                window_seed(pred.seed, (0, 0, 0)))
+            x_t = torch.randn((1, *img.shape[:3], pred.num_classes),
+                              generator=x0, device=dev)
+            g = torch.Generator(device=dev).manual_seed(SEED + 100 + i)
+            with torch.inference_mode():
+                binary = (torch.sigmoid(sample(im, x_t, g)[0]) > 0.5).float()
+            dices.append(float(validation_dice(
+                binary, torch.from_numpy(lab).to(dev)).mean()))
+            bins.append(binary)
+        torch.cuda.synchronize()
+        binaries[name] = bins
+        mean = float(np.mean(dices))
+        flips = float(np.mean([(a != b).float().mean().item() for a, b in
+                               zip(bins, binaries["DDIM-10 eta 0"])]))
+        log(f"11c overfit model served by {name}: mean dice {mean:.4f} "
+            f"{[round(d, 4) for d in dices]}, binary voxels differing from "
+            f"eta 0 {flips:.4e}, {time.perf_counter() - t0:.2f} s for "
+            f"{len(images)} volumes")
+        if not all(np.isfinite(d) and 0.0 <= d <= 1.0 for d in dices):
+            fail(f"11c {name}: a dice outside [0, 1]: {dices}")
+
+
+def phase_diffusion_core(dev: torch.device, work: Path = None) -> dict:
+    """Phase 11: the rest of the diffusion core (11a small model card vs
+    CPU, 11b full AMOS width, 11c the trained model of phase 9d, given
+    ``work`` where it saved ``overfit.npz``). Returns 11b's launches by
+    kernel and path."""
+    t0 = time.perf_counter()
+    core_small(dev)
+    paths = core_full_width(dev)
+    core_learned(dev, work)
+    log(f"phase 11 (diffusion core): {time.perf_counter() - t0:.1f} s")
+    return paths
+
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4490,6 +4904,10 @@ def run_phases(card: str, clock_hz: float, work: Path, t0: float) -> None:
                             quantize=True).items():
         paths[k].update(v)
     for k, v in phase_overfit(dev, work).items():
+        paths[k].update(v)
+    # the diffusion core: DDPM, DDIM at eta 1, the reverse loop, the
+    # training losses and the bits-per-dim loop at the AMOS widths
+    for k, v in phase_diffusion_core(dev, work).items():
         paths[k].update(v)
     # W8A8 int8 serving of DiffSwinUNETR at the BTCV config: the UNETR
     # blocks' 3x3x3 convs on the s8 kernel, their 1x1 projections as int8

@@ -1,13 +1,14 @@
 """Segmentation API (counterpart of ``diff_unet_tpu/api.py``):
 ``DiffusionSegmenter`` gives training ``q_sample`` and ``denoise`` and
 serving the respaced DDIM loop (embed the image once, return the per-step
-pred_xstart sum as logits); ``PlainSegmenter`` gives a non-diffusion
-baseline (``swin_unetr``) the same surface, one forward per image."""
+pred_xstart sum as logits), DDIM with eta > 0 and ancestral DDPM;
+``PlainSegmenter`` gives a non-diffusion baseline (``swin_unetr``) the
+same surface, one forward per image."""
 from __future__ import annotations
 
 import dataclasses
 from functools import cached_property
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -30,20 +31,26 @@ class PlainSegmenter:
 
 @dataclasses.dataclass(eq=False)
 class DiffusionSegmenter:
-    """A denoiser module (``DiffSwinUNETR``) with its sampling process."""
+    """A denoiser module (``DiffSwinUNETR``, ``DiffUNet``, ...) with its
+    train and sample diffusion processes: ``schedule_name`` ("linear" or
+    "cosine") and the model's mean and variance parameterisation, as in
+    the JAX package (no engine key sets them)."""
 
     module: nn.Module
     num_classes: int
     timesteps: int = 1000
     sample_steps: int = 10
+    schedule_name: str = "linear"
+    mean_type: str = gaussian.START_X
+    var_type: str = gaussian.FIXED_LARGE
 
     @cached_property
     def train_schedule(self) -> Schedule:
-        return Schedule.create("linear", self.timesteps)
+        return Schedule.create(self.schedule_name, self.timesteps)
 
     @cached_property
     def sample_schedule(self) -> Schedule:
-        return Schedule.create("linear", self.timesteps,
+        return Schedule.create(self.schedule_name, self.timesteps,
                                respace=[self.sample_steps])
 
     def q_sample(self, x_start: torch.Tensor,
@@ -68,17 +75,45 @@ class DiffusionSegmenter:
         image."""
         return self.module.denoise(image, x, t)
 
-    def ddim_sample(self, image: torch.Tensor, *,
-                    noise: torch.Tensor) -> torch.Tensor:
-        """Respaced DDIM (eta = 0) over image (B, D, H, W, Cin) from x_T =
-        ``noise`` (B, D, H, W, num_classes); sliding-window inference passes
-        per-window noise keyed on window start coordinates. Returns the
-        per-step pred_xstart sum."""
+    def embedded_denoiser(self, image: torch.Tensor) -> gaussian.DenoiseFn:
+        """Embed ``image`` once; returns denoise_fn(x, t) over those
+        embeddings, for a sampling loop."""
         embeddings = self.module.embed(image)
 
         def denoise_fn(x, t):
             return self.module.denoise_with_embeddings(x, t, embeddings,
                                                        image)
+        return denoise_fn
 
-        return sampling.ddim_sample_loop(denoise_fn, self.sample_schedule,
-                                         noise).pred_xstart_sum
+    def ddim_sample(self, image: torch.Tensor, *, noise: torch.Tensor,
+                    eta: float = 0.0,
+                    generator: Optional[torch.Generator] = None,
+                    step_noise: Optional[gaussian.StepNoise] = None,
+                    return_all: bool = False
+                    ) -> Union[torch.Tensor, sampling.SampleLoopOutput]:
+        """Respaced DDIM over image (B, D, H, W, Cin) from x_T = ``noise``
+        (B, D, H, W, num_classes); sliding-window inference passes
+        per-window noise keyed on window start coordinates. At eta > 0
+        each step's noise comes from ``step_noise`` (by respaced step) or
+        ``generator`` (on the image's device). Returns the per-step
+        pred_xstart sum, or with ``return_all`` the loop's
+        ``SampleLoopOutput``."""
+        out = sampling.ddim_sample_loop(
+            self.embedded_denoiser(image), self.sample_schedule, noise,
+            generator=generator, step_noise=step_noise, eta=eta,
+            mean_type=self.mean_type, var_type=self.var_type)
+        return out if return_all else out.pred_xstart_sum
+
+    def ddpm_sample(self, image: torch.Tensor, *,
+                    generator: Optional[torch.Generator] = None,
+                    noise: Optional[torch.Tensor] = None,
+                    step_noise: Optional[gaussian.StepNoise] = None
+                    ) -> sampling.SampleLoopOutput:
+        """Ancestral sampling over the respaced process: x_T = ``noise``
+        or a draw from ``generator`` (on the image's device), each step's
+        noise from ``step_noise`` or ``generator``."""
+        shape = (image.shape[0], *image.shape[1:-1], self.num_classes)
+        return sampling.p_sample_loop(
+            self.embedded_denoiser(image), self.sample_schedule, noise,
+            shape=shape, generator=generator, step_noise=step_noise,
+            mean_type=self.mean_type, var_type=self.var_type)

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Sequence, Union
+import math
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -20,6 +21,31 @@ def linear_beta_schedule(num_timesteps: int) -> np.ndarray:
     scale = 1000.0 / num_timesteps
     return np.linspace(scale * 0.0001, scale * 0.02, num_timesteps,
                        dtype=np.float64)
+
+
+def betas_for_alpha_bar(num_timesteps: int,
+                        alpha_bar: Callable[[float], float],
+                        max_beta: float = 0.999) -> np.ndarray:
+    """Discretize a continuous alpha-bar function into betas."""
+    t = np.arange(num_timesteps, dtype=np.float64)
+    a1 = np.array([alpha_bar(x) for x in t / num_timesteps])
+    a2 = np.array([alpha_bar(x) for x in (t + 1) / num_timesteps])
+    return np.minimum(1.0 - a2 / a1, max_beta)
+
+
+def cosine_beta_schedule(num_timesteps: int) -> np.ndarray:
+    """The cosine schedule of Nichol and Dhariwal."""
+    return betas_for_alpha_bar(
+        num_timesteps,
+        lambda t: math.cos((t + 0.008) / 1.008 * math.pi / 2) ** 2)
+
+
+def get_named_beta_schedule(name: str, num_timesteps: int) -> np.ndarray:
+    if name == "linear":
+        return linear_beta_schedule(num_timesteps)
+    if name == "cosine":
+        return cosine_beta_schedule(num_timesteps)
+    raise NotImplementedError(f"unknown beta schedule: {name}")
 
 
 def space_timesteps(num_timesteps: int,
@@ -56,7 +82,11 @@ def space_timesteps(num_timesteps: int,
 @dataclasses.dataclass(frozen=True, eq=False)
 class Schedule:
     """Precomputed diffusion tables (float64 numpy, shape (T,)) plus the
-    respaced-index -> raw-timestep map."""
+    respaced-index -> raw-timestep map. Beside the JAX package's tables it
+    holds four that the JAX formulas build inline from them
+    (``one_minus_alphas_cumprod``, ``log_betas``,
+    ``recip_posterior_mean_coef1``, ``posterior_mean_coef2_over_coef1``),
+    so that every gathered scalar is a float64 value rounded once."""
 
     betas: np.ndarray
     timestep_map: np.ndarray
@@ -74,22 +104,35 @@ class Schedule:
         alphas = 1.0 - betas
         ac = np.cumprod(alphas, axis=0)
         ac_prev = np.append(1.0, ac[:-1])
+        ac_next = np.append(ac[1:], 0.0)
         post_var = betas * (1.0 - ac_prev) / (1.0 - ac)
+        # the posterior variance is 0 at t = 0: its log takes t = 1's
+        post_log_var = np.log(np.append(post_var[1], post_var[1:]))
         fl_var = np.append(post_var[1], betas[1:])
+        coef1 = betas * np.sqrt(ac_prev) / (1.0 - ac)
+        coef2 = (1.0 - ac_prev) * np.sqrt(alphas) / (1.0 - ac)
+        # a linear schedule of few steps reaches beta 1: its reciprocal
+        # tables are then inf at the last step, as in the JAX package
         with np.errstate(divide="ignore"):
             fields = dict(
                 alphas_cumprod=ac,
                 alphas_cumprod_prev=ac_prev,
+                alphas_cumprod_next=ac_next,
                 sqrt_alphas_cumprod=np.sqrt(ac),
                 sqrt_one_minus_alphas_cumprod=np.sqrt(1.0 - ac),
+                log_one_minus_alphas_cumprod=np.log(1.0 - ac),
                 sqrt_recip_alphas_cumprod=np.sqrt(1.0 / ac),
                 sqrt_recipm1_alphas_cumprod=np.sqrt(1.0 / ac - 1.0),
                 posterior_variance=post_var,
-                posterior_mean_coef1=betas * np.sqrt(ac_prev) / (1.0 - ac),
-                posterior_mean_coef2=(1.0 - ac_prev) * np.sqrt(alphas)
-                / (1.0 - ac),
+                posterior_log_variance_clipped=post_log_var,
+                posterior_mean_coef1=coef1,
+                posterior_mean_coef2=coef2,
                 fixed_large_variance=fl_var,
                 fixed_large_log_variance=np.log(fl_var),
+                one_minus_alphas_cumprod=1.0 - ac,
+                log_betas=np.log(betas),
+                recip_posterior_mean_coef1=1.0 / coef1,
+                posterior_mean_coef2_over_coef1=coef2 / coef1,
             )
         for k, v in fields.items():
             object.__setattr__(self, k, v)
@@ -104,11 +147,7 @@ class Schedule:
                ) -> "Schedule":
         """Build a (possibly respaced) schedule; ``respace=[10]`` is the
         DDIM-10 sampling process."""
-        if schedule_name != "linear":
-            raise NotImplementedError(
-                f"beta schedule {schedule_name!r} is not ported yet "
-                "(ROADMAP.md, diffusion core)")
-        betas = linear_beta_schedule(num_timesteps)
+        betas = get_named_beta_schedule(schedule_name, num_timesteps)
         if respace is None:
             return cls(betas, np.arange(num_timesteps, dtype=np.int32))
         keep = space_timesteps(num_timesteps, respace)

@@ -31,17 +31,24 @@ def test_schedule_tables_match(respace):
                                       getattr(want, name), err_msg=name)
 
 
-def test_space_timesteps_and_unported_options():
+def test_space_timesteps_and_unknown_options():
+    """space_timesteps as in JAX; an unknown schedule name, mean type or
+    variance type raises, as JAX's do (the model is never called)."""
     for counts in ([10], [3, 7], "ddim50", "2,4,6"):
         assert tsch.space_timesteps(1000, counts) == \
             jsch.space_timesteps(1000, counts)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsch.Schedule.create("cosine", 1000)
+    with pytest.raises(NotImplementedError, match="quadratic"):
+        tsch.Schedule.create("quadratic", 1000)
     s = tsch.Schedule.create("linear", 1000, respace=[10])
     x = torch.zeros(1, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.p_mean_variance(lambda a, b: a, s, x, torch.zeros(1).long(),
-                           mean_type="epsilon")
+
+    def never(a, b):
+        raise AssertionError("the model ran")
+
+    for kw in (dict(mean_type="score"), dict(var_type="fixed_medium")):
+        with pytest.raises(NotImplementedError, match=next(iter(
+                kw.values()))):
+            tg.p_mean_variance(never, s, x, torch.zeros(1).long(), **kw)
 
 
 def _jax_fn(x, t):
